@@ -1,0 +1,28 @@
+"""repro_torch: the EnvPool reproduction on PyTorch and CUDA (Hopper).
+
+The port of the JAX package ``repro``; it imports neither JAX nor any
+module of ``repro``.  Importing it builds no kernel: the CUDA library is
+compiled on the first launch (``kernels/build.py``).
+
+    import repro_torch
+    pool = repro_torch.make("PongClassic-v5", num_envs=1024)
+    ps, ts = pool.reset(repro_torch.random.PRNGKey(0))
+    ps, ts = pool.step(ps, actions, ts.env_id)
+"""
+
+from repro_torch import random
+from repro_torch.core.registry import list_envs, make
+from repro_torch.core.transforms import (
+    FrameStack,
+    Grayscale,
+    Resize,
+    RewardClip,
+    Transform,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "FrameStack", "Grayscale", "Resize", "RewardClip", "Transform",
+    "list_envs", "make", "random",
+]

@@ -1,0 +1,102 @@
+"""``repro_torch.make`` — the ``envpool.make`` analogue
+(``repro/core/registry.py``).
+
+    pool = make("Ant-v3", num_envs=4096)                        # sync
+    pool = make("Ant-v3", num_envs=4096, batch_size=2048)       # async
+    pool = make("PongClassic-v5", num_envs=1024, batch_size=512,
+                schedule="sjf")
+
+Only the device engine is ported; the other engines, the masked mode
+and telemetry raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core.engine import DeviceEnvPool
+from repro_torch.core.transforms import (
+    FrameStack,
+    Grayscale,
+    Resize,
+    RewardClip,
+    Transform,
+    resolve_transforms,
+)
+from repro_torch.envs.atari_like import AtariLike
+from repro_torch.envs.base import Environment
+from repro_torch.envs.mujoco_like import MujocoLike
+
+# engine -> the ROADMAP item that ports it
+_LATER_ENGINES = {
+    "device-masked": "A8", "device-sharded": "A12",
+    "thread": "A9", "forloop": "A9", "subprocess": "A9",
+}
+
+
+def _pong_classic(**kw: Any) -> AtariLike:
+    return AtariLike(**{"obs_mode": "rgb", **kw})
+
+
+def _registry() -> dict[str, tuple[Callable[..., Environment],
+                                   tuple[Transform, ...]]]:
+    """task -> (env factory, default transform pipeline)."""
+    return {
+        "Ant-v3": (MujocoLike, ()),
+        "MujocoLike-Ant-v3": (MujocoLike, ()),
+        "Pong-v5": (AtariLike, (FrameStack(4),)),
+        "AtariLike-Pong-v5": (AtariLike, (FrameStack(4),)),
+        "PongStack-v5": (AtariLike, (FrameStack(4), RewardClip())),
+        # the classic ALE pipeline, in-engine: native RGB render ->
+        # grayscale -> 84x84 area resize -> stack -> clip
+        "PongClassic-v5": (_pong_classic, (Grayscale(), Resize(84, 84),
+                                           FrameStack(4), RewardClip())),
+    }
+
+
+def list_envs() -> list[str]:
+    return sorted(_registry())
+
+
+def make(task_id: str, num_envs: int, batch_size: int | None = None,
+         engine: str = "device", seed: int = 0, schedule: str = "fifo",
+         transforms: Any = None, obs: bool = False,
+         device: torch.device | str | None = None,
+         **env_kwargs: Any) -> DeviceEnvPool:
+    """Create a device env pool on ``device`` (default ``cuda``, which
+    must be present: there is no quiet fallback to the CPU).
+
+    ``batch_size`` None or ``num_envs`` is sync mode, smaller is async
+    under ``schedule`` (``fifo`` or ``sjf``).  ``transforms=None`` takes
+    the task's registered pipeline, an explicit list replaces it.
+    ``seed`` seeds the host engines of the JAX package; the device
+    engine takes its key at ``reset``, so it is unused here.
+    ``obs=True`` (engine telemetry) is not ported yet."""
+    tasks = _registry()
+    if task_id not in tasks:
+        raise KeyError(f"unknown env {task_id!r}; known: {sorted(tasks)}")
+    if engine in _LATER_ENGINES:
+        raise NotImplementedError(
+            f"engine={engine!r} is not ported yet (ROADMAP "
+            f"{_LATER_ENGINES[engine]})")
+    if engine != "device":
+        raise ValueError(f"unknown engine {engine!r}")
+    if obs:
+        raise NotImplementedError(
+            "obs=True (engine telemetry, pool.stats()) is not ported yet "
+            "(ROADMAP A6)")
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run on the CPU")
+        device = "cuda"
+    factory, default = tasks[task_id]
+    return DeviceEnvPool(factory(**env_kwargs), num_envs, batch_size,
+                         schedule=schedule,
+                         transforms=resolve_transforms(transforms, default),
+                         device=device)
+
+
+__all__ = ["list_envs", "make"]

@@ -1,0 +1,122 @@
+"""Async selection policies (``repro/core/scheduler.py``): which M of
+the N lanes each recv serves.
+
+``SchedState`` holds the per-lane signals (phase, predicted cost,
+enqueue tick) and the recv tick; the engine builds it as a view of its
+``PoolState`` fields.  A policy maps them to one f32 priority per lane
+(lower is served first); ``select`` takes the M lowest.
+
+Tie order is part of the stream.  The JAX package selects with
+``lax.top_k(-priority, m)``, which keeps the lower index first among
+equal values, and ties are the common case: the fifo READY band is
+``-1e9 + send_tick`` in f32, and ulp(1e9) = 64, so every READY lane
+within 64 ticks ties.  ``torch.topk`` promises no order among ties, so
+``select`` is a stable ascending sort, and the priorities are computed
+in f32 in the JAX package's op order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.utils.tree import tree_dataclass
+
+WAITING_ACTION = 0   # result consumed; the agent owes an action
+HAS_ACTION = 1       # action stored; step not yet executed
+READY = 2            # unconsumed result available
+
+_BIG = 1e9           # exactly representable in f32
+SCHEDULES = ("fifo", "sjf")
+
+
+@tree_dataclass
+class SchedState:
+    phase: torch.Tensor      # (N,) int32
+    cost: torch.Tensor       # (N,) int32 predicted cost of the pending step
+    send_tick: torch.Tensor  # (N,) int32 tick the action was enqueued
+    tick: torch.Tensor       # () int32 recv counter
+
+
+class Scheduler:
+    """A policy: pure functions over ``SchedState``."""
+
+    name = "base"
+
+    def enqueue(self, ss: SchedState, lane_ids: torch.Tensor,
+                costs: torch.Tensor) -> SchedState:
+        """Lanes ``lane_ids`` received an action with predicted ``costs``."""
+        ids = lane_ids.long()
+        return ss.replace(
+            phase=ss.phase.index_fill(0, ids, HAS_ACTION),
+            cost=ss.cost.index_copy(0, ids, costs.to(torch.int32)),
+            send_tick=ss.send_tick.index_copy(
+                0, ids, ss.tick.expand(ids.shape).to(torch.int32)),
+        )
+
+    def select(self, ss: SchedState, m: int) -> torch.Tensor:
+        """The ``m`` lanes to serve, lowest priority first, ties by lane
+        index (see the module docstring)."""
+        order = torch.sort(self.priority(ss), stable=True).indices
+        return order[:m].to(torch.int32)
+
+    def complete(self, ss: SchedState, idx: torch.Tensor) -> SchedState:
+        """Served lanes go back to WAITING; the tick advances."""
+        return ss.replace(phase=ss.phase.index_fill(0, idx.long(),
+                                                    WAITING_ACTION),
+                          tick=ss.tick + 1)
+
+    def priority(self, ss: SchedState) -> torch.Tensor:
+        """(N,) f32; READY lanes below every HAS_ACTION lane, WAITING
+        lanes above everything."""
+        raise NotImplementedError
+
+    @staticmethod
+    def _ready_band(ss: SchedState) -> torch.Tensor:
+        return -_BIG + ss.send_tick.to(torch.float32)
+
+
+class FifoScheduler(Scheduler):
+    """READY first in enqueue order, then HAS_ACTION by predicted cost
+    minus queue age (SJF softened by aging), WAITING last."""
+
+    name = "fifo"
+    aging = 1.0
+
+    def priority(self, ss: SchedState) -> torch.Tensor:
+        age = (ss.tick - ss.send_tick).to(torch.float32)
+        has_p = ss.cost.to(torch.float32) - self.aging * age
+        return torch.where(ss.phase == READY, self._ready_band(ss),
+                           torch.where(ss.phase == HAS_ACTION, has_p, _BIG))
+
+
+class SjfScheduler(Scheduler):
+    """Pure shortest-job-first on the cost signal; no aging, so
+    persistently expensive lanes starve while cheap work exists."""
+
+    name = "sjf"
+
+    def priority(self, ss: SchedState) -> torch.Tensor:
+        return torch.where(
+            ss.phase == READY, self._ready_band(ss),
+            torch.where(ss.phase == HAS_ACTION,
+                        ss.cost.to(torch.float32), _BIG))
+
+
+def get_scheduler(schedule: str = "fifo") -> Scheduler:
+    """Resolve a policy name.  ``hierarchical`` is the cross-shard
+    policy and needs a device mesh, which this engine does not have."""
+    if schedule == "fifo":
+        return FifoScheduler()
+    if schedule == "sjf":
+        return SjfScheduler()
+    if schedule == "hierarchical":
+        raise ValueError(
+            "schedule='hierarchical' is the cross-shard policy: it needs a "
+            "device mesh (multi-GPU sharding, ROADMAP A12)")
+    raise ValueError(f"unknown schedule {schedule!r}; known: {SCHEDULES}")
+
+
+__all__ = [
+    "HAS_ACTION", "READY", "SCHEDULES", "WAITING_ACTION", "FifoScheduler",
+    "SchedState", "Scheduler", "SjfScheduler", "get_scheduler",
+]

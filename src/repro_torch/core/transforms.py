@@ -1,0 +1,217 @@
+"""In-engine transform pipeline (``repro/core/transforms.py``): the
+preprocessing applied to every served block inside recv.
+
+A ``Transform`` has a spec transformer (``transform_spec``, so
+``pool.spec`` stays truthful), fresh state (``init``) and ``apply`` over
+one served block of M rows.  ``per_lane`` transforms keep state rows
+with a leading N dim that the engine gathers for the served lanes and
+scatters back.  ``on_reset`` semantics ride on auto-reset: a served step
+with ``done`` already carries the next episode's first obs, so stateful
+transforms re-initialize that lane from it; a per-lane ``fresh`` latch
+covers the pool's first serve.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence
+
+import torch
+
+from repro_torch.core.specs import EnvSpec, TimeStep
+from repro_torch.kernels.image.ref import RESIZE_METHODS
+from repro_torch.utils.tree import (
+    lane_mask,
+    tree_gather,
+    tree_scatter,
+)
+
+
+class Transform:
+    """One preprocessing stage."""
+
+    name = "identity"
+    # True: state leaves carry a leading num_envs dim, gathered and
+    # scattered by the engine for each served block
+    per_lane = False
+
+    def transform_spec(self, spec: EnvSpec) -> EnvSpec:
+        return spec
+
+    def init(self, spec: EnvSpec, num_envs: int,
+             device: torch.device) -> Any:
+        return ()
+
+    def apply(self, state: Any, ts: TimeStep, spec: EnvSpec
+              ) -> tuple[Any, TimeStep]:
+        """Transform one served block; ``spec`` is this stage's input."""
+        return state, ts
+
+
+class FrameStack(Transform):
+    """Stack the last ``k`` served observations per lane, oldest first.
+    On auto-reset and on a lane's first serve the stack is refilled with
+    the episode's first observation."""
+
+    name = "frame_stack"
+    per_lane = True
+
+    def __init__(self, k: int = 4):
+        if k < 1:
+            raise ValueError(f"FrameStack needs k >= 1, got {k}")
+        self.k = int(k)
+
+    def transform_spec(self, spec):
+        o = spec.obs_spec
+        return dataclasses.replace(
+            spec, obs_spec=dataclasses.replace(o, shape=(self.k,) + o.shape))
+
+    def init(self, spec, num_envs, device):
+        o = spec.obs_spec
+        return {
+            "buf": torch.zeros((num_envs, self.k) + o.shape, dtype=o.dtype,
+                               device=device),
+            "fresh": torch.ones((num_envs,), dtype=torch.bool,
+                                device=device),
+        }
+
+    def apply(self, state, ts, spec):
+        obs = ts.obs
+        pushed = torch.cat([state["buf"][:, 1:], obs[:, None]], dim=1)
+        reset = state["fresh"] | ts.done
+        buf = torch.where(lane_mask(reset, pushed),
+                          obs[:, None].expand_as(pushed), pushed)
+        return ({"buf": buf, "fresh": torch.zeros_like(state["fresh"])},
+                ts.replace(obs=buf))
+
+
+class RewardClip(Transform):
+    """Clip the served reward to ``[lo, hi]``; ``episode_return`` stays
+    the raw return."""
+
+    name = "reward_clip"
+
+    def __init__(self, lo: float = -1.0, hi: float = 1.0):
+        self.lo, self.hi = float(lo), float(hi)
+
+    def apply(self, state, ts, spec):
+        return state, ts.replace(reward=torch.clamp(ts.reward, self.lo,
+                                                    self.hi))
+
+
+class Grayscale(Transform):
+    """RGB -> ALE luma: ``(..., H, W, 3) uint8 -> (..., H, W) uint8``
+    through the ``grayscale`` kernel."""
+
+    name = "grayscale"
+
+    def transform_spec(self, spec):
+        o = spec.obs_spec
+        if len(o.shape) < 3 or o.shape[-1] != 3:
+            raise ValueError(
+                f"Grayscale wants (..., H, W, 3) observations; got {o.shape}")
+        if o.dtype != torch.uint8:
+            raise ValueError(f"Grayscale wants uint8 observations; got "
+                             f"{o.dtype}")
+        return dataclasses.replace(
+            spec, obs_spec=dataclasses.replace(o, shape=o.shape[:-1]))
+
+    def apply(self, state, ts, spec):
+        from repro_torch.kernels.image.ops import grayscale
+
+        return state, ts.replace(obs=grayscale(ts.obs))
+
+
+class Resize(Transform):
+    """Fixed-point resampling of the trailing (H, W) dims to ``(h, w)``
+    (``area`` or ``bilinear``) through the ``resize`` kernel."""
+
+    name = "resize"
+
+    def __init__(self, h: int, w: int, method: str = "area"):
+        if h < 1 or w < 1:
+            raise ValueError(f"Resize needs h, w >= 1; got ({h}, {w})")
+        if method not in RESIZE_METHODS:
+            raise ValueError(
+                f"unknown resize method {method!r}; known: {RESIZE_METHODS}")
+        self.h, self.w = int(h), int(w)
+        self.method = method
+
+    def transform_spec(self, spec):
+        o = spec.obs_spec
+        if len(o.shape) < 2:
+            raise ValueError(
+                f"Resize wants (..., H, W) observations; got {o.shape}")
+        if o.dtype != torch.uint8:
+            raise ValueError(f"Resize wants uint8 observations; got "
+                             f"{o.dtype}")
+        return dataclasses.replace(spec, obs_spec=dataclasses.replace(
+            o, shape=o.shape[:-2] + (self.h, self.w)))
+
+    def apply(self, state, ts, spec):
+        from repro_torch.kernels.image.ops import resize
+
+        return state, ts.replace(obs=resize(ts.obs, self.h, self.w,
+                                            self.method))
+
+
+class TransformPipeline:
+    """An ordered list of transforms bound to one env spec: ``init`` the
+    per-pool state tuple, ``gather``/``scatter`` the per-lane rows of a
+    served block, ``apply`` the stages in order."""
+
+    def __init__(self, transforms: Sequence[Transform], spec: EnvSpec):
+        self.transforms = tuple(transforms)
+        for t in self.transforms:
+            if not isinstance(t, Transform):
+                raise TypeError(
+                    f"transforms must be Transform instances, got {t!r}")
+        self.in_spec = spec
+        stage_specs = []
+        s = spec
+        for t in self.transforms:
+            stage_specs.append(s)
+            s = t.transform_spec(s)
+            if s.act_spec is not spec.act_spec:
+                raise ValueError(
+                    f"transform {t.name!r} must not change act_spec")
+        self.stage_specs = tuple(stage_specs)
+        self.out_spec = s
+
+    def __bool__(self) -> bool:
+        return bool(self.transforms)
+
+    def init(self, num_envs: int, device: torch.device) -> tuple:
+        return tuple(t.init(s, num_envs, device)
+                     for t, s in zip(self.transforms, self.stage_specs))
+
+    def gather(self, tf_state: tuple, idx: torch.Tensor) -> tuple:
+        return tuple(tree_gather(s, idx) if t.per_lane else s
+                     for t, s in zip(self.transforms, tf_state))
+
+    def scatter(self, tf_state: tuple, idx: torch.Tensor,
+                block: tuple) -> tuple:
+        return tuple(tree_scatter(full, idx, blk) if t.per_lane else blk
+                     for t, full, blk in zip(self.transforms, tf_state,
+                                             block))
+
+    def apply(self, block: tuple, ts: TimeStep) -> tuple[tuple, TimeStep]:
+        new = []
+        for t, s, spec in zip(self.transforms, block, self.stage_specs):
+            s, ts = t.apply(s, ts, spec)
+            new.append(s)
+        return tuple(new), ts
+
+
+def resolve_transforms(transforms: Sequence[Transform] | None,
+                       default: Sequence[Transform] = ()
+                       ) -> tuple[Transform, ...]:
+    """``None`` selects the task's registered pipeline; an explicit
+    sequence (``[]`` for the raw stream) replaces it."""
+    return tuple(default if transforms is None else transforms)
+
+
+__all__ = [
+    "FrameStack", "Grayscale", "Resize", "RewardClip", "Transform",
+    "TransformPipeline", "resolve_transforms",
+]

@@ -1,0 +1,106 @@
+"""Build the port's CUDA sources into one shared library at first use.
+
+Every ``src/repro_torch/csrc/*.cu`` is compiled by its own ``nvcc``
+process, all started together, then linked into one ``.so`` with a plain
+C interface and loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds).  The library lands in ``build/repro_torch/`` at the root
+of the checkout, named by a hash of the sources and flags, so an edited
+source is never served a stale build.
+
+Flags: ``sm_90a`` (Hopper), ``-fmad=false`` so nvcc does not contract
+``a*b + c`` into fused multiply-adds — the physics and the render must
+round exactly as their plain PyTorch versions do — and no fast math.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false",
+                     "-Xcompiler", "-fPIC")
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry point -> argument types (pointers and the stream as c_void_p;
+# a count that can pass 2^31 as c_longlong)
+SIGNATURES = {
+    # state, action, cost|NULL, reward0|NULL, out_state, out_reward,
+    # n, n_sub, stream
+    "env_step_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # ball_x, ball_y, paddle_y, enemy_y, out, n, stream
+    "pong_render_launch": (_P, _P, _P, _P, _P, _I, _P),
+    # rgb, out, n_pixels, stream
+    "grayscale_launch": (_P, _P, _L, _P),
+    # img, a, a_lo, a_hi, b, b_lo, b_hi, out, n, h, w, out_h, out_w, stream
+    "resize_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _P),
+}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be "
+                           "built on this machine")
+    return path
+
+
+def _digest(sources: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(nvcc: str, sources: list[Path], out: Path) -> None:
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [Path(tmp) / (s.stem + ".o") for s in sources]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for s, o in zip(sources, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        for s, p, log in zip(sources, procs, logs):
+            if p.returncode:
+                raise RuntimeError(f"nvcc failed on {s.name}:\n{log}")
+        lib = Path(tmp) / out.name
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(lib), *map(str, objs)],
+            capture_output=True, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
+                               f"{link.stderr}")
+        os.replace(lib, out)
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on the first call."""
+    sources = sorted(CSRC.glob("*.cu"))
+    out = BUILD_DIR / f"librepro_torch_{_digest(sources)}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        _compile(_nvcc(), sources, out)
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "SIGNATURES", "library"]

@@ -1,0 +1,131 @@
+"""Public wrappers of the batched image kernels (``csrc/image.cu``).
+
+Each op launches its CUDA kernel for CUDA tensors and runs the plain
+version (``ref.py``) for CPU tensors; ``backend="reference"`` forces the
+plain version on the card.  Each wrapper's ``.launches`` counts its
+kernel launches and nothing else.  ``grayscale`` and ``resize`` accept
+any leading batch dims over the image dims.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.kernels.backend import check_launch, resolve_backend
+from repro_torch.kernels.image.ref import (
+    RGB_H,
+    RGB_W,
+    grayscale_reference,
+    pong_render_reference,
+    resize_reference,
+    resize_weights,
+)
+
+# a block can hold at most this much shared memory on Hopper
+_MAX_SMEM = 232448
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def pong_render(ball_x: torch.Tensor, ball_y: torch.Tensor,
+                paddle_y: torch.Tensor, enemy_y: torch.Tensor, *,
+                backend: str = "auto") -> torch.Tensor:
+    """(N,) f32 game-state scalars -> (N, 210, 160, 3) uint8 screens."""
+    if resolve_backend(backend, ball_x) == "reference":
+        return pong_render_reference(ball_x, ball_y, paddle_y, enemy_y)
+    n = ball_x.shape[0]
+    for name, v in (("ball_x", ball_x), ("ball_y", ball_y),
+                    ("paddle_y", paddle_y), ("enemy_y", enemy_y)):
+        _require(v.shape == (n,) and v.dtype == torch.float32
+                 and v.device == ball_x.device and v.is_contiguous(),
+                 f"pong_render: {name} must be a contiguous ({n},) f32 "
+                 f"tensor on {ball_x.device}; got {tuple(v.shape)} "
+                 f"{v.dtype} on {v.device}")
+    from repro_torch.kernels.build import library
+
+    out = torch.empty((n, RGB_H, RGB_W, 3), dtype=torch.uint8,
+                      device=ball_x.device)
+    err = library().pong_render_launch(
+        ball_x.data_ptr(), ball_y.data_ptr(), paddle_y.data_ptr(),
+        enemy_y.data_ptr(), out.data_ptr(), n, _stream(ball_x))
+    check_launch("pong_render", err)
+    pong_render.launches += 1
+    return out
+
+
+def grayscale(rgb: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
+    """(..., H, W, 3) uint8 RGB -> (..., H, W) uint8 ALE luma."""
+    _require(rgb.ndim >= 3 and rgb.shape[-1] == 3,
+             f"grayscale wants (..., H, W, 3); got {tuple(rgb.shape)}")
+    if resolve_backend(backend, rgb) == "reference":
+        return grayscale_reference(rgb)
+    _require(rgb.dtype == torch.uint8 and rgb.is_contiguous(),
+             f"grayscale wants contiguous uint8; got {rgb.dtype}")
+    from repro_torch.kernels.build import library
+
+    out = torch.empty(rgb.shape[:-1], dtype=torch.uint8, device=rgb.device)
+    err = library().grayscale_launch(rgb.data_ptr(), out.data_ptr(),
+                                     out.numel(), _stream(rgb))
+    check_launch("grayscale", err)
+    grayscale.launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _band_weights(in_size: int, out_size: int, method: str,
+                  device: torch.device) -> tuple[torch.Tensor, ...]:
+    """Dense int32 weights plus each row's first and one-past-last
+    nonzero tap, on ``device``."""
+    w = resize_weights(in_size, out_size, method)
+    nz = w != 0
+    lo = nz.argmax(axis=1)
+    hi = in_size - nz[:, ::-1].argmax(axis=1)
+    return tuple(torch.tensor(x, dtype=torch.int32, device=device)
+                 for x in (w, lo, hi))
+
+
+def resize(img: torch.Tensor, out_h: int, out_w: int, method: str = "area",
+           *, backend: str = "auto") -> torch.Tensor:
+    """(..., H, W) uint8 -> (..., out_h, out_w) uint8 fixed-point
+    resampling (``area`` or ``bilinear``)."""
+    _require(img.ndim >= 2, f"resize wants (..., H, W); got {img.shape}")
+    if resolve_backend(backend, img) == "reference":
+        return resize_reference(img, out_h, out_w, method)
+    h, w = img.shape[-2], img.shape[-1]
+    _require(img.dtype == torch.uint8 and img.is_contiguous(),
+             f"resize wants contiguous uint8; got {img.dtype}")
+    smem = -(-h * w // 16) * 16 + 2 * out_h * w
+    _require(smem <= _MAX_SMEM,
+             f"resize {h}x{w} -> {out_h}x{out_w} needs {smem} B of shared "
+             f"memory; a block has {_MAX_SMEM}")
+    a, a_lo, a_hi = _band_weights(h, out_h, method, img.device)
+    b, b_lo, b_hi = _band_weights(w, out_w, method, img.device)
+    from repro_torch.kernels.build import library
+
+    lead = img.shape[:-2]
+    n = img.numel() // (h * w)
+    out = torch.empty(lead + (out_h, out_w), dtype=torch.uint8,
+                      device=img.device)
+    err = library().resize_launch(
+        img.data_ptr(), a.data_ptr(), a_lo.data_ptr(), a_hi.data_ptr(),
+        b.data_ptr(), b_lo.data_ptr(), b_hi.data_ptr(), out.data_ptr(),
+        n, h, w, out_h, out_w, _stream(img))
+    check_launch("resize", err)
+    resize.launches += 1
+    return out
+
+
+pong_render.launches = 0
+grayscale.launches = 0
+resize.launches = 0
+
+__all__ = ["grayscale", "pong_render", "resize"]

@@ -1,0 +1,235 @@
+"""``repro_torch.make`` against ``repro.make`` run live in the same
+process (never the .npz goldens, which jax 0.9 no longer reproduces):
+the scripted rollout of tests/test_conformance.py::golden_device_stream
+through both packages, 30 steps with 5-step episodes so auto-reset runs.
+
+ids, done, terminated, truncated, step_cost and episode_length are
+exact; Pong obs and reward are bitwise; Ant obs and reward are held to
+atol=1e-4 (XLA's fused multiply-adds and ``cos`` differ from torch's in
+the last bit, and the physics carries that over 30 steps).
+
+Also: a ``PoolState`` carried across from the JAX package continues the
+same stream; importing and running the port pulls in neither ``jax`` nor
+``repro``; ``make`` refuses what this slice does not port.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import repro.core.registry as jax_registry  # noqa: E402
+import repro_torch  # noqa: E402
+from repro_torch.core.engine import (  # noqa: E402
+    pool_state_from_numpy,
+    pool_state_to_numpy,
+)
+from repro_torch.core.scheduler import (  # noqa: E402
+    SchedState,
+    get_scheduler,
+)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STEPS = 30
+EXACT = ("env_id", "done", "terminated", "truncated", "step_cost",
+         "episode_length")
+
+
+def policy(ids: np.ndarray, t: int, continuous: bool) -> np.ndarray:
+    """Deterministic per-(env, step) action, routed by env_id."""
+    if continuous:
+        table = np.random.default_rng(1000 + t).uniform(
+            -1.2, 1.2, (64, 8)).astype(np.float32)
+        return table[ids]
+    return ((ids.astype(np.int64) * 7 + t) % 6).astype(np.int32)
+
+
+def compare(tag, jts, tts, atol):
+    for f in EXACT:
+        np.testing.assert_array_equal(getattr(tts, f).numpy(),
+                                      np.asarray(getattr(jts, f)),
+                                      err_msg=f"{tag} {f}")
+    for f in ("obs", "reward", "episode_return"):
+        got, want = getattr(tts, f).numpy(), np.asarray(getattr(jts, f))
+        if atol:
+            np.testing.assert_allclose(got, want, rtol=0, atol=atol,
+                                       err_msg=f"{tag} {f}")
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=f"{tag} {f}")
+
+
+def pools(task, n, m, schedule):
+    jp = jax_registry.make(task, num_envs=n, batch_size=m, schedule=schedule,
+                           obs=False, max_episode_steps=5)
+    tp = repro_torch.make(task, num_envs=n, batch_size=m, schedule=schedule,
+                          device="cpu", max_episode_steps=5)
+    return jp, tp
+
+
+def jax_leaves(ps) -> dict:
+    """The JAX package's PoolState leaves keyed by the port's paths."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(ps)[0]:
+        parts = [str(getattr(k, "name", getattr(k, "idx",
+                                                getattr(k, "key", k))))
+                 for k in path]
+        out[".".join(parts)] = np.asarray(leaf)
+    return out
+
+
+@pytest.mark.parametrize("task,n,m,schedule", [
+    ("Ant-v3", 8, None, "fifo"),
+    ("Ant-v3", 8, 4, "fifo"),
+    ("PongClassic-v5", 4, None, "fifo"),
+    ("PongClassic-v5", 4, 2, "fifo"),
+    ("PongClassic-v5", 4, 2, "sjf"),
+])
+def test_streams_match_repro(task, n, m, schedule):
+    continuous = task.startswith("Ant")
+    atol = 1e-4 if continuous else 0.0
+    jp, tp = pools(task, n, m, schedule)
+    assert tp.spec.obs_spec.shape == jp.spec.obs_spec.shape
+    jps, jts = jp.reset(jax.random.PRNGKey(0))
+    tps, tts = tp.reset(repro_torch.random.PRNGKey(0))
+    jstep = jax.jit(jp.step)
+    for t in range(STEPS):
+        compare(f"{task} step {t}", jts, tts, atol)
+        if m is not None:
+            assert len(set(tts.env_id.tolist())) == m
+        a = policy(np.asarray(jts.env_id), t, continuous)
+        jps, jts = jstep(jps, jnp.asarray(a), jts.env_id)
+        tps, tts = tp.step(tps, torch.from_numpy(a), tts.env_id)
+    compare(f"{task} step {STEPS}", jts, tts, atol)
+
+
+def test_pool_state_carried_across_continues_the_stream():
+    """The JAX package's PoolState, mid-rollout, loaded into the port:
+    both continue with the same blocks (Pong, async, so the state holds
+    READY and WAITING lanes and a frame stack)."""
+    jp, tp = pools("PongClassic-v5", 4, 2, "fifo")
+    jps, jts = jp.reset(jax.random.PRNGKey(3))
+    jstep = jax.jit(jp.step)
+    for t in range(7):
+        jps, jts = jstep(jps, jnp.asarray(policy(np.asarray(jts.env_id), t,
+                                                 False)), jts.env_id)
+    arrays = jax_leaves(jps)
+    tps = pool_state_from_numpy(tp, arrays)
+    back = pool_state_to_numpy(tps)
+    assert set(back) == set(arrays)
+    for k, v in arrays.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+    tts_ids = torch.from_numpy(np.asarray(jts.env_id))
+    for t in range(7, 17):
+        a = policy(np.asarray(jts.env_id), t, False)
+        jps, jts = jstep(jps, jnp.asarray(a), jts.env_id)
+        tps, tts = tp.step(tps, torch.from_numpy(a), tts_ids)
+        compare(f"carried step {t}", jts, tts, 0.0)
+        tts_ids = tts.env_id
+    with pytest.raises(KeyError):
+        pool_state_from_numpy(tp, {k: v for k, v in arrays.items()
+                                   if k != "tick"})
+
+
+def test_running_the_port_imports_neither_jax_nor_repro():
+    code = (
+        "import sys, torch, repro_torch\n"
+        "assert 'repro_torch.kernels.build' not in sys.modules\n"
+        "for task in ('Ant-v3', 'PongClassic-v5'):\n"
+        "    pool = repro_torch.make(task, num_envs=4, batch_size=2,\n"
+        "                            device='cpu')\n"
+        "    ps, ts = pool.reset(repro_torch.random.PRNGKey(0))\n"
+        "    ps, ts = pool.step(ps, torch.zeros((2,) + pool.spec.act_spec\n"
+        "                       .shape, dtype=pool.spec.act_spec.dtype),\n"
+        "                       ts.env_id)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith('jax.') or m == 'repro'\n"
+        "             or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "assert 'repro_torch.kernels.build' not in sys.modules\n"
+        "print('clean')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_port_sources_import_neither_jax_nor_repro():
+    pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
+                         r"(\.|\s))", re.MULTILINE)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
+        files += [os.path.join(d, f) for f in names if f.endswith(".py")]
+    assert len(files) > 10
+    offenders = []
+    for path in files:
+        with open(path) as f:
+            if pattern.search(f.read()):
+                offenders.append(os.path.relpath(path, ROOT))
+    assert not offenders, offenders
+
+
+def test_make_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.make("Ant-v3", num_envs=4)
+    assert repro_torch.make("Ant-v3", num_envs=4, device="cpu").device \
+        == torch.device("cpu")
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    ({"engine": "device-masked"}, NotImplementedError),
+    ({"engine": "device-sharded"}, NotImplementedError),
+    ({"engine": "thread"}, NotImplementedError),
+    ({"engine": "gpu-cluster"}, ValueError),
+    ({"obs": True}, NotImplementedError),
+    ({"batch_size": 2, "schedule": "hierarchical"}, ValueError),
+    ({"batch_size": 2, "schedule": "random"}, ValueError),
+])
+def test_make_refuses_what_is_not_ported(kwargs, error):
+    with pytest.raises(error):
+        repro_torch.make("Ant-v3", num_envs=4, device="cpu", **kwargs)
+
+
+def test_registered_tasks_and_stats():
+    assert repro_torch.list_envs() == sorted([
+        "Ant-v3", "MujocoLike-Ant-v3", "Pong-v5", "AtariLike-Pong-v5",
+        "PongStack-v5", "PongClassic-v5"])
+    with pytest.raises(KeyError):
+        repro_torch.make("AntNorm-v3", num_envs=4, device="cpu")
+    pool = repro_torch.make("PongStack-v5", num_envs=4, device="cpu")
+    ps, ts = pool.reset(repro_torch.random.PRNGKey(0))
+    assert tuple(ts.obs.shape) == (4, 4, 84, 84)
+    with pytest.raises(NotImplementedError):
+        pool.stats(ps)
+
+
+@pytest.mark.parametrize("schedule", ["fifo", "sjf"])
+def test_select_keeps_lax_top_k_tie_order(schedule):
+    """Ties are the common case (fifo's READY band is -1e9 + send_tick
+    in f32, where ulp(1e9) = 64): selection must put the lower lane
+    index first among equal priorities, as lax.top_k(-priority) does."""
+    rng = np.random.default_rng(6)
+    n = 64
+    ss = SchedState(
+        phase=torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)),
+        cost=torch.from_numpy(rng.integers(4, 7, n).astype(np.int32)),
+        send_tick=torch.from_numpy(rng.integers(0, 40, n).astype(np.int32)),
+        tick=torch.tensor(40, dtype=torch.int32),
+    )
+    sched = get_scheduler(schedule)
+    prio = sched.priority(ss).numpy()
+    assert len(np.unique(prio)) < n // 2          # plenty of ties
+    for m in (1, 16, 48):
+        _, want = jax.lax.top_k(-jnp.asarray(prio), m)
+        np.testing.assert_array_equal(sched.select(ss, m).numpy(),
+                                      np.asarray(want))
