@@ -13,6 +13,7 @@ compiled on the first launch (``kernels/build.py``).
 from repro_torch import random
 from repro_torch.core.registry import list_envs, make
 from repro_torch.core.transforms import (
+    Crop,
     FrameStack,
     Grayscale,
     Resize,
@@ -23,6 +24,6 @@ from repro_torch.core.transforms import (
 __version__ = "0.1.0"
 
 __all__ = [
-    "FrameStack", "Grayscale", "Resize", "RewardClip", "Transform",
+    "Crop", "FrameStack", "Grayscale", "Resize", "RewardClip", "Transform",
     "list_envs", "make", "random",
 ]

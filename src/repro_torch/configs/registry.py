@@ -1,0 +1,70 @@
+"""Architecture registry (``repro/configs/registry.py``), the dense
+entries only: ``get_config(arch)`` and the reduced same-family
+``get_smoke_config(arch)`` for CPU tests."""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.configs import qwen3_0_6b
+from repro_torch.models.common import ModelConfig
+
+
+def _qwen3_14b() -> ModelConfig:
+    return ModelConfig(
+        name="qwen3-14b", family="dense",
+        n_layers=40, d_model=5120, n_heads=40, n_kv_heads=8,
+        d_ff=17408, vocab=151936, head_dim=128,
+        qk_norm=True, mlp_type="swiglu", norm_type="rmsnorm",
+        rope_theta=1_000_000.0,
+    )
+
+
+def _llama3_2_3b() -> ModelConfig:
+    return ModelConfig(
+        name="llama3.2-3b", family="dense",
+        n_layers=28, d_model=3072, n_heads=24, n_kv_heads=8,
+        d_ff=8192, vocab=128256, head_dim=128,
+        mlp_type="swiglu", norm_type="rmsnorm", rope_theta=500_000.0,
+    )
+
+
+def _starcoder2_3b() -> ModelConfig:
+    return ModelConfig(
+        name="starcoder2-3b", family="dense",
+        n_layers=30, d_model=3072, n_heads=24, n_kv_heads=2,
+        d_ff=12288, vocab=49152, head_dim=128,
+        mlp_type="gelu", norm_type="layernorm", rope_theta=100_000.0,
+    )
+
+
+ARCHS = {
+    "qwen3-14b": _qwen3_14b,
+    "llama3.2-3b": _llama3_2_3b,
+    "starcoder2-3b": _starcoder2_3b,
+    "qwen3-0.6b": qwen3_0_6b.get_config,
+}
+
+
+def list_archs() -> list[str]:
+    return sorted(ARCHS)
+
+
+def get_config(arch: str, **overrides) -> ModelConfig:
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; known: {list_archs()}")
+    cfg = ARCHS[arch]()
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    """Reduced same-family config for CPU tests: 2 layers, d_model 64,
+    4 query and 2 kv heads of width 16, vocab 512."""
+    return dataclasses.replace(
+        get_config(arch), n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+        d_ff=128, vocab=512, head_dim=16)
+
+
+__all__ = ["ARCHS", "get_config", "get_smoke_config", "list_archs"]

@@ -5,6 +5,8 @@
     pool = make("Ant-v3", num_envs=4096, batch_size=2048)       # async
     pool = make("PongClassic-v5", num_envs=1024, batch_size=512,
                 schedule="sjf")
+    pool = make("TokenRagged-v0", num_envs=256, batch_size=128,
+                vocab=151936)                            # env_kwargs
 
 Only the device engine is ported; the other engines, the masked mode
 and telemetry raise ``NotImplementedError`` naming their ROADMAP item.
@@ -28,6 +30,7 @@ from repro_torch.core.transforms import (
 from repro_torch.envs.atari_like import AtariLike
 from repro_torch.envs.base import Environment
 from repro_torch.envs.mujoco_like import MujocoLike
+from repro_torch.envs.token_env import TokenEnv
 
 # engine -> the ROADMAP item that ports it
 _LATER_ENGINES = {
@@ -38,6 +41,16 @@ _LATER_ENGINES = {
 
 def _pong_classic(**kw: Any) -> AtariLike:
     return AtariLike(**{"obs_mode": "rgb", **kw})
+
+
+def _token_skew(**kw: Any) -> TokenEnv:
+    # long-tail step cost: a quarter of episodes cost 8x per step
+    return TokenEnv(**{"heavy_frac": 0.25, "heavy_scale": 8, **kw})
+
+
+def _token_ragged(**kw: Any) -> TokenEnv:
+    # ragged generation lengths: 75% of episodes end at ep_len / 4
+    return TokenEnv(**{"short_frac": 0.75, "len_scale": 4, **kw})
 
 
 def _registry() -> dict[str, tuple[Callable[..., Environment],
@@ -53,7 +66,21 @@ def _registry() -> dict[str, tuple[Callable[..., Environment],
         # grayscale -> 84x84 area resize -> stack -> clip
         "PongClassic-v5": (_pong_classic, (Grayscale(), Resize(84, 84),
                                            FrameStack(4), RewardClip())),
+        "TokenCopy-v0": (TokenEnv, ()),
+        "TokenSkew-v0": (_token_skew, ()),
+        "TokenRagged-v0": (_token_ragged, ()),
     }
+
+
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """``device``, or ``cuda`` when it is None and a card is present;
+    there is no quiet fallback to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
 
 
 def list_envs() -> list[str]:
@@ -87,16 +114,11 @@ def make(task_id: str, num_envs: int, batch_size: int | None = None,
         raise NotImplementedError(
             "obs=True (engine telemetry, pool.stats()) is not ported yet "
             "(ROADMAP A6)")
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run on the CPU")
-        device = "cuda"
     factory, default = tasks[task_id]
     return DeviceEnvPool(factory(**env_kwargs), num_envs, batch_size,
                          schedule=schedule,
                          transforms=resolve_transforms(transforms, default),
-                         device=device)
+                         device=resolve_device(device))
 
 
-__all__ = ["list_envs", "make"]
+__all__ = ["list_envs", "make", "resolve_device"]

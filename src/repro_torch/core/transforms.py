@@ -19,7 +19,7 @@ from typing import Any, Sequence
 import torch
 
 from repro_torch.core.specs import EnvSpec, TimeStep
-from repro_torch.kernels.image.ref import RESIZE_METHODS
+from repro_torch.kernels.image.ref import RESIZE_METHODS, check_crop
 from repro_torch.utils.tree import (
     lane_mask,
     tree_gather,
@@ -155,6 +155,37 @@ class Resize(Transform):
                                             self.method))
 
 
+class Crop(Transform):
+    """Static-window crop of the trailing (H, W) dims through the
+    ``crop`` kernel: ``(..., H, W) -> (..., height, width)``, the window
+    checked against the input spec when the pipeline is built."""
+
+    name = "crop"
+
+    def __init__(self, top: int, left: int, height: int, width: int):
+        self.top, self.left = int(top), int(left)
+        self.height, self.width = int(height), int(width)
+
+    def transform_spec(self, spec):
+        o = spec.obs_spec
+        if len(o.shape) < 2:
+            raise ValueError(
+                f"Crop wants (..., H, W) observations; got {o.shape}")
+        if o.dtype != torch.uint8:
+            raise ValueError(f"Crop wants uint8 observations; got "
+                             f"{o.dtype}")
+        check_crop(o.shape[-2], o.shape[-1], self.top, self.left,
+                   self.height, self.width)
+        return dataclasses.replace(spec, obs_spec=dataclasses.replace(
+            o, shape=o.shape[:-2] + (self.height, self.width)))
+
+    def apply(self, state, ts, spec):
+        from repro_torch.kernels.image.ops import crop
+
+        return state, ts.replace(obs=crop(ts.obs, self.top, self.left,
+                                          self.height, self.width))
+
+
 class TransformPipeline:
     """An ordered list of transforms bound to one env spec: ``init`` the
     per-pool state tuple, ``gather``/``scatter`` the per-lane rows of a
@@ -212,6 +243,6 @@ def resolve_transforms(transforms: Sequence[Transform] | None,
 
 
 __all__ = [
-    "FrameStack", "Grayscale", "Resize", "RewardClip", "Transform",
+    "Crop", "FrameStack", "Grayscale", "Resize", "RewardClip", "Transform",
     "TransformPipeline", "resolve_transforms",
 ]

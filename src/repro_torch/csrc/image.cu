@@ -1,5 +1,6 @@
-// The batched Atari observation path: Pong render, grayscale, resize.
-// Every op is integer fixed point or exact f32 compares, so each kernel
+// The batched Atari observation path: Pong render, grayscale, crop,
+// resize.  Every op is integer fixed point, a copy, or exact f32
+// compares, so each kernel
 // is bitwise equal to its plain version in
 // src/repro_torch/kernels/image/ref.py.
 #include <cstdint>
@@ -135,6 +136,30 @@ __global__ void resize_kernel(const uint8_t* __restrict__ img,
   }
 }
 
+// ------------------------------------------------------------------------
+// crop — replaces src/repro/kernels/image/kernel.py crop_batch
+// (_crop_kernel).
+//
+// Bound: a copy, it reads and writes height*width bytes per image
+// (26.2 MB each way at N = 1024, 210x160 -> 160x160), so it is bound by
+// bytes.  Design: one thread per output unit, neighbouring threads on
+// neighbouring units of an output row.  The unit is a 32-bit word when
+// the window's left edge and width, the input width and both base
+// pointers are multiples of 4 bytes (the Pong window is), else a byte.
+// ------------------------------------------------------------------------
+template <typename U>
+__global__ void crop_kernel(const U* __restrict__ in, U* __restrict__ out,
+                            long total, int in_h, int in_w, int top, int left,
+                            int height, int width) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int x = (int)(i % width);
+  const long row = i / width;
+  const int y = (int)(row % height);
+  const long image = row / height;
+  out[i] = in[(image * in_h + top + y) * in_w + left + x];
+}
+
 }  // namespace
 
 extern "C" int pong_render_launch(const void* ball_x, const void* ball_y,
@@ -175,6 +200,30 @@ extern "C" int resize_launch(const void* img, const void* a, const void* a_lo,
         (const uint8_t*)img, (const int*)a, (const int*)a_lo,
         (const int*)a_hi, (const int*)b, (const int*)b_lo, (const int*)b_hi,
         (uint8_t*)out, h, w, out_h, out_w);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int crop_launch(const void* img, void* out, int n, int in_h,
+                           int in_w, int top, int left, int height,
+                           int width, void* stream) {
+  const bool words = ((left | width | in_w) % 4 == 0) &&
+                     ((uintptr_t)img % 4 == 0) && ((uintptr_t)out % 4 == 0);
+  const int unit = words ? 4 : 1;
+  const long total = (long)n * height * (width / unit);
+  if (total > 0) {
+    const int threads = 256;
+    const long blocks = (total + threads - 1) / threads;
+    if (words)
+      crop_kernel<uint32_t><<<(unsigned)blocks, threads, 0,
+                              (cudaStream_t)stream>>>(
+          (const uint32_t*)img, (uint32_t*)out, total, in_h, in_w / 4, top,
+          left / 4, height, width / 4);
+    else
+      crop_kernel<uint8_t><<<(unsigned)blocks, threads, 0,
+                             (cudaStream_t)stream>>>(
+          (const uint8_t*)img, (uint8_t*)out, total, in_h, in_w, top, left,
+          height, width);
   }
   return (int)cudaGetLastError();
 }

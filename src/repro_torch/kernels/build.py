@@ -29,9 +29,10 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false",
                      "-Xcompiler", "-fPIC")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C entry point -> argument types (pointers and the stream as c_void_p;
-# a count that can pass 2^31 as c_longlong)
+# a count that can pass 2^31, and strides, as c_longlong)
 SIGNATURES = {
     # state, action, cost|NULL, reward0|NULL, out_state, out_reward,
     # n, n_sub, stream
@@ -43,6 +44,13 @@ SIGNATURES = {
     # img, a, a_lo, a_hi, b, b_lo, b_hi, out, n, h, w, out_h, out_w, stream
     "resize_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _P),
+    # img, out, n, in_h, in_w, top, left, height, width, stream
+    "crop_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, lengths, out, B, H, Hkv, T, D, q/k/v strides (8), scale,
+    # dtype, stream
+    "decode_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _L, _L, _L, _L, _L, _L, _L, _L, _F, _I,
+                                _P),
 }
 
 

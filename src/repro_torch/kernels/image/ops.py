@@ -3,8 +3,8 @@
 Each op launches its CUDA kernel for CUDA tensors and runs the plain
 version (``ref.py``) for CPU tensors; ``backend="reference"`` forces the
 plain version on the card.  Each wrapper's ``.launches`` counts its
-kernel launches and nothing else.  ``grayscale`` and ``resize`` accept
-any leading batch dims over the image dims.
+kernel launches and nothing else.  ``grayscale``, ``crop`` and
+``resize`` accept any leading batch dims over the image dims.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from repro_torch.kernels.backend import check_launch, resolve_backend
 from repro_torch.kernels.image.ref import (
     RGB_H,
     RGB_W,
+    check_crop,
+    crop_reference,
     grayscale_reference,
     pong_render_reference,
     resize_reference,
@@ -80,6 +82,30 @@ def grayscale(rgb: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
     return out
 
 
+def crop(img: torch.Tensor, top: int, left: int, height: int, width: int,
+         *, backend: str = "auto") -> torch.Tensor:
+    """(..., H, W) uint8 -> (..., height, width) uint8, the static window
+    at (top, left)."""
+    _require(img.ndim >= 2, f"crop wants (..., H, W); got {img.shape}")
+    h, w = img.shape[-2], img.shape[-1]
+    check_crop(h, w, top, left, height, width)
+    if resolve_backend(backend, img) == "reference":
+        return crop_reference(img, top, left, height, width)
+    _require(img.dtype == torch.uint8 and img.is_contiguous(),
+             f"crop wants contiguous uint8; got {img.dtype}")
+    from repro_torch.kernels.build import library
+
+    lead = img.shape[:-2]
+    n = img.numel() // (h * w)
+    out = torch.empty(lead + (height, width), dtype=torch.uint8,
+                      device=img.device)
+    err = library().crop_launch(img.data_ptr(), out.data_ptr(), n, h, w,
+                                top, left, height, width, _stream(img))
+    check_launch("crop", err)
+    crop.launches += 1
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _band_weights(in_size: int, out_size: int, method: str,
                   device: torch.device) -> tuple[torch.Tensor, ...]:
@@ -126,6 +152,7 @@ def resize(img: torch.Tensor, out_h: int, out_w: int, method: str = "area",
 
 pong_render.launches = 0
 grayscale.launches = 0
+crop.launches = 0
 resize.launches = 0
 
-__all__ = ["grayscale", "pong_render", "resize"]
+__all__ = ["crop", "grayscale", "pong_render", "resize"]

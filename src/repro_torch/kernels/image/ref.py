@@ -6,6 +6,7 @@ plain versions, the CUDA kernels (``csrc/image.cu``) and the JAX package
 give bit-identical uint8 outputs:
 
   * grayscale — ALE luma ``(9798 R + 19235 G + 3735 B + 2^14) >> 15``;
+  * crop — a static window of the trailing (H, W) dims, a copy;
   * resize — separable ``round_shift(A @ x)`` then ``round_shift(t @ Bᵀ)``
     with 8-bit weight rows that sum to exactly 2^8.  The plain version
     runs the two products in float32, exact because every partial sum is
@@ -143,6 +144,25 @@ def resize_reference(img: torch.Tensor, out_h: int, out_w: int,
 
 
 # ---------------------------------------------------------------------- #
+# crop
+# ---------------------------------------------------------------------- #
+def check_crop(in_h: int, in_w: int, top: int, left: int, height: int,
+               width: int) -> None:
+    if (top < 0 or left < 0 or height < 1 or width < 1
+            or top + height > in_h or left + width > in_w):
+        raise ValueError(
+            f"crop [{top}:{top + height}, {left}:{left + width}] out of "
+            f"bounds for ({in_h}, {in_w})")
+
+
+def crop_reference(img: torch.Tensor, top: int, left: int, height: int,
+                   width: int) -> torch.Tensor:
+    """Static window of the trailing (H, W) dims, as a new tensor."""
+    check_crop(img.shape[-2], img.shape[-1], top, left, height, width)
+    return img[..., top:top + height, left:left + width].contiguous()
+
+
+# ---------------------------------------------------------------------- #
 # the Pong RGB render
 # ---------------------------------------------------------------------- #
 def pong_render_reference(ball_x: torch.Tensor, ball_y: torch.Tensor,
@@ -175,6 +195,7 @@ def pong_render_reference(ball_x: torch.Tensor, ball_y: torch.Tensor,
 __all__ = [
     "GRAY_B", "GRAY_G", "GRAY_R", "GRAY_SHIFT", "PONG_BALL", "PONG_BG",
     "PONG_ENEMY", "PONG_PLAYER", "RESIZE_METHODS", "RESIZE_SHIFT", "RGB_H",
-    "RGB_W", "grayscale_reference", "pong_render_reference",
+    "RGB_W", "check_crop", "crop_reference", "grayscale_reference",
+    "pong_render_reference",
     "resize_reference", "resize_weights",
 ]

@@ -1,0 +1,75 @@
+"""Model configuration and parameter initialisers
+(``repro/models/common.py``), for the dense decoder family only.
+
+Parameters are nested dicts of tensors in the JAX package's layout: the
+decoder layers are stacked on a leading ``n_layers`` dim, so the
+numpy leaves of a ``repro`` parameter pytree load as they are
+(``rl/policy_lm.py::params_from_jax``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """The fields of ``repro``'s ``ModelConfig`` that a dense decoder
+    reads.  The MoE, SSM, xLSTM, encoder-decoder, RoPE-variant and
+    sliding-window fields are not ported (ROADMAP A)."""
+
+    name: str
+    family: str              # dense only
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int | None = None
+    qk_norm: bool = False
+    mlp_type: str = "swiglu"         # swiglu | gelu
+    norm_type: str = "rmsnorm"       # rmsnorm | layernorm
+    rope_theta: float = 1_000_000.0
+    tie_embeddings: bool = False
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.hd
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.hd
+
+    def replace(self, **kw: Any) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype: torch.dtype, device: torch.device | str,
+               lead: tuple[int, ...] = ()) -> torch.Tensor:
+    """``lead + (d_in, d_out)`` normals scaled by ``1/sqrt(d_in)``; a
+    ``lead`` of ``(n_layers,)`` draws a stacked layer weight at once."""
+    w = torch.randn(lead + (d_in, d_out), generator=gen,
+                    dtype=torch.float32, device=device)
+    return (w * (1.0 / math.sqrt(d_in))).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype,
+               device: torch.device | str) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
+                    device=device)
+    return (w * 0.02).to(dtype)
+
+
+__all__ = ["ModelConfig", "dense_init", "embed_init"]

@@ -5,8 +5,9 @@ The envs draw randomness on the hot path (every finalize splits each
 lane's key, every Atari emulator frame splits and draws a uniform), so
 the port can only be held against ``repro`` if its draws are the same
 bits as ``jax.random``'s.  This module reproduces the subset the envs
-and the engine call — ``PRNGKey``, ``split``, ``fold_in``, ``bits``,
-``uniform``, ``bernoulli`` and ``normal`` — for jax's default
+and the engine and the LM policy call — ``PRNGKey``, ``split``, ``fold_in``,
+``bits``, ``uniform``, ``bernoulli``, ``normal``, ``randint``, ``gumbel``
+and ``categorical`` — for jax's default
 ``threefry2x32`` implementation with ``jax_threefry_partitionable``
 on (the counter of element ``i`` of a draw of shape ``s`` is the 64-bit
 flat index ``i`` split into (hi, lo) words).
@@ -17,10 +18,12 @@ is masked back to 32 bits.  Leading dims are batch dims: a ``(N, 2)``
 key tensor acts like ``jax.vmap`` over N keys, so ``split(keys, 3)`` is
 ``(N, 3, 2)`` and ``uniform(keys, (8,))`` is ``(N, 8)``.
 
-``split``, ``fold_in``, ``bits``, ``uniform`` and ``bernoulli`` are
-bitwise equal to ``jax.random``.  ``normal`` follows XLA's f32
-``erf_inv`` polynomial op for op, but its ``log1p`` is torch's, so it is
-held to a tolerance (tests/test_torch_random.py).
+``split``, ``fold_in``, ``bits``, ``uniform``, ``bernoulli`` and
+``randint`` are bitwise equal to ``jax.random``.  ``normal`` follows
+XLA's f32 ``erf_inv`` polynomial op for op, but its ``log1p`` is
+torch's, and ``gumbel`` rounds a float64 ``log``, so both are held to
+a tolerance (tests/test_torch_random.py); ``categorical``'s samples are
+bitwise on the inputs tested there.
 
 This is plain tensor code: one draw is some 150 small elementwise ops.
 """
@@ -143,6 +146,69 @@ def bernoulli(key: torch.Tensor, p: float = 0.5,
     return uniform(key, shape) < p
 
 
+def _mul32(a: torch.Tensor, b: torch.Tensor | int) -> torch.Tensor:
+    """``a * b mod 2^32`` for uint32 values held in int64: ``b`` is cut
+    into 16-bit halves so that no partial product leaves int64."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & MASK32
+
+
+def randint(key: torch.Tensor, shape: tuple[int, ...], minval: int,
+            maxval: int) -> torch.Tensor:
+    """int32 integers in ``[minval, maxval)``, bitwise
+    ``jax.random.randint(key, shape, minval, maxval, jnp.int32)``.
+
+    jax draws two 32-bit words per element from ``split(key)`` and folds
+    them into the span with uint32 arithmetic that wraps:
+    ``((hi % span) * (2^32 % span) + lo % span) % span``, where
+    ``2^32 % span`` is formed as ``(2^16 % span)^2 % span``.  Here the
+    words are int64 and every product and sum is masked back to 32
+    bits, as uint32 would wrap."""
+    lo_i32, hi_i32 = -(2 ** 31), 2 ** 31 - 1
+    if not (lo_i32 <= minval <= hi_i32 and lo_i32 <= maxval <= hi_i32):
+        raise OverflowError(f"randint bounds [{minval}, {maxval}) must fit "
+                            "in int32")
+    shape = tuple(shape)
+    keys = split(key)
+    higher = bits(keys[..., 0, :], shape)
+    lower = bits(keys[..., 1, :], shape)
+    span = (maxval - minval) & MASK32 if maxval > minval else 1
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & MASK32) % span
+    offset = (_mul32(higher % span, mult) + lower % span) & MASK32
+    offset = offset % span
+    return (minval + offset).to(torch.int32)
+
+
+def gumbel(key: torch.Tensor, shape: tuple[int, ...] = ()) -> torch.Tensor:
+    """float32 standard Gumbel, ``jax.random.gumbel`` in its default
+    'low' mode: ``-log(-log(u))`` with ``u`` uniform on
+    ``[tiny, 1)``.  Each ``log`` is taken in float64 and rounded once to
+    f32, so the card and the CPU give the same bits; XLA's f32 ``log``
+    differs from that in the last bit on about a quarter of draws."""
+    tiny = float(np.finfo(np.float32).tiny)
+
+    def log(x: torch.Tensor) -> torch.Tensor:
+        return torch.log(x.double()).float()
+
+    return -log(-log(uniform(key, shape, tiny, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis for
+    one key: Gumbel-max, ``argmax(logits + gumbel)`` with the noise drawn
+    at ``logits.shape`` in ``logits.dtype`` (float32 here)."""
+    if logits.dtype != torch.float32:
+        raise TypeError(f"categorical wants float32 logits; got "
+                        f"{logits.dtype}")
+    if key.shape != (2,):
+        raise ValueError(f"categorical takes one key; got "
+                         f"{tuple(key.shape)}")
+    noise = gumbel(key, tuple(logits.shape))
+    return torch.argmax(noise + logits, dim=-1)
+
+
 # XLA's f32 erf_inv (Giles' single-precision approximation), coefficients
 # highest degree first
 _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
@@ -175,6 +241,6 @@ def normal(key: torch.Tensor, shape: tuple[int, ...] = ()) -> torch.Tensor:
 
 
 __all__ = [
-    "PRNGKey", "bernoulli", "bits", "fold_in", "normal", "split",
-    "threefry2x32", "uniform",
+    "PRNGKey", "bernoulli", "bits", "categorical", "fold_in", "gumbel",
+    "normal", "randint", "split", "threefry2x32", "uniform",
 ]

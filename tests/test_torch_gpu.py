@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card (bitwise), and a pool on the card against the same pool on the CPU.
+card (bitwise, except decode attention: within 1e-5 in f32 and 2e-2 in
+bf16, since its sums run in another order), and a pool and a decode
+server on the card against the same on the CPU.
 These need a CUDA device: each test is marked ``gpu`` and skips without
 one.  Run them on the card with
 
@@ -15,8 +17,17 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
+from repro_torch.core.specs import ArraySpec, EnvSpec  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
+    decode_attention,
+)
 from repro_torch.kernels.env_step.ops import env_multi_step  # noqa: E402
 from repro_torch.kernels.image import ops  # noqa: E402
+from repro_torch.rl.policy_lm import (  # noqa: E402
+    LMPolicy,
+    default_policy_config,
+)
+from repro_torch.serving import DecodePool  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -73,3 +84,59 @@ def test_pong_pool_on_the_card_matches_the_cpu(cuda):
     for g, c in zip(out["cuda"], out["cpu"]):
         for x, y in zip(g, c):
             assert torch.equal(x, y)
+
+
+def test_crop_kernel_is_bitwise(cuda):
+    img = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (9, 210, 160), np.uint8)).to(cuda)
+    # a word-aligned window (the Pong playfield) and a byte-aligned one
+    for window in ((34, 0, 160, 160), (3, 5, 101, 37)):
+        assert torch.equal(ops.crop(img, *window),
+                           ops.crop(img, *window, backend="reference"))
+
+
+@pytest.mark.parametrize("H,Hkv,D", [(16, 8, 128), (8, 8, 64), (16, 1, 16),
+                                     (12, 4, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel(cuda, H, Hkv, D, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(H + D)
+    B, L, T = 7, 3, 97
+    cache = torch.from_numpy(rng.normal(0, 1, (2, B, L, Hkv, T, D)).astype(
+        np.float32)).to(cuda, dtype)
+    k, v = cache[0][:, 1], cache[1][:, 1]      # strided layer views
+    q = torch.from_numpy(rng.normal(0, 1, (B, H, D)).astype(
+        np.float32)).to(cuda, dtype)
+    lengths = torch.tensor([0, 1, T, 2, 50, 96, 5], dtype=torch.int32,
+                           device=cuda)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, lengths)
+    assert decode_attention.launches == before + 1
+    want = decode_attention(q, k, v, lengths, backend="reference")
+    assert got.dtype == dtype and torch.all(got[0] == 0)
+    atol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert torch.allclose(got.float(), want.float(), rtol=0, atol=atol)
+
+
+def test_decode_pool_on_the_card_matches_the_cpu(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = EnvSpec("serve", ArraySpec((2,), torch.int32, 0, 63),
+                   ArraySpec((), torch.int32, 0, 63))
+    rng = np.random.default_rng(3)
+    prompts = [list(rng.integers(0, 64, rng.integers(2, 7)))
+               for _ in range(6)]
+    cfg = default_policy_config(64, 15)
+    params = LMPolicy(spec, cfg, max_len=15, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        pol = LMPolicy(spec, cfg, max_len=15, device=dev)
+        out[dev.type] = DecodePool(pol, 3, 8).serve(_to(params, dev),
+                                                    prompts)[0]
+    assert out["cuda"] == out["cpu"]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

@@ -1,6 +1,6 @@
 """The port's image family (kernels/image) against the JAX package's
-Pallas kernels in interpret mode: render, grayscale and resize, all
-bitwise (integer fixed point and exact f32 compares), and the resize
+Pallas kernels in interpret mode: render, grayscale, crop and resize,
+all bitwise (integer fixed point and exact f32 compares), and the resize
 weight tables equal.
 """
 
@@ -64,6 +64,59 @@ def test_pong_render_bitwise():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("shape,window", [
+    ((3, 210, 160), (34, 0, 160, 160)),    # the Pong playfield
+    ((2, 3, 37, 29), (5, 3, 11, 17)),      # odd window, leading dims
+    ((4, 8, 8), (0, 0, 8, 8)),             # the whole image
+])
+def test_crop_bitwise(shape, window):
+    img = rand_u8(shape, seed=sum(shape))
+    want = np.asarray(jops.crop(jnp.asarray(img), *window,
+                                backend=INTERPRET))
+    got = ops.crop(torch.from_numpy(img), *window)
+    assert got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_crop_refuses_a_window_outside_the_image():
+    with pytest.raises(ValueError, match="out of bounds"):
+        ops.crop(torch.zeros((2, 8, 8), dtype=torch.uint8), 4, 0, 5, 8)
+
+
+def test_pong_stream_with_crop_matches_repro():
+    """The classic pipeline with the playfield cropped out of the
+    grayscale screen, against repro.make run live: 20 steps, every
+    field bitwise."""
+    import jax
+
+    import repro.core.registry as jax_registry
+    import repro.core.transforms as jtf
+    import repro_torch
+
+    def pipeline(m):
+        return [m.Grayscale(), m.Crop(34, 0, 160, 160), m.Resize(84, 84),
+                m.FrameStack(4), m.RewardClip()]
+
+    jp = jax_registry.make("PongClassic-v5", num_envs=4, batch_size=2,
+                           obs=False, transforms=pipeline(jtf),
+                           max_episode_steps=5)
+    tp = repro_torch.make("PongClassic-v5", num_envs=4, batch_size=2,
+                          device="cpu", transforms=pipeline(repro_torch),
+                          max_episode_steps=5)
+    assert tp.spec.obs_spec.shape == jp.spec.obs_spec.shape == (4, 84, 84)
+    jps, jts = jp.reset(jax.random.PRNGKey(1))
+    tps, tts = tp.reset(repro_torch.random.PRNGKey(1))
+    jstep = jax.jit(jp.step)
+    for t in range(20):
+        for f in ("obs", "reward", "done", "env_id", "step_cost"):
+            np.testing.assert_array_equal(getattr(tts, f).numpy(),
+                                          np.asarray(getattr(jts, f)),
+                                          err_msg=f"step {t} {f}")
+        a = ((np.asarray(jts.env_id) * 5 + t) % 6).astype(np.int32)
+        jps, jts = jstep(jps, jnp.asarray(a), jts.env_id)
+        tps, tts = tp.step(tps, torch.from_numpy(a), tts.env_id)
+
+
 def test_wrappers_refuse_the_kernel_for_cpu_tensors():
     x = torch.zeros((1, 4, 4, 3), dtype=torch.uint8)
     with pytest.raises(ValueError):
@@ -71,12 +124,15 @@ def test_wrappers_refuse_the_kernel_for_cpu_tensors():
     with pytest.raises(ValueError):
         ops.resize(x[..., 0], 2, 2, backend="cuda")
     with pytest.raises(ValueError):
+        ops.crop(x[..., 0], 0, 0, 2, 2, backend="cuda")
+    with pytest.raises(ValueError):
         ops.grayscale(x[..., 0])          # no channel dim
 
 
 def test_launch_signatures_match_the_c_entry_points():
     """ctypes passes what each ``extern "C"`` entry declares: a pointer or
-    stream as c_void_p, ``int`` as c_int and ``long long`` as c_longlong.
+    stream as c_void_p, ``int`` as c_int, ``long long`` as c_longlong and
+    ``float`` as c_float.
     A mismatch truncates silently; grayscale's pixel count passes 2^31
     for a 210x160 block of 63.9k lanes, so it must be 64-bit."""
     import ctypes
@@ -84,7 +140,8 @@ def test_launch_signatures_match_the_c_entry_points():
 
     from repro_torch.kernels.build import CSRC, SIGNATURES
 
-    kinds = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+    kinds = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+             "float": ctypes.c_float}
     declared = {}
     for src in CSRC.glob("*.cu"):
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',

@@ -149,6 +149,16 @@ def test_running_the_port_imports_neither_jax_nor_repro():
         "    ps, ts = pool.step(ps, torch.zeros((2,) + pool.spec.act_spec\n"
         "                       .shape, dtype=pool.spec.act_spec.dtype),\n"
         "                       ts.env_id)\n"
+        "from repro_torch.rl.policy_lm import LMPolicy, build_lm_collect_fn\n"
+        "from repro_torch.serving import DecodePool\n"
+        "pool = repro_torch.make('TokenRagged-v0', num_envs=4, batch_size=2,\n"
+        "                        device='cpu')\n"
+        "pol = LMPolicy(pool.spec, device='cpu')\n"
+        "params = pol.init(torch.Generator().manual_seed(0))\n"
+        "ps, ts = pool.reset(repro_torch.random.PRNGKey(0))\n"
+        "build_lm_collect_fn(pool, pol, 2)(ps, pol.init_lanes(4), params, ts,\n"
+        "                                  repro_torch.random.PRNGKey(1))\n"
+        "DecodePool(pol, 2, 3).serve(params, [[1, 2], [3]])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
@@ -203,7 +213,8 @@ def test_make_refuses_what_is_not_ported(kwargs, error):
 def test_registered_tasks_and_stats():
     assert repro_torch.list_envs() == sorted([
         "Ant-v3", "MujocoLike-Ant-v3", "Pong-v5", "AtariLike-Pong-v5",
-        "PongStack-v5", "PongClassic-v5"])
+        "PongStack-v5", "PongClassic-v5", "TokenCopy-v0", "TokenSkew-v0",
+        "TokenRagged-v0"])
     with pytest.raises(KeyError):
         repro_torch.make("AntNorm-v3", num_envs=4, device="cpu")
     pool = repro_torch.make("PongStack-v5", num_envs=4, device="cpu")

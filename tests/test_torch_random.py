@@ -1,10 +1,13 @@
 """repro_torch.random against jax.random (threefry2x32, partitionable).
 
-Tolerances: PRNGKey, split, fold_in, raw bits, uniform and bernoulli are
-bitwise.  normal is held to rtol=1e-3, atol=1e-6: its erf_inv follows
-XLA's polynomial step for step, but log1p is torch's, which differs
-from XLA's in the last bits; in the far tails (|z| > 2.9) that reaches
-a relative 3e-4.
+Tolerances: PRNGKey, split, fold_in, raw bits, uniform, bernoulli and
+randint are bitwise.  normal is held to rtol=1e-3, atol=1e-6: its
+erf_inv follows XLA's polynomial step for step, but log1p is torch's,
+which differs from XLA's in the last bits; in the far tails (|z| > 2.9)
+that reaches a relative 3e-4.  gumbel is held to atol 1e-6 (its two
+logs are rounded from float64, XLA's f32 log differs in the last bit),
+and categorical's samples, the argmax over logits + gumbel, are
+bitwise.
 """
 
 import numpy as np
@@ -95,3 +98,33 @@ def test_normal_within_tolerance():
     got = R.normal(kt, (200,)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-6)
     assert np.mean(got == want) > 0.95
+
+
+@pytest.mark.parametrize("lo,hi,shape", [
+    (0, 256, (32,)),           # TokenCopy-v0 targets
+    (0, 151936, (32,)),        # qwen3's vocabulary
+    (-7, 9, (3, 5)),
+    (5, 5, (4,)),              # an empty range gives minval
+    (-2 ** 31, 2 ** 31 - 1, (16,)),
+])
+def test_randint_bitwise(lo, hi, shape):
+    ks, kt = key_batch(128)
+    want = jax.vmap(lambda k: jax.random.randint(k, shape, lo, hi,
+                                                 jnp.int32))(ks)
+    got = R.randint(kt, shape, lo, hi)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_gumbel_and_categorical(seed):
+    k = jax.random.PRNGKey(seed)
+    kt = torch.from_numpy(np.asarray(k).astype(np.int64))
+    logits = np.random.default_rng(seed).normal(0, 3, (64, 300)).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        R.gumbel(kt, (64, 300)).numpy(),
+        np.asarray(jax.random.gumbel(k, (64, 300))), rtol=0, atol=1e-6)
+    want = jax.random.categorical(k, jnp.asarray(logits))
+    got = R.categorical(kt, torch.from_numpy(logits))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
