@@ -14,7 +14,14 @@ Phases, in order; any failure exits non-zero:
    seeded torch generator on the card for the 0.3 G-value cache):
    bitwise (``torch.equal``) for the five env and image kernels;
    decode attention within atol 2e-2 in bf16 (the main path's dtype)
-   and 1e-5 in f32, its sums running in another order.  Each kernel,
+   and 1e-5 in f32, its sums running in another order; flash attention
+   within 2e-2 in bf16 and 3e-5 in f32, and in bf16 within
+   ``BF16_EXCESS_TOL`` (per row RMS) of the rounding of the exact
+   value, at the qwen3-0.6b prefill's own calls (B=4, S=8192, the
+   transposed (B, S, H, D) projections), qwen3-0.6b's causal layer at
+   B=1, S=4096, starcoder2-3b's sliding one as its prefill passes it
+   (S=8192, window 4096) and an end-aligned non-causal D=16 case.  Each
+   kernel,
    its plain version and, where one exists, the one PyTorch call that
    computes the same function are timed with CUDA events, the calls
    queued behind a sleep on the card so that host launch gaps stay out;
@@ -34,6 +41,16 @@ Phases, in order; any failure exits non-zero:
      of a full block under ``torch.profiler``;
    - the LM collect: the same qwen3-0.6b policy sampling on
      ``TokenRagged-v0`` N=256/M=128 sjf, vocab 151936, for 64 recvs;
+   - the model-serving path through ``make_prefill_step`` /
+     ``make_serve_step`` at full width, weights from a seeded generator
+     on the card: qwen3-0.6b prefill B=4, S=8192 into a cache as long
+     as the prompt (``attn_impl="blocked"``: 28 flash launches per
+     call; ``SHAPES["prefill_32k"]`` is B=32, S=32768, cut for run time
+     and cache memory), then a qwen3-0.6b serve of 8 prompts of 1024
+     tokens into a 1056-long cache (the dense cached branch) and 32
+     greedy tokens, then starcoder2-3b with a 4096 sliding window,
+     prefill B=1, S=8192 (30 flash launches per call); each with one
+     call or step under ``torch.profiler``;
 4. the card against the CPU: 20 recvs of PongClassic-v5 and Ant-v3 at
    N=16 (async M=8) from one key on ``cuda`` and on ``cpu``: ids, done,
    costs equal; Pong obs and reward bitwise, Ant's within 1e-4 (CUDA's
@@ -41,7 +58,9 @@ Phases, in order; any failure exits non-zero:
    ``DecodePool.serve`` on the f32 ``lm-policy`` config (4 lanes, 8
    requests) gives identical token lists, and 16 recvs of the sampled
    LM collect on ``TokenRagged-v0`` N=16/M=8 identical actions, ids and
-   dones.
+   dones.  ``Model.prefill`` (blocked) and 8 greedy ``decode_step``s on
+   the f32 smoke configs of qwen3-0.6b and sliding starcoder2-3b
+   (window 32): identical tokens, logits within 1e-4.
 
 Then a ``kernels`` JSON line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -64,10 +83,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 SEED = 0
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, and f32 ops/s
-# outside the tensor cores, used for the 32-bit integer work too
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 ops/s
+# outside the tensor cores, used for the 32-bit integer work too, and the
+# dense bf16 tensor-core rate, the floor of attention's products
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 # f32 operations of one Ant substep in csrc/env_step.cu, counting each
 # cosf as one: legs 4 x 7 + contacts 4 + thrust 12 + normal 16
 # + joints 8 x 11 + torso 1 + 9 + 7 + 3 + 2 + 9 + 6 + reward 2 + 15 + 2 + 3
@@ -83,6 +104,23 @@ SERVE_MODEL = "qwen3-0.6b"
 DEV = "cuda"
 # the Pong playfield: rows 34..193 of the 210 x 160 screen
 PONG_CROP = (34, 0, 160, 160)
+# flash_attention's phase-2 shapes: (case, B, H, Hkv, Sq, Skv, D, causal,
+# window, dtype, atol, layout); layout "bshd": q, k, v are (B, S, H, D)
+# tensors seen as (B, H, S, D), as models/blocked_attention.py passes the
+# projections.  The first is the kernel's main row: the qwen3-0.6b
+# prefill's calls in phase 3.
+FLASH_CASES = [
+    ("prefill-qwen3-B4-S8192-bf16", 4, 16, 8, 8192, 8192, 128, True, 0,
+     "bfloat16", 2e-2, "bshd"),
+    ("a-qwen3-causal-bf16", 1, 16, 8, 4096, 4096, 128, True, 0, "bfloat16",
+     2e-2, "bhsd"),
+    ("a-qwen3-causal-f32", 1, 16, 8, 4096, 4096, 128, True, 0, "float32",
+     3e-5, "bhsd"),
+    ("b-starcoder2-window4096-bf16", 1, 24, 2, 8192, 8192, 128, True, 4096,
+     "bfloat16", 2e-2, "bshd"),
+    ("c-end-aligned-noncausal-d16-f32", 2, 4, 2, 100, 300, 16, False, 0,
+     "float32", 3e-5, "bhsd"),
+]
 
 
 def log(*args) -> None:
@@ -130,9 +168,10 @@ def time_ms(fn, reps: int = 10, trials: int = 5) -> float:
     return float(np.median(times))
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S
+          ) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -151,9 +190,16 @@ def check_kernels() -> dict[str, dict]:
     res = {}
 
     def row(name, src, replaces, out, plain, nbytes, ops, run, run_plain,
-            atol=None, library=None):
+            atol=None, library=None, ops_per_s=F32_OPS_PER_S, case=None,
+            exact=None):
         """``atol`` None: bitwise; ``library``: one PyTorch call that
-        computes the same function, timed as the yardstick."""
+        computes the same function, timed as the yardstick; ``case``:
+        a further shape of a kernel already in ``res``, kept in its
+        ``cases``; ``exact``: the f32 values of a bf16 output, which
+        must lie within ``BF16_EXCESS_TOL`` of their rounding."""
+        from repro_torch.kernels.flash_attention.ref import (
+            BF16_EXCESS_TOL, rounding_excess)
+
         err = max((float((a.float() - b.float()).abs().max())
                    if a.numel() else 0.0) for a, b in zip(out, plain))
         if atol is None:
@@ -161,20 +207,41 @@ def check_kernels() -> dict[str, dict]:
         else:
             ok = err <= atol
         if not ok:
-            raise AssertionError(f"{name}: kernel != plain version, max abs "
-                                 f"err {err}, tolerance {atol}")
-        b_ms, b_by = bound(nbytes, ops)
-        res[name] = {
+            raise AssertionError(f"{name} {case or ''}: kernel != plain "
+                                 f"version, max abs err {err}, tolerance "
+                                 f"{atol}")
+        excess = None
+        if exact is not None:
+            excess = max(rounding_excess(a, e) for a, e in zip(out, exact))
+            if excess > BF16_EXCESS_TOL:
+                raise AssertionError(
+                    f"{name} {case or ''}: {excess} row RMS beyond the bf16 "
+                    f"rounding of the exact value, tolerance "
+                    f"{BF16_EXCESS_TOL}")
+        b_ms, b_by = bound(nbytes, ops, ops_per_s)
+        entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": time_ms(run), "plain_ms": time_ms(run_plain, reps=3),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None if library is None else time_ms(library),
         }
-        log(f"  {name}: {'bitwise equal' if atol is None else f'within {atol}'}"
-            f"; kernel {res[name]['ms']:.4f} ms, plain "
-            f"{res[name]['plain_ms']:.4f} ms, library "
-            f"{res[name]['library_ms']} ms, bound {b_ms:.4f} ms ({b_by})")
+        if excess is not None:
+            entry["rounding_excess"] = excess
+        if case is None:
+            res[name] = entry
+        else:
+            res[name].setdefault("cases", []).append(
+                {"case": case, **{k: v for k, v in entry.items() if k in (
+                    "max_abs_err", "rounding_excess", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms")}})
+        log(f"  {name} {case or ''}: "
+            f"{'bitwise equal' if atol is None else f'within {atol}'}"
+            f" (max abs err {err}"
+            f"{'' if excess is None else f', rounding excess {excess}'})"
+            f"; kernel {entry['ms']:.4f} ms, plain "
+            f"{entry['plain_ms']:.4f} ms, library "
+            f"{entry['library_ms']} ms, bound {b_ms:.4f} ms ({b_by})")
 
     # env_step: Ant N = 4096, costs 5..9 (main path: state gathered from
     # the pool, n_sub = max_cost = 9)
@@ -290,6 +357,7 @@ def check_kernels() -> dict[str, dict]:
         nbytes=2 * n * ch * cw, ops=0.0, run=run, run_plain=run_plain,
         library=library)
     res.update(check_decode_attention(rng, row))
+    check_flash_attention(row)
     return res
 
 
@@ -357,18 +425,128 @@ def check_decode_attention(rng, row) -> dict:
     return res
 
 
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that flash attention's masks keep: the work
+    its loop needs for these inputs."""
+    qpos = np.arange(sq, dtype=np.int64) + (skv - sq)
+    hi = np.clip(qpos + 1, 0, skv) if causal else np.full(sq, skv)
+    lo = np.clip(qpos - window + 1, 0, skv) if window else np.zeros(sq)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def check_flash_attention(row) -> None:
+    """flash_attention against ``mha_reference`` on the card at
+    ``FLASH_CASES``, inputs from a seeded generator on the card:
+
+    the main row: the qwen3-0.6b prefill's calls of phase 3, B=4,
+        S=8192, H=16, Hkv=8, D=128, causal, bf16, q, k and v transposed
+        views of (B, S, H, D) tensors; SDPA with ``is_causal`` as the
+        yardstick;
+    (a) qwen3-0.6b's layer: B=1, S=4096, dense (B, H, S, D), bf16 and
+        f32; SDPA with ``is_causal``;
+    (b) starcoder2-3b's with its 4096 window, as its prefill passes it:
+        B=1, H=24, Hkv=2, S=8192, D=128, bf16, transposed views; SDPA
+        with a boolean band mask;
+    (c) Sq=100 end-aligned against Skv=300, non-causal, D=16, f32; SDPA
+        without a mask (alignment does not matter then).
+
+    bf16 within 2e-2 of the plain version and within ``BF16_EXCESS_TOL``
+    of the rounding of the exact value (``mha_reference`` on f32 copies),
+    f32 within 3e-5, the tolerance of tests/test_kernels.py.  The plain
+    version runs one batch element at a time, which bounds its f32
+    scores to 4.3 GB at the main row.  Each is timed.  The bound is the
+    larger of the bytes over the HBM rate and 4 * D * visible pairs * H
+    * B operations over the bf16 tensor peak (the f32 case over the f32
+    peak: TF32 is off)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         mha_reference)
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    src = "src/repro_torch/csrc/flash_attention.cu"
+    replaces = "src/repro/kernels/flash_attention/kernel.py:86"
+    for n, (case, B, H, Hkv, Sq, Skv, D, causal, window, dtype, atol,
+            layout) in enumerate(FLASH_CASES):
+        dtype = getattr(torch, dtype)
+
+        def draw(heads, seq):
+            if layout == "bshd":
+                return torch.randn((B, seq, heads, D), generator=gen,
+                                   device=DEV).to(dtype).transpose(1, 2)
+            return torch.randn((B, heads, seq, D), generator=gen,
+                               device=DEV).to(dtype)
+
+        q, k, v = draw(H, Sq), draw(Hkv, Skv), draw(Hkv, Skv)
+
+        def run():
+            return flash_attention(q, k, v, causal=causal, window=window)
+
+        def per_batch(fn):
+            return torch.cat([fn(q[b:b + 1], k[b:b + 1], v[b:b + 1])
+                              for b in range(B)])
+
+        def run_plain():
+            return per_batch(lambda q, k, v: flash_attention(
+                q, k, v, causal=causal, window=window, backend="reference"))
+
+        exact = None
+        if dtype == torch.bfloat16:
+            exact = [per_batch(lambda q, k, v: mha_reference(
+                q.float(), k.float(), v.float(), causal=causal,
+                window=window))]
+        library = None
+        if not causal and not window:
+            def library():
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      enable_gqa=True)
+        elif Sq == Skv:             # SDPA's causal mask is top-left aligned
+            if window:
+                pos = torch.arange(Sq, device=DEV)
+                band = (pos[None, :] <= pos[:, None]) & (
+                    pos[None, :] > pos[:, None] - window)
+
+                def library():
+                    return F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=band, enable_gqa=True)
+            else:
+                def library():
+                    return F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True)
+        if library is not None:
+            try:
+                library()
+            except (TypeError, RuntimeError) as e:   # no GQA SDPA
+                log(f"  flash_attention {case}: no SDPA yardstick ({e})")
+                library = None
+        el = q.element_size()
+        pairs = visible_pairs(Sq, Skv, causal, window)
+        peak = (BF16_TENSOR_OPS_PER_S if dtype == torch.bfloat16
+                else F32_OPS_PER_S)
+        row("flash_attention", src, replaces, [run()], [run_plain()],
+            nbytes=el * (2 * B * H * Sq * D + 2 * B * Hkv * Skv * D),
+            ops=4.0 * D * pairs * H * B, run=run, run_plain=run_plain,
+            atol=atol, library=library, ops_per_s=peak,
+            case=None if n == 0 else case, exact=exact)
+        del q, k, v, exact
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------- #
 # phase 3: the pool on the card
 # ---------------------------------------------------------------------- #
 def counters() -> dict:
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.env_step import ops as env_ops
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.image import ops as img_ops
 
     return {"env_step": env_ops.env_multi_step,
             "pong_render": img_ops.pong_render,
             "grayscale": img_ops.grayscale, "crop": img_ops.crop,
-            "resize": img_ops.resize, "decode_attention": decode_attention}
+            "resize": img_ops.resize, "decode_attention": decode_attention,
+            "flash_attention": flash_attention}
 
 
 def reset_counts() -> None:
@@ -671,6 +849,157 @@ def drive_collect(cfg, params, recvs: int = 64) -> dict:
     return out
 
 
+def model_params(arch: str, **overrides):
+    """``build_model`` of ``arch`` at full width on the card, weights from
+    a seeded generator there (f32 parameters, bf16 compute)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    model = build_model(get_config(arch, **overrides), DEV)
+    return model, model.init(torch.Generator(device=DEV).manual_seed(SEED))
+
+
+def top3(prof: dict, unit: str) -> dict:
+    top = prof[f"top_kernels_ms_per_{unit}"]
+    return None if top is None else dict(list(top.items())[:3])
+
+
+def drive_prefill(model, params, batch: int, seq: int, calls: int = 3
+                  ) -> dict:
+    """``make_prefill_step(model, seq)`` on ``batch`` synthetic prompts of
+    ``seq`` tokens, the cache exactly as long as the prompt (the blocked
+    branch: one flash_attention launch per layer and call)."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step, synth_batch
+    from repro_torch.models import ShapeSpec
+
+    cfg = model.cfg
+    step = make_prefill_step(model, seq)
+    shape = ShapeSpec("prefill", "prefill", seq, batch)
+    inputs = synth_batch(model, shape,
+                         torch.Generator(device=DEV).manual_seed(SEED))
+    logits, cache = model.prefill(params, inputs, max_len=seq)  # warm-up
+    if logits.shape != (batch, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill {cfg.name}: logits "
+                             f"{tuple(logits.shape)}, or not finite")
+    want = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.hd)
+    if tuple(cache["k"].shape) != want or int(cache["len"]) != seq:
+        raise AssertionError(f"prefill {cfg.name}: cache {tuple(cache['k'].shape)}"
+                             f" len {int(cache['len'])}, want {want}, {seq}")
+    del logits, cache
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        nxt, cache = step(params, inputs)
+        del cache
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts(f"prefill {cfg.name}", ("flash_attention",))
+    if launches["flash_attention"] != calls * cfg.n_layers:
+        raise AssertionError(f"prefill {cfg.name}: "
+                             f"{launches['flash_attention']} flash_attention "
+                             f"launches, want {calls * cfg.n_layers}")
+    if nxt.shape != (batch,) or int(nxt.min()) < 0 \
+            or int(nxt.max()) >= cfg.vocab:
+        raise AssertionError(f"prefill {cfg.name}: next tokens out of range")
+    out = {"model": cfg.name, "attn_type": cfg.attn_type,
+           "window": cfg.window if cfg.attn_type == "sliding" else 0,
+           "batch": batch, "seq_len": seq, "calls": calls, "seconds": dt,
+           "tokens_per_s": calls * batch * seq / dt,
+           "ms_per_call": dt / calls * 1e3,
+           "flash_launches_per_call": launches["flash_attention"] / calls,
+           "launches": launches}
+    prof = profile_device(lambda: step(params, inputs), 1, unit="call")
+    busy = prof["device_busy_ms_per_call"]
+    out.update(device_busy_ms_per_call=busy,
+               kernels_per_call=prof["kernels_per_call"],
+               top3_kernels_ms_per_call=top3(prof, "call"),
+               device_idle_share=(None if busy is None
+                                  else 1.0 - busy / out["ms_per_call"]))
+    log(f"  prefill {cfg.name} {cfg.attn_type} B={batch} S={seq}: "
+        f"{out['tokens_per_s']:.0f} tokens/s, {out['ms_per_call']:.1f} ms "
+        f"per call, device busy {busy} ms per call, flash launches per call "
+        f"{out['flash_launches_per_call']}, top "
+        f"{out['top3_kernels_ms_per_call']}")
+    return out
+
+
+def drive_model_serve(model, params, batch: int, prompt: int,
+                      max_len: int, steps: int) -> dict:
+    """``make_prefill_step`` of ``batch`` prompts of ``prompt`` tokens into
+    a ``max_len`` cache (the dense cached branch: S < L), then ``steps``
+    greedy ``make_serve_step`` tokens."""
+    import torch
+
+    from repro_torch.launch.steps import (
+        make_prefill_step,
+        make_serve_step,
+        synth_batch,
+    )
+    from repro_torch.models import ShapeSpec
+
+    cfg = model.cfg
+    prefill = make_prefill_step(model, max_len)
+    serve = make_serve_step(model)
+    inputs = synth_batch(model, ShapeSpec("serve", "prefill", prompt, batch),
+                         torch.Generator(device=DEV).manual_seed(SEED + 1))
+
+    def run(n):
+        """Prefill, then ``n`` greedy steps; the tokens, the cache and
+        the host times at the start, after the prefill and at the end."""
+        t = [time.perf_counter()]
+        nxt, cache = prefill(params, inputs)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        toks = [nxt]
+        for _ in range(n):
+            nxt, cache = serve(params, cache, {"tokens": nxt[:, None]})
+            toks.append(nxt)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        return torch.stack(toks, 1), cache, t
+
+    run(2)                                              # warm-up
+    reset_counts()
+    toks, cache, (t0, t1, t2) = run(steps)
+    launches = read_counts(f"serve {cfg.name}", ())
+    if toks.shape != (batch, steps + 1) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab:
+        raise AssertionError(f"serve {cfg.name}: tokens out of range")
+    if int(cache["len"]) != prompt + steps:
+        raise AssertionError(f"serve {cfg.name}: cache len "
+                             f"{int(cache['len'])}, want {prompt + steps}")
+    out = {"model": cfg.name, "batch": batch, "prompt": prompt,
+           "max_len": max_len, "steps": steps,
+           "prefill_ms": (t1 - t0) * 1e3,
+           "ms_per_step": (t2 - t1) / steps * 1e3,
+           "tokens_per_s": batch * steps / (t2 - t1),
+           "launches": launches}
+    state = [cache, toks[:, -1]]
+
+    def one():
+        state[1], state[0] = serve(params, state[0],
+                                   {"tokens": state[1][:, None]})
+
+    prof = profile_device(one, 1, unit="step")
+    busy = prof["device_busy_ms_per_step"]
+    out.update(device_busy_ms_per_step=busy,
+               kernels_per_step=prof["kernels_per_step"],
+               top3_kernels_ms_per_step=top3(prof, "step"),
+               device_idle_share=(None if busy is None
+                                  else 1.0 - busy / out["ms_per_step"]))
+    log(f"  serve {cfg.name} B={batch} prompt {prompt} cache {max_len}: "
+        f"prefill {out['prefill_ms']:.1f} ms, {out['tokens_per_s']:.1f} "
+        f"tokens/s, {out['ms_per_step']:.2f} ms per step, device busy "
+        f"{busy} ms per step, top {out['top3_kernels_ms_per_step']}")
+    return out
+
+
 # ---------------------------------------------------------------------- #
 # phase 4: the card against the CPU
 # ---------------------------------------------------------------------- #
@@ -779,6 +1108,52 @@ def cross_check_collect(recvs: int = 16) -> None:
         "recvs (actions, ids, dones)")
 
 
+def cross_check_model(arch: str, **overrides) -> None:
+    """The f32 smoke config of ``arch``: ``Model.prefill`` with the
+    blocked branch (a 100-token prompt filling the cache) and 8 greedy
+    ``decode_step``s on ``cuda`` and on ``cpu``: identical tokens, logits
+    within 1e-4.  The decode steps write the cache's last slot, clamped as
+    ``dynamic_update_slice`` clamps, the same on both devices."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_smoke_config(arch).replace(
+        compute_dtype=torch.float32, attn_impl="blocked", **overrides)
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(SEED))
+    prompt = np.random.default_rng(SEED + 4).integers(
+        0, cfg.vocab, (2, 100)).astype(np.int32)
+    runs = {}
+    for dev in (DEV, "cpu"):
+        model = build_model(cfg, dev)
+        before = flash_attention.launches
+        p = tree_map(lambda x: x.to(dev), params)
+        logits, cache = model.prefill(
+            p, {"tokens": torch.from_numpy(prompt).to(dev)}, max_len=100)
+        toks, logs = [], [logits.cpu()]
+        for _ in range(8):
+            nxt = logits.argmax(-1).to(torch.int32)
+            toks.append(nxt.cpu())
+            logits, cache = model.decode_step(p, nxt[:, None], cache)
+            logs.append(logits.cpu())
+        runs[dev] = (torch.stack(toks), torch.stack(logs))
+        if dev == DEV and flash_attention.launches - before != cfg.n_layers:
+            raise AssertionError(f"{arch}: the card's prefill launched "
+                                 f"{flash_attention.launches - before} "
+                                 f"flash kernels, want {cfg.n_layers}")
+    if not torch.equal(runs[DEV][0], runs["cpu"][0]):
+        raise AssertionError(f"{arch}: greedy tokens differ between cuda "
+                             "and cpu")
+    err = float((runs[DEV][1] - runs["cpu"][1]).abs().max())
+    if err > 1e-4:
+        raise AssertionError(f"{arch}: logits differ by {err} > 1e-4")
+    log(f"  model {arch} {overrides or ''} blocked prefill + 8 decode "
+        f"steps: cuda == cpu tokens, logits within 1e-4 (max abs err {err})")
+
+
 def main() -> int:
     import torch
 
@@ -825,7 +1200,18 @@ def main() -> int:
     lm_runs = [drive_serve(cfg, pol, params), drive_collect(cfg, params)]
     del pol, params
     log(json.dumps({"lm_runs": lm_runs}))
-    for r in runs + lm_runs:
+    model, params = model_params(SERVE_MODEL, attn_impl="blocked")
+    model_runs = [drive_prefill(model, params, 4, 8192),
+                  drive_model_serve(model, params, 8, 1024, 1056, 32)]
+    del model, params
+    torch.cuda.empty_cache()
+    model, params = model_params("starcoder2-3b", attn_type="sliding",
+                                 window=4096, attn_impl="blocked")
+    model_runs.append(drive_prefill(model, params, 1, 8192))
+    del model, params
+    torch.cuda.empty_cache()
+    log(json.dumps({"model_runs": model_runs}))
+    for r in runs + lm_runs + model_runs:
         for k, v in r["launches"].items():
             kernels[k]["launches"] += v
 
@@ -834,6 +1220,8 @@ def main() -> int:
     cross_check("Ant-v3", 1e-4)
     cross_check_serve()
     cross_check_collect()
+    cross_check_model("qwen3-0.6b")
+    cross_check_model("starcoder2-3b", attn_type="sliding")
 
     log(f"done {at()}")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -61,10 +61,13 @@ def get_config(arch: str, **overrides) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     """Reduced same-family config for CPU tests: 2 layers, d_model 64,
-    4 query and 2 kv heads of width 16, vocab 512."""
+    4 query and 2 kv heads of width 16, vocab 512, window 32 (as
+    ``repro``'s)."""
+    cfg = get_config(arch)
     return dataclasses.replace(
-        get_config(arch), n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
-        d_ff=128, vocab=512, head_dim=16)
+        cfg, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+        vocab=512, head_dim=16, window=32,
+        global_attn_layers=(0,) if cfg.global_attn_layers else ())
 
 
 __all__ = ["ARCHS", "get_config", "get_smoke_config", "list_archs"]

@@ -7,9 +7,13 @@ takes seconds).  The library lands in ``build/repro_torch/`` at the root
 of the checkout, named by a hash of the sources and flags, so an edited
 source is never served a stale build.
 
-Flags: ``sm_90a`` (Hopper), ``-fmad=false`` so nvcc does not contract
-``a*b + c`` into fused multiply-adds — the physics and the render must
-round exactly as their plain PyTorch versions do — and no fast math.
+Flags: ``sm_90a`` (Hopper) and no fast math for every source.  The
+kernels held bitwise to their plain versions (env step, image, decode
+attention) are also built with ``-fmad=false``, so nvcc does not
+contract ``a*b + c`` into fused multiply-adds: the physics and the
+render must round exactly as their plain PyTorch versions do.  Flash
+attention is held to a tolerance instead, and fused multiply-adds
+double its f32 rate, so it keeps them (``SOURCE_FLAGS``).
 """
 
 from __future__ import annotations
@@ -26,8 +30,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false",
-                     "-Xcompiler", "-fPIC")
+BASE_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = BASE_FLAGS + ("-fmad=false",)
+# sources built with other flags than NVCC_FLAGS
+SOURCE_FLAGS = {"flash_attention.cu": BASE_FLAGS}
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
@@ -51,7 +57,16 @@ SIGNATURES = {
     "decode_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L, _L, _L, _F, _I,
                                 _P),
+    # q, k, v, out, B, H, Hkv, Sq, Skv, D, causal, window, scale,
+    # q/k/v/out strides (12), dtype, stream
+    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _F, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                               _L, _L, _L, _I, _P),
 }
+
+
+def source_flags(src: Path) -> tuple[str, ...]:
+    return SOURCE_FLAGS.get(src.name, NVCC_FLAGS)
 
 
 def _nvcc() -> str:
@@ -68,6 +83,7 @@ def _digest(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
+        h.update(" ".join(source_flags(src)).encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
@@ -76,7 +92,8 @@ def _compile(nvcc: str, sources: list[Path], out: Path) -> None:
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         objs = [Path(tmp) / (s.stem + ".o") for s in sources]
         procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+            subprocess.Popen([nvcc, *source_flags(s), "-c", str(s), "-o",
+                              str(o)],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                              text=True)
             for s, o in zip(sources, objs)
@@ -111,4 +128,5 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "SIGNATURES", "library"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "SIGNATURES", "SOURCE_FLAGS",
+           "library", "source_flags"]

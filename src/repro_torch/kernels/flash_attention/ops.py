@@ -1,0 +1,84 @@
+"""Public wrapper of the flash-attention kernel
+(``csrc/flash_attention.cu``).
+
+CUDA tensors launch the kernel, CPU tensors run the plain version
+(``ref.py``); ``backend="reference"`` forces the plain version on the
+card.  ``flash_attention.launches`` counts kernel launches and nothing
+else.
+
+q, k and v may be strided views: ``models/blocked_attention.py`` passes
+the (B, S, H, D) projections transposed to (B, H, S, D).  The kernel
+takes the batch, head and sequence strides of all four tensors, so no
+call copies an input; only the head dim must be dense.  The output has
+q's layout (``torch.empty_like``), so the transposed view comes back as
+a dense (B, S, H, D) tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.backend import check_launch, resolve_backend
+from repro_torch.kernels.decode_attention.ref import default_scale
+from repro_torch.kernels.flash_attention.ref import mha_reference
+
+# what csrc/flash_attention.cu instantiates
+HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    sm_scale: float | None = None, backend: str = "auto"
+                    ) -> torch.Tensor:
+    """(B, H, Sq, D) x (B, Hkv, Skv, D) -> (B, H, Sq, D) in q's dtype:
+    ``mha_reference``'s function (end-aligned query positions, causal
+    and sliding-window masks, GQA by ``h // (H / Hkv)``, f32 softmax; a
+    row that sees no key gives 0)."""
+    B, H, Sq, D = q.shape
+    _require(k.ndim == 4 and k.shape == v.shape and k.shape[0] == B
+             and k.shape[3] == D and H % k.shape[1] == 0,
+             f"flash_attention: q {tuple(q.shape)} vs k {tuple(k.shape)}, "
+             f"v {tuple(v.shape)}")
+    _require(window >= 0, f"flash_attention: window {window} < 0")
+    if resolve_backend(backend, q) == "reference":
+        return mha_reference(q, k, v, causal=causal, window=window,
+                             sm_scale=sm_scale)
+    Hkv, Skv = k.shape[1], k.shape[2]
+    _require(q.dtype in DTYPES and k.dtype == q.dtype
+             and v.dtype == q.dtype,
+             f"flash_attention: q, k, v must share f32 or bf16; got "
+             f"{q.dtype}, {k.dtype}, {v.dtype}")
+    _require(D in HEAD_DIMS,
+             f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    _require(q.stride(3) == 1 and k.stride(3) == 1 and v.stride(3) == 1,
+             "flash_attention: the head dim must be dense")
+    _require(k.device == q.device and v.device == q.device,
+             "flash_attention: all inputs must be on one device")
+    from repro_torch.kernels.build import library
+
+    out = torch.empty_like(q)     # q's layout: its head dim is dense
+    if out.numel() == 0:
+        return out
+    scale = default_scale(D) if sm_scale is None else float(sm_scale)
+    err = library().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, H, Hkv, Sq, Skv, D, int(causal), int(window), scale,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        out.stride(0), out.stride(1), out.stride(2),
+        DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch("flash_attention", err)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+__all__ = ["flash_attention", "mha_reference"]

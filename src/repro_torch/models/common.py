@@ -1,6 +1,12 @@
 """Model configuration and parameter initialisers
 (``repro/models/common.py``), for the dense decoder family only.
 
+``repro``'s execution fields ``scan_layers``, ``remat`` and
+``use_pallas`` are left out: they steer XLA tracing (one layer traced
+under ``lax.scan``, rematerialisation, Pallas against the XLA path),
+which eager PyTorch does not have.  Every layer's attention window is a
+Python int here, exactly as in ``repro`` with ``scan_layers=False``.
+
 Parameters are nested dicts of tensors in the JAX package's layout: the
 decoder layers are stacked on a leading ``n_layers`` dim, so the
 numpy leaves of a ``repro`` parameter pytree load as they are
@@ -19,8 +25,9 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The fields of ``repro``'s ``ModelConfig`` that a dense decoder
-    reads.  The MoE, SSM, xLSTM, encoder-decoder, RoPE-variant and
-    sliding-window fields are not ported (ROADMAP A)."""
+    reads, sliding-window and serving fields included.  The MoE, SSM,
+    xLSTM, encoder-decoder and RoPE-variant fields are not ported
+    (ROADMAP A)."""
 
     name: str
     family: str              # dense only
@@ -35,9 +42,17 @@ class ModelConfig:
     mlp_type: str = "swiglu"         # swiglu | gelu
     norm_type: str = "rmsnorm"       # rmsnorm | layernorm
     rope_theta: float = 1_000_000.0
+    attn_type: str = "full"          # full | sliding
+    window: int = 1024
+    global_attn_layers: tuple[int, ...] = ()   # these layers use full attn
     tie_embeddings: bool = False
+    # numerics
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
+    # execution
+    windowed_cache: bool = False     # ring-buffer KV cache for sliding layers
+    attn_impl: str = "dense"         # dense | blocked (flash_attention kernel)
+    kv_cache_dtype: str = "bf16"     # bf16 | int8 (quantized KV cache)
 
     @property
     def hd(self) -> int:

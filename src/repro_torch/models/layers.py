@@ -1,11 +1,22 @@
 """Transformer layers of the dense decoder (``repro/models/layers.py``):
-norms, RoPE, GQA attention without a cache, MLPs.
+norms, RoPE, GQA attention with and without a KV cache, MLPs.
 
 Plain functions over parameter dicts, in the JAX package's layout and
 with its casts: every weight is cast to the compute dtype at use, norms
-and softmax run in float32 and cast back.  Only the dense, full-causal,
-no-cache branch of ``attention`` is ported; the sliding-window, blocked,
-int8-cache and cached-prefill branches wait (ROADMAP A).
+and softmax run in float32 and cast back.  ``attention`` keeps
+``repro``'s branches and their order: no cache (dense masked, or
+blocked on the flash-attention kernel), the int8 cache, the ring cache
+of ``windowed_cache`` (decode only), and the exact cache (blocked when
+a prefill fills the whole cache, dense masked otherwise).  Dense and
+int8 attention over a cache are plain torch (``mha``), as ``repro``
+computes them outside any Pallas kernel.
+
+Where ``repro`` returns updated caches, the port writes the new K/V
+rows into the cache tensors it is given (views of the stacked
+``(layers, B, L, Hkv, D)`` cache): a caller must not reuse a cache it
+passed in.  The write starts at ``min(cache_len, L -
+S)``, clamped as ``dynamic_update_slice`` clamps, and is an index op on
+the device: ``cache_len`` never leaves the card.
 """
 
 from __future__ import annotations
@@ -16,6 +27,10 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.blocked_attention import (
+    banded_attention,
+    online_causal_attention,
+)
 from repro_torch.models.common import ModelConfig, dense_init
 
 
@@ -108,6 +123,14 @@ def causal_mask(S: int, T: int, offset: int = 0, device=None
     return (kpos <= qpos)[None, None]
 
 
+def sliding_mask(S: int, T: int, window: int, offset: int = 0, device=None
+                 ) -> torch.Tensor:
+    """(1, 1, S, T) causal mask over the ``window`` newest keys."""
+    qpos = torch.arange(S, device=device)[:, None] + offset
+    kpos = torch.arange(T, device=device)[None, :]
+    return ((kpos <= qpos) & (kpos > qpos - window))[None, None]
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask: torch.Tensor | None, cfg: ModelConfig) -> torch.Tensor:
     """Masked GQA attention, f32 softmax.  q: (B, S, Hq, D), k/v:
@@ -125,10 +148,87 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, S, Hq, D)
 
 
-def attention(p: dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
-              rope: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-    """Full causal GQA self-attention over ``x`` (B, S, d), no cache;
-    ``rope`` is ``rope_tables`` of the positions."""
+# --------------------------------------------------------------------- #
+# KV cache
+# --------------------------------------------------------------------- #
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, layers: int,
+                  device, window: int | None = None
+                  ) -> dict[str, torch.Tensor]:
+    """Pre-allocated KV cache: ``k``/``v`` (layers, batch, L, Hkv, hd)
+    and ``len`` a 0-d int32.  ``window`` caps L for the ring cache of
+    sliding-window layers (``cfg.windowed_cache``).  With
+    ``kv_cache_dtype="int8"`` entries are int8 with one f32 scale per
+    (position, kv head) in ``k_scale``/``v_scale``."""
+    L = min(max_len, window) if window else max_len
+    shape = (layers, batch, L, cfg.n_kv_heads, cfg.hd)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": zeros(shape, torch.int8), "v": zeros(shape, torch.int8),
+                "k_scale": zeros(shape[:-1], torch.float32),
+                "v_scale": zeros(shape[:-1], torch.float32),
+                "len": zeros((), torch.int32)}
+    return {"k": zeros(shape, cfg.compute_dtype),
+            "v": zeros(shape, cfg.compute_dtype),
+            "len": zeros((), torch.int32)}
+
+
+def _quant_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, Hkv, D) -> int8 values + (B, S, Hkv) f32 scales."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0 + 1e-9
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequant_kv(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype
+                ) -> torch.Tensor:
+    return (q.float() * scale[..., None].float()).to(dtype)
+
+
+def _write_rows(caches: tuple[torch.Tensor, ...],
+                rows: tuple[torch.Tensor, ...], index: torch.Tensor) -> None:
+    """Write ``rows[i]`` into ``caches[i]`` at positions ``index`` of
+    dim 1, in place."""
+    for cache, new in zip(caches, rows):
+        cache.index_copy_(1, index, new.to(cache.dtype))
+
+
+def _slice_index(cache_len: torch.Tensor, S: int, L: int) -> torch.Tensor:
+    """Positions ``start .. start + S - 1`` with ``start = clamp(
+    cache_len, 0, L - S)``, as ``dynamic_update_slice`` clamps."""
+    if S > L:
+        raise ValueError(f"{S} new positions do not fit a cache of {L}")
+    start = torch.clamp(cache_len.long(), 0, L - S)
+    return start + torch.arange(S, device=cache_len.device)
+
+
+# --------------------------------------------------------------------- #
+# attention
+# --------------------------------------------------------------------- #
+def attention(
+    p: dict[str, Any],
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    rope: tuple[torch.Tensor, torch.Tensor],
+    *,
+    layer_window: int | None = None,
+    cache_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+    cache_scales: tuple[torch.Tensor, torch.Tensor] | None = None,
+    cache_len: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """GQA attention over ``x`` (B, S, d) -> (B, S, d); ``rope`` is
+    ``rope_tables`` of the positions, ``layer_window`` this layer's
+    window (0 = full; None = ``cfg.window`` for a sliding config).
+
+    * no cache: causal (or sliding) self-attention over ``x``;
+    * prefill: ``cache_kv`` (B, L, Hkv, hd) zeros and ``cache_len`` 0;
+    * decode: ``cache_kv`` holds ``cache_len`` positions of history.
+
+    The new K/V rows (and int8 scales) are written into ``cache_kv``
+    (and ``cache_scales``) in place: they are ``repro``'s new cache."""
     B, S, _ = x.shape
     cd = cfg.compute_dtype
     q = (x @ p["wq"].to(cd)).reshape(B, S, cfg.n_heads, cfg.hd)
@@ -139,8 +239,72 @@ def attention(p: dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
         k = rms_head_norm(p["k_norm"], k)
     q = apply_rope(q, rope, cfg)
     k = apply_rope(k, rope, cfg)
-    out = mha(q, k, v, causal_mask(S, S, device=x.device), cfg)
-    return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(cd)
+
+    window = cfg.window if cfg.attn_type == "sliding" else 0
+    # this layer's window; 0 = full (a global layer, or not sliding)
+    win = window if layer_window is None or not window else int(layer_window)
+    use_blocked = cfg.attn_impl == "blocked" and S > 1
+    dev = x.device
+
+    if cache_kv is None:
+        if use_blocked:
+            out = _blocked_self_attention(q, k, v, win)
+        else:
+            mask = (sliding_mask(S, S, win, device=dev) if win
+                    else causal_mask(S, S, device=dev))
+            out = mha(q, k, v, mask, cfg)
+        return _attn_out(p, out, cfg)
+
+    ck, cv = cache_kv
+    L = ck.shape[1]
+    qpos = cache_len + torch.arange(S, device=dev)[:, None]
+    kpos = torch.arange(L, device=dev)[None, :]
+    if cache_scales is not None:
+        # int8 cache: stored quantized, dequantized at use
+        k_sc, v_sc = cache_scales
+        kq, ks_new = _quant_kv(k)
+        vq, vs_new = _quant_kv(v)
+        _write_rows((ck, cv, k_sc, v_sc), (kq, vq, ks_new, vs_new),
+                    _slice_index(cache_len, S, L))
+        valid = kpos <= qpos
+        if win:
+            valid = valid & (kpos > qpos - win)
+        out = mha(q, _dequant_kv(ck, k_sc, cd), _dequant_kv(cv, v_sc, cd),
+                  valid[None, None], cfg)
+        return _attn_out(p, out, cfg)
+    if cfg.windowed_cache and window and window < L:
+        # ring cache (decode only): the write slot wraps modulo L
+        if S != 1:
+            raise ValueError("windowed_cache supports single-token decode "
+                             f"only; got {S} tokens")
+        _write_rows((ck, cv), (k, v), (cache_len.long() % L).reshape(1))
+        mask = (kpos < torch.clamp(cache_len + 1, max=L))[None, None]
+    else:
+        _write_rows((ck, cv), (k, v), _slice_index(cache_len, S, L))
+        if use_blocked and S == L:
+            # prefill from scratch (cache_len == 0 by Model.prefill's
+            # contract): blocked attention over x itself
+            return _attn_out(p, _blocked_self_attention(q, k, v, win), cfg)
+        valid = kpos <= qpos                        # causal incl. history
+        if win:
+            valid = valid & (kpos > qpos - win)
+        mask = valid[None, None]
+    return _attn_out(p, mha(q, ck, cv, mask, cfg), cfg)
+
+
+def _attn_out(p: dict[str, Any], out: torch.Tensor, cfg: ModelConfig
+              ) -> torch.Tensor:
+    B, S = out.shape[:2]
+    return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(cfg.compute_dtype)
+
+
+def _blocked_self_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, win: int) -> torch.Tensor:
+    """Banded for sliding layers, full causal otherwise, both on the
+    flash-attention kernel -> (B, S, Hq, D)."""
+    if win and win < q.shape[1]:
+        return banded_attention(q, k, v, win)
+    return online_causal_attention(q, k, v)
 
 
 # --------------------------------------------------------------------- #
@@ -173,6 +337,6 @@ def apply_mlp(p: dict[str, torch.Tensor], x: torch.Tensor,
 
 __all__ = [
     "apply_mlp", "apply_norm", "apply_rope", "attention", "attn_init",
-    "causal_mask", "mha", "mlp_init", "norm_init", "rms_head_norm",
-    "rope_freqs", "rope_tables",
+    "causal_mask", "init_kv_cache", "mha", "mlp_init", "norm_init",
+    "rms_head_norm", "rope_freqs", "rope_tables", "sliding_mask",
 ]

@@ -1,11 +1,16 @@
 """Dense decoder-only LM (``repro/models/transformer.py``): stacked-layer
-parameters and the no-cache forward.
+parameters, the forward with and without a KV cache, and the cache.
 
-``lm_apply`` is the JAX package's train-mode forward for the dense
-family: embed, ``n_layers`` of pre-norm attention + MLP over the stacked
-layer weights, final norm, logits.  It returns the logits only (the JAX
-function also returns an empty cache and a zero MoE loss).  The cached
-decode lives in ``rl/policy_lm.py::LMPolicy.decode_step``.
+``lm_apply`` is the JAX package's forward for the dense family: embed,
+``n_layers`` of pre-norm attention + MLP over the stacked layer weights,
+final norm, logits.  It returns ``(logits, new_cache, aux)`` as
+``repro``'s does (``aux`` is the MoE loss, a zero f32 here).  Layers run
+one after another in Python, each with its static window
+(``static_layer_windows``), as ``repro`` runs them with
+``scan_layers=False``.  The cache is ``repro``'s: ``k``/``v`` (layers,
+B, L, Hkv, hd), ``len`` a 0-d int32 (plus ``k_scale``/``v_scale`` for
+the int8 cache), written in place (``models/layers.py::attention``).
+The LM policy's own cached decode lives in ``rl/policy_lm.py``.
 """
 
 from __future__ import annotations
@@ -20,17 +25,23 @@ from repro_torch.models.layers import (
     apply_norm,
     attention,
     attn_init,
+    init_kv_cache,
     mlp_init,
     norm_init,
     rope_tables,
 )
 
 
+# families not ported yet -> the ROADMAP item that brings them
+NOT_PORTED = {"moe": "A16", "hybrid": "A16", "ssm": "A13", "encdec": "A13",
+              "vlm": "A13"}
+
+
 def check_dense(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported; only dense "
-            "decoders are (ROADMAP A)")
+            f"decoders are (ROADMAP {NOT_PORTED.get(cfg.family, 'A')})")
 
 
 def lm_init(gen: torch.Generator, cfg: ModelConfig,
@@ -75,24 +86,92 @@ def lm_head(params: dict[str, Any], x: torch.Tensor,
     return x @ params["lm_head"].to(cd)
 
 
-def lm_apply(params: dict[str, Any], tokens: torch.Tensor,
-             cfg: ModelConfig) -> torch.Tensor:
-    """(B, S) int tokens -> (B, S, V) logits in the compute dtype, full
-    causal attention, positions ``0..S-1``."""
+def static_layer_windows(cfg: ModelConfig) -> list[int]:
+    """Per-layer windows as Python ints (0 = full attention)."""
+    if cfg.attn_type != "sliding":
+        return [0] * cfg.n_layers
+    return [0 if i in cfg.global_attn_layers else cfg.window
+            for i in range(cfg.n_layers)]
+
+
+def decoder_layer(p: dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
+                  rope: tuple[torch.Tensor, torch.Tensor], layer_window: int,
+                  cache: dict[str, torch.Tensor] | None,
+                  cache_len: torch.Tensor | None) -> torch.Tensor:
+    """One pre-norm layer; ``cache`` is this layer's slice of the cache
+    (without ``len``), written in place."""
+    cache_kv = cache_scales = None
+    if cache is not None:
+        cache_kv = (cache["k"], cache["v"])
+        if "k_scale" in cache:
+            cache_scales = (cache["k_scale"], cache["v_scale"])
+    x = x + attention(p["attn"], apply_norm(p["attn_norm"], x, cfg), cfg,
+                      rope, layer_window=layer_window, cache_kv=cache_kv,
+                      cache_scales=cache_scales, cache_len=cache_len)
+    return x + apply_mlp(p["mlp"], apply_norm(p["mlp_norm"], x, cfg), cfg)
+
+
+def lm_hidden(params: dict[str, Any], tokens: torch.Tensor,
+              cfg: ModelConfig, *, positions: torch.Tensor | None = None,
+              cache: dict[str, torch.Tensor] | None = None
+              ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None]:
+    """The final-normed hidden state (B, S, d) and the new cache: every
+    step of ``lm_apply`` but the LM head, which ``Model.prefill`` applies
+    to the last position only."""
     check_dense(cfg)
     cd = cfg.compute_dtype
     x = params["embed"][tokens.long()].to(cd)
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    cache_len = cache["len"] if cache is not None else None
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        if cache is not None:
+            positions = positions + cache_len
     rope = rope_tables(positions, cfg)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
-        x = x + attention(lp["attn"], apply_norm(lp["attn_norm"], x, cfg),
-                          cfg, rope)
-        x = x + apply_mlp(lp["mlp"], apply_norm(lp["mlp_norm"], x, cfg),
-                          cfg)
-    return lm_head(params, apply_norm(params["final_norm"], x, cfg), cfg)
+    for i, w in enumerate(static_layer_windows(cfg)):
+        layer_cache = None
+        if cache is not None:
+            layer_cache = {k: v[i] for k, v in cache.items() if k != "len"}
+        x = decoder_layer(layer_params(params["layers"], i), x, cfg, rope, w,
+                          layer_cache, cache_len)
+    new_cache = None
+    if cache is not None:
+        # the layer caches are views of the stacked tensors, written in
+        # place: the stacked tensors are the new cache
+        new_cache = {k: v for k, v in cache.items() if k != "len"}
+        new_cache["len"] = cache_len + S
+    return apply_norm(params["final_norm"], x, cfg), new_cache
 
 
-__all__ = ["check_dense", "layer_params", "lm_apply", "lm_head",
-           "lm_init"]
+def lm_apply(params: dict[str, Any], tokens: torch.Tensor,
+             cfg: ModelConfig, *, positions: torch.Tensor | None = None,
+             cache: dict[str, torch.Tensor] | None = None
+             ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None,
+                        torch.Tensor]:
+    """(B, S) int tokens -> ``(logits (B, S, V) in the compute dtype,
+    new_cache, aux)``.  Positions default to ``cache["len"] + 0..S-1``
+    (``0..S-1`` without a cache); ``new_cache`` is None without a
+    cache."""
+    x, new_cache = lm_hidden(params, tokens, cfg, positions=positions,
+                             cache=cache)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return lm_head(params, x, cfg), new_cache, aux
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: torch.device | str) -> dict[str, torch.Tensor]:
+    """``init_kv_cache`` over every layer; the ring cache is sized to the
+    window only when every layer is a sliding one."""
+    check_dense(cfg)
+    window = None
+    if (cfg.windowed_cache and cfg.attn_type == "sliding"
+            and not cfg.global_attn_layers):
+        window = cfg.window
+    return init_kv_cache(cfg, batch, max_len, cfg.n_layers, device,
+                         window=window)
+
+
+__all__ = ["NOT_PORTED", "check_dense", "decoder_layer", "init_cache",
+           "layer_params",
+           "lm_apply", "lm_head", "lm_hidden", "lm_init",
+           "static_layer_windows"]

@@ -239,7 +239,7 @@ class LMPolicy:
         """No-cache forward over the whole (padded) history, (B, T) int32
         with ``lengths`` (B,) valid tokens: the logits of each lane's
         last valid position."""
-        logits_all = lm_apply(params, history, self.cfg)
+        logits_all = lm_apply(params, history, self.cfg)[0]
         idx = torch.clamp(lengths.long() - 1, 0, history.shape[1] - 1)
         return logits_all[torch.arange(history.shape[0],
                                        device=idx.device), idx]

@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card (bitwise, except decode attention: within 1e-5 in f32 and 2e-2 in
-bf16, since its sums run in another order), and a pool and a decode
-server on the card against the same on the CPU.
+bf16, and flash attention: within 3e-5 in f32 and 2e-2 in bf16, the
+tolerances of tests/test_kernels.py, since their sums run in another
+order; in bf16 also within ``BF16_EXCESS_TOL`` of the rounding of the
+exact value, ``kernels/flash_attention/ref.py::rounding_excess``), and a pool and a decode server on the card against the same on
+the CPU.
 These need a CUDA device: each test is marked ``gpu`` and skips without
 one.  Run them on the card with
 
@@ -22,6 +25,14 @@ from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     decode_attention,
 )
 from repro_torch.kernels.env_step.ops import env_multi_step  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention,
+)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    BF16_EXCESS_TOL,
+    mha_reference,
+    rounding_excess,
+)
 from repro_torch.kernels.image import ops  # noqa: E402
 from repro_torch.rl.policy_lm import (  # noqa: E402
     LMPolicy,
@@ -116,6 +127,73 @@ def test_decode_attention_kernel(cuda, H, Hkv, D, dtype):
     assert got.dtype == dtype and torch.all(got[0] == 0)
     atol = 1e-5 if dtype == torch.float32 else 2e-2
     assert torch.allclose(got.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,D,causal,window,dtype", [
+    # causal GQA in bf16, a length that is no multiple of the tile
+    (2, 8, 2, 200, 200, 128, True, 0, torch.bfloat16),
+    # sliding window in f32, queries end-aligned against a longer key set
+    (1, 4, 1, 100, 301, 64, True, 37, torch.float32),
+    # non-causal, D = 16 and D = 32
+    (1, 2, 2, 70, 70, 16, False, 0, torch.float32),
+    (2, 6, 3, 65, 129, 32, False, 0, torch.bfloat16),
+    # the tensor-core path with a window, end-aligned; D = 16
+    (1, 4, 2, 150, 333, 64, True, 45, torch.bfloat16),
+    (2, 4, 4, 64, 64, 16, True, 0, torch.bfloat16),
+])
+def test_flash_attention_kernel(cuda, B, H, Hkv, Sq, Skv, D, causal, window,
+                                dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(Sq + D)
+    # q and k as (B, S, H, D) projections seen as (B, H, S, D) views
+    q = torch.from_numpy(rng.normal(0, 1, (B, Sq, H, D)).astype(
+        np.float32)).to(cuda, dtype).transpose(1, 2)
+    k, v = (torch.from_numpy(rng.normal(0, 1, (B, Skv, Hkv, D)).astype(
+        np.float32)).to(cuda, dtype).transpose(1, 2) for _ in range(2))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == before + 1
+    want = flash_attention(q, k, v, causal=causal, window=window,
+                           backend="reference")
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    assert got.transpose(1, 2).is_contiguous()     # q's layout, no copy
+    _check_flash(got, want, q, k, v, causal=causal, window=window)
+
+
+def _check_flash(got, want, q, k, v, **masks):
+    """Within 3e-5 (f32) or 2e-2 (bf16) of the plain version; in bf16
+    also within ``BF16_EXCESS_TOL`` of the rounding of the exact value."""
+    atol = 3e-5 if got.dtype == torch.float32 else 2e-2
+    assert torch.allclose(got.float(), want.float(), rtol=0, atol=atol)
+    if got.dtype == torch.bfloat16:
+        exact = mha_reference(q.float(), k.float(), v.float(), **masks)
+        assert rounding_excess(got, exact) <= BF16_EXCESS_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_unaligned_inputs(cuda, dtype):
+    """Views that start one element into their buffer: no 16-byte loads."""
+    rng = np.random.default_rng(11)
+    B, H, S, D = 1, 4, 130, 32
+
+    def view(shape):
+        flat = torch.from_numpy(rng.normal(0, 1, 1 + int(np.prod(shape)))
+                                .astype(np.float32)).to(cuda, dtype)
+        return flat[1:].view(shape)
+
+    q, k, v = view((B, H, S, D)), view((B, 2, S, D)), view((B, 2, S, D))
+    got = flash_attention(q, k, v, window=20)
+    want = flash_attention(q, k, v, window=20, backend="reference")
+    _check_flash(got, want, q, k, v, window=20)
+
+
+def test_flash_attention_row_without_keys_is_zero(cuda):
+    q = torch.ones((1, 2, 96, 32), device=cuda)
+    k = torch.ones((1, 2, 40, 32), device=cuda)
+    out = flash_attention(q, k, k)                  # causal, Sq > Skv
+    assert torch.all(out[:, :, :56] == 0)
+    assert torch.allclose(out[:, :, 56:], torch.ones_like(out[:, :, 56:]))
 
 
 def test_decode_pool_on_the_card_matches_the_cpu(cuda):

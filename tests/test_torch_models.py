@@ -1,0 +1,315 @@
+"""The port's model-serving path against the JAX package's, run live in
+one process with the same weights (``params_from_jax`` loads the numpy
+leaves of ``repro``'s ``lm_init``):
+
+* ``lm_apply``, dense and blocked, on smoke qwen3-0.6b and on smoke
+  starcoder2-3b with ``attn_type="sliding", window=8``;
+* ``Model.prefill`` + 4 ``decode_step``s: logits and the cache leaves,
+  for the exact, int8 and ring (``windowed_cache``) caches and for a
+  blocked prefill that fills the whole cache; a second prompt chunk
+  against a cache that holds history;
+* ``make_prefill_step`` / ``make_serve_step`` tokens;
+* the conformance pin: ``LMPolicy``'s greedy collect picks the tokens
+  ``Model.decode_step`` picks replaying each lane alone.
+
+Everything runs in f32.  ``repro`` runs with ``scan_layers=False``, its
+static per-layer windows, as the port does (under ``lax.scan`` its int8
+cache ignores the sliding window).  Tolerance 2e-4 on logits and
+caches (the products and sums run in another order); int8 cache values
+within one quantum, ``len`` exact, tokens identical.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.registry import get_smoke_config as j_smoke  # noqa: E402
+from repro.launch import steps as jsteps  # noqa: E402
+from repro.models import build_model as j_build  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro.models.api import SHAPES as J_SHAPES  # noqa: E402
+
+import repro_torch  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.launch import steps as tsteps  # noqa: E402
+from repro_torch.models import SHAPES, build_model  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
+from repro_torch.models.api import cell_supported  # noqa: E402
+from repro_torch.models.transformer import NOT_PORTED  # noqa: E402
+from repro_torch.rl import policy_lm as tlm  # noqa: E402
+
+TOL = 2e-4
+SLIDING = dict(attn_type="sliding", window=8)
+ARCHS = {"qwen3": ("qwen3-0.6b", {}), "starcoder2-sliding":
+         ("starcoder2-3b", SLIDING)}
+
+
+def configs(arch: str, **variant):
+    """(repro config, port config), f32 compute, ``variant`` applied."""
+    name, over = ARCHS[arch]
+    jcfg = j_smoke(name).replace(compute_dtype=jnp.float32,
+                                 scan_layers=False, **over, **variant)
+    tcfg = get_smoke_config(name).replace(compute_dtype=torch.float32,
+                                          **over, **variant)
+    return jcfg, tcfg
+
+
+def weights(jcfg, tcfg, seed: int = 0):
+    """repro's ``lm_init`` weights (stacked layers) and the port's copy."""
+    jparams = JT.lm_init(jax.random.PRNGKey(seed),
+                         jcfg.replace(scan_layers=True))
+    tparams = tlm.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                                  "cpu")
+    return jparams, tparams
+
+
+def tokens(vocab: int, shape, seed: int = 1) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, vocab, shape).astype(
+        np.int32)
+
+
+def f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def assert_caches_match(tc: dict, jc: dict) -> None:
+    assert set(tc) == set(jc)
+    for name in jc:
+        got, want = tc[name], jc[name]
+        assert tuple(got.shape) == tuple(want.shape), name
+        assert str(got.dtype).removeprefix("torch.") == str(want.dtype), name
+        if name == "len":
+            assert int(got) == int(want)
+        elif got.dtype == torch.int8:       # one quantum at a rounding tie
+            np.testing.assert_allclose(f32(got), f32(want), rtol=0, atol=1,
+                                       err_msg=name)
+        else:
+            np.testing.assert_allclose(f32(got), f32(want), rtol=TOL,
+                                       atol=TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("impl", ["dense", "blocked"])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_lm_apply_matches_repro(arch, impl):
+    jcfg, tcfg = configs(arch, attn_impl=impl)
+    jparams, tparams = weights(jcfg, tcfg)
+    tok = tokens(tcfg.vocab, (2, 40))
+    want, jcache, _ = JT.lm_apply(jparams, jnp.asarray(tok), jcfg)
+    got, tcache, aux = TT.lm_apply(tparams, torch.from_numpy(tok), tcfg)
+    assert tcache is None and jcache is None
+    assert aux.dtype == torch.float32 and float(aux) == 0.0
+    assert got.shape == (2, 40, tcfg.vocab)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=TOL, atol=TOL)
+
+
+# (arch, config variant, prompt length, cache length)
+SERVE_CASES = [
+    ("qwen3", {}, 12, 16),
+    ("qwen3", dict(kv_cache_dtype="int8"), 12, 16),
+    ("qwen3", dict(attn_impl="blocked"), 12, 12),       # flash prefill
+    ("qwen3", dict(attn_impl="blocked"), 12, 16),       # dense: S < L
+    ("starcoder2-sliding", {}, 12, 16),
+    ("starcoder2-sliding", dict(kv_cache_dtype="int8"), 12, 16),
+    ("starcoder2-sliding", dict(windowed_cache=True), 6, 16),  # L = 8
+    ("starcoder2-sliding", dict(attn_impl="blocked"), 12, 12),  # banded
+]
+
+
+@pytest.mark.parametrize("arch,variant,S,max_len", SERVE_CASES)
+def test_prefill_and_decode_match_repro(arch, variant, S, max_len):
+    jcfg, tcfg = configs(arch, **variant)
+    jparams, tparams = weights(jcfg, tcfg)
+    jm, tm = j_build(jcfg), build_model(tcfg, "cpu")
+    tok = tokens(tcfg.vocab, (2, S + 4))
+    jlog, jc = jm.prefill(jparams, {"tokens": jnp.asarray(tok[:, :S])},
+                          max_len=max_len)
+    tlog, tc = tm.prefill(tparams, {"tokens": torch.from_numpy(tok[:, :S])},
+                          max_len=max_len)
+    for t in range(S, S + 5):
+        assert tlog.shape == (2, tcfg.vocab)
+        np.testing.assert_allclose(f32(tlog), f32(jlog), rtol=TOL, atol=TOL)
+        assert_caches_match(tc, jc)
+        if t == S + 4:
+            break
+        jlog, jc = jm.decode_step(jparams, jnp.asarray(tok[:, t:t + 1]), jc)
+        tlog, tc = tm.decode_step(tparams, torch.from_numpy(tok[:, t:t + 1]),
+                                  tc)
+
+
+@pytest.mark.parametrize("arch,variant", [
+    ("qwen3", {}), ("starcoder2-sliding", {}),
+    ("starcoder2-sliding", dict(kv_cache_dtype="int8"))])
+def test_chunked_prefill_matches_repro(arch, variant):
+    """A second prompt chunk against a cache that holds history: S > 1
+    tokens written at ``len``, causal over the history."""
+    jcfg, tcfg = configs(arch, **variant)
+    jparams, tparams = weights(jcfg, tcfg, seed=3)
+    jm, tm = j_build(jcfg), build_model(tcfg, "cpu")
+    tok = tokens(tcfg.vocab, (2, 17), seed=6)
+    _, jc = jm.prefill(jparams, {"tokens": jnp.asarray(tok[:, :6])},
+                       max_len=20)
+    _, tc = tm.prefill(tparams, {"tokens": torch.from_numpy(tok[:, :6])},
+                       max_len=20)
+    jlog, jc, _ = JT.lm_apply(jparams, jnp.asarray(tok[:, 6:17]), jcfg,
+                              cache=jc)
+    tlog, tc, _ = TT.lm_apply(tparams, torch.from_numpy(tok[:, 6:17]), tcfg,
+                              cache=tc)
+    np.testing.assert_allclose(f32(tlog), f32(jlog), rtol=TOL, atol=TOL)
+    assert_caches_match(tc, jc)
+
+
+def test_ring_cache_decode_matches_repro():
+    """A sliding config with ``windowed_cache`` decoding against a cache
+    longer than its window writes slot ``len % L`` (the ring branch)."""
+    jcfg, tcfg = configs("starcoder2-sliding", windowed_cache=True)
+    jparams, tparams = weights(jcfg, tcfg)
+    plain_j = j_build(jcfg.replace(windowed_cache=False))
+    plain_t = build_model(tcfg.replace(windowed_cache=False), "cpu")
+    jm, tm = j_build(jcfg), build_model(tcfg, "cpu")
+    tok = tokens(tcfg.vocab, (2, 20), seed=4)
+    _, jc = plain_j.prefill(jparams, {"tokens": jnp.asarray(tok[:, :10])},
+                            max_len=12)
+    _, tc = plain_t.prefill(tparams, {"tokens": torch.from_numpy(tok[:, :10])},
+                            max_len=12)
+    for t in range(10, 18):                 # wraps past L = 12
+        jlog, jc = jm.decode_step(jparams, jnp.asarray(tok[:, t:t + 1]), jc)
+        tlog, tc = tm.decode_step(tparams, torch.from_numpy(tok[:, t:t + 1]),
+                                  tc)
+        np.testing.assert_allclose(f32(tlog), f32(jlog), rtol=TOL, atol=TOL)
+        assert_caches_match(tc, jc)
+    with pytest.raises(ValueError, match="single-token"):
+        tm.decode_step(tparams, torch.from_numpy(tok[:, :2]), tc)
+
+
+@pytest.mark.parametrize("arch,impl", [("qwen3", "blocked"),
+                                       ("starcoder2-sliding", "dense")])
+def test_serving_steps_match_repro(arch, impl):
+    jcfg, tcfg = configs(arch, attn_impl=impl)
+    jparams, tparams = weights(jcfg, tcfg, seed=2)
+    S, L = 10, 10 if impl == "blocked" else 16
+    jm, tm = j_build(jcfg), build_model(tcfg, "cpu")
+    jprefill = jsteps.make_prefill_step(jm, L)
+    jserve = jax.jit(jsteps.make_serve_step(jm))
+    tprefill = tsteps.make_prefill_step(tm, L)
+    tserve = tsteps.make_serve_step(tm)
+    tok = tokens(tcfg.vocab, (3, S), seed=5)
+    jnext, jc = jprefill(jparams, {"tokens": jnp.asarray(tok)})
+    tnext, tc = tprefill(tparams, {"tokens": torch.from_numpy(tok)})
+    for _ in range(5):
+        assert tnext.dtype == torch.int32
+        np.testing.assert_array_equal(tnext.numpy(), np.asarray(jnext))
+        jnext, jc = jserve(jparams, jc, {"tokens": jnext[:, None]})
+        tnext, tc = tserve(tparams, tc, {"tokens": tnext[:, None]})
+    np.testing.assert_array_equal(tnext.numpy(), np.asarray(jnext))
+    assert int(tc["len"]) == int(jc["len"]) == S + 5
+
+
+def test_policy_decode_matches_model_decode():
+    """The conformance pin: per-lane greedy tokens of the policy's cached
+    collect (ragged lengths, ``decode_attention``) equal those of
+    ``Model.decode_step`` replaying each lane alone from its own
+    cache."""
+    N, steps, max_len = 4, 20, 16
+    pool = repro_torch.make("TokenCopy-v0", num_envs=N, vocab=32, ep_len=6,
+                            ctx_len=8, device="cpu")
+    policy = tlm.LMPolicy(pool.spec,
+                          cfg=tlm.default_policy_config(32, max_len),
+                          max_len=max_len, device="cpu")
+    params = policy.init(torch.Generator().manual_seed(3))
+    collect = tlm.build_lm_collect_fn(pool, policy, steps, cached=True,
+                                      greedy=True)
+    ps, ts = pool.reset(repro_torch.random.PRNGKey(4))
+    _, _, _, traj, acts = collect(ps, policy.init_lanes(N), params, ts,
+                                  repro_torch.random.PRNGKey(5))
+    ids = traj.env_id.long().numpy()
+    obs = np.zeros_like(traj.obs.numpy())
+    done = np.zeros_like(traj.done.numpy())
+    acts_lane = np.zeros_like(acts.numpy())
+    for t in range(steps):
+        obs[t, ids[t]] = traj.obs.numpy()[t]
+        done[t, ids[t]] = traj.done.numpy()[t]
+        acts_lane[t, ids[t]] = acts.numpy()[t]
+
+    model = build_model(policy.cfg, "cpu")
+    for lane in range(N):
+        cache = model.init_cache(1, max_len)
+        for t in range(steps):
+            if done[t, lane]:
+                cache = model.init_cache(1, max_len)
+            tok = torch.tensor([[obs[t, lane, policy.obs_slot]]],
+                               dtype=torch.int32)
+            logits, cache = model.decode_step(params, tok, cache)
+            assert int(logits[0].argmax()) == int(acts_lane[t, lane]), (
+                f"lane {lane} step {t}")
+
+
+def test_init_cache_matches_repro_layout():
+    for arch, variant in (("qwen3", {}), ("qwen3", dict(kv_cache_dtype=
+                                                       "int8")),
+                          ("starcoder2-sliding", dict(windowed_cache=True))):
+        jcfg, tcfg = configs(arch, **variant)
+        jc = j_build(jcfg).init_cache(3, 20)
+        tc = build_model(tcfg, "cpu").init_cache(3, 20)
+        assert {k: (tuple(v.shape), str(v.dtype)) for k, v in jc.items()} \
+            == {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+                for k, v in tc.items()}
+        assert all(not bool(v.any()) for v in tc.values())
+
+
+def test_smoke_configs_match_repro():
+    for name in ("qwen3-0.6b", "starcoder2-3b", "llama3.2-3b", "qwen3-14b"):
+        jcfg, tcfg = j_smoke(name), get_smoke_config(name)
+        for field in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+                      "vocab", "hd", "qk_norm", "mlp_type", "norm_type",
+                      "rope_theta", "attn_type", "window",
+                      "global_attn_layers", "tie_embeddings",
+                      "windowed_cache", "attn_impl", "kv_cache_dtype"):
+            assert getattr(tcfg, field) == getattr(jcfg, field), (name, field)
+
+
+def test_shapes_and_synth_batch():
+    assert {k: (s.kind, s.seq_len, s.global_batch) for k, s in
+            SHAPES.items()} == {k: (s.kind, s.seq_len, s.global_batch)
+                                for k, s in J_SHAPES.items()}
+    _, tcfg = configs("qwen3")
+    model = build_model(tcfg, "cpu")
+    assert cell_supported(tcfg, SHAPES["prefill_32k"]) == (True, "")
+    assert not cell_supported(tcfg, SHAPES["long_500k"])[0]
+    shape = tsteps.ShapeSpec("p", "prefill", 24, 3)
+    a = tsteps.synth_batch(model, shape, torch.Generator().manual_seed(0))
+    b = tsteps.synth_batch(model, shape, torch.Generator().manual_seed(0))
+    assert set(a) == {"tokens"} and a["tokens"].shape == (3, 24)
+    assert a["tokens"].dtype == torch.int32 and torch.equal(a["tokens"],
+                                                            b["tokens"])
+    assert 0 <= int(a["tokens"].min()) and int(a["tokens"].max()) < tcfg.vocab
+    d = tsteps.synth_batch(model, SHAPES["decode_32k"],
+                           torch.Generator().manual_seed(0))
+    assert d["tokens"].shape == (128, 1)
+    with pytest.raises(NotImplementedError, match="A17"):
+        tsteps.synth_batch(model, SHAPES["train_4k"],
+                           torch.Generator().manual_seed(0))
+
+
+def test_what_is_not_ported_raises(monkeypatch):
+    _, tcfg = configs("qwen3")
+    for family, item in NOT_PORTED.items():
+        with pytest.raises(NotImplementedError, match=item):
+            build_model(tcfg.replace(family=family), "cpu")
+    model = build_model(tcfg, "cpu")
+    with pytest.raises(NotImplementedError, match="A12"):
+        tsteps.make_prefill_step(model, 8, mesh=object())
+    with pytest.raises(NotImplementedError, match="A12"):
+        tsteps.make_serve_step(model, mesh=object())
+    with pytest.raises(ValueError, match="do not fit"):
+        model.prefill(model.init(torch.Generator().manual_seed(0)),
+                      {"tokens": torch.zeros((1, 9), dtype=torch.int32)},
+                      max_len=8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(tcfg)

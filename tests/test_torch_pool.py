@@ -159,6 +159,18 @@ def test_running_the_port_imports_neither_jax_nor_repro():
         "build_lm_collect_fn(pool, pol, 2)(ps, pol.init_lanes(4), params, ts,\n"
         "                                  repro_torch.random.PRNGKey(1))\n"
         "DecodePool(pol, 2, 3).serve(params, [[1, 2], [3]])\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.models import ShapeSpec, build_model\n"
+        "from repro_torch.launch.steps import (make_prefill_step,\n"
+        "    make_serve_step, synth_batch)\n"
+        "cfg = get_smoke_config('starcoder2-3b').replace(\n"
+        "    attn_type='sliding', window=4, attn_impl='blocked')\n"
+        "model = build_model(cfg, 'cpu')\n"
+        "params = model.init(torch.Generator().manual_seed(0))\n"
+        "batch = synth_batch(model, ShapeSpec('p', 'prefill', 8, 2),\n"
+        "                    torch.Generator().manual_seed(1))\n"
+        "nxt, cache = make_prefill_step(model, 8)(params, batch)\n"
+        "make_serve_step(model)(params, cache, {'tokens': nxt[:, None]})\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
@@ -180,6 +192,10 @@ def test_port_sources_import_neither_jax_nor_repro():
     for d, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(d, f) for f in names if f.endswith(".py")]
     assert len(files) > 10
+    for part in (("models", "api.py"), ("models", "blocked_attention.py"),
+                 ("launch", "steps.py"),
+                 ("kernels", "flash_attention", "ops.py")):
+        assert os.path.join(ROOT, "src", "repro_torch", *part) in files
     offenders = []
     for path in files:
         with open(path) as f:
