@@ -21,10 +21,12 @@ Phases, in order; any failure exits non-zero:
    transposed (B, S, H, D) projections), qwen3-0.6b's causal layer at
    B=1, S=4096, starcoder2-3b's sliding one as its prefill passes it
    (S=8192, window 4096) and an end-aligned non-causal D=16 case.  Each
-   kernel,
-   its plain version and, where one exists, the one PyTorch call that
-   computes the same function are timed with CUDA events, the calls
-   queued behind a sleep on the card so that host launch gaps stay out;
+   kernel, its plain version and, where one exists, the one PyTorch
+   call that computes the same function are timed with CUDA events, the
+   calls queued behind a sleep on the card so that host launch gaps
+   stay out; each flash row also gives ``tflops``, the rate of the
+   function's 4 * D operations per visible pair, and ``of_bound``,
+   bound_ms / ms;
 3. the main paths on the card, each warmed up, its kernels' launch
    counts set to 0 just before it and read just after; every kernel of
    the path must have launched:
@@ -50,7 +52,9 @@ Phases, in order; any failure exits non-zero:
      tokens into a 1056-long cache (the dense cached branch) and 32
      greedy tokens, then starcoder2-3b with a 4096 sliding window,
      prefill B=1, S=8192 (30 flash launches per call); each with one
-     call or step under ``torch.profiler``;
+     call or step under ``torch.profiler``; neither prefill may copy a
+     flash input (``flash_attention.copies``, nor phase 4's model
+     checks);
 4. the card against the CPU: 20 recvs of PongClassic-v5 and Ant-v3 at
    N=16 (async M=8) from one key on ``cuda`` and on ``cpu``: ids, done,
    costs equal; Pong obs and reward bitwise, Ant's within 1e-4 (CUDA's
@@ -242,6 +246,7 @@ def check_kernels() -> dict[str, dict]:
             f"; kernel {entry['ms']:.4f} ms, plain "
             f"{entry['plain_ms']:.4f} ms, library "
             f"{entry['library_ms']} ms, bound {b_ms:.4f} ms ({b_by})")
+        return res[name] if case is None else res[name]["cases"][-1]
 
     # env_step: Ant N = 4096, costs 5..9 (main path: state gathered from
     # the pool, n_sub = max_cost = 9)
@@ -524,11 +529,18 @@ def check_flash_attention(row) -> None:
         pairs = visible_pairs(Sq, Skv, causal, window)
         peak = (BF16_TENSOR_OPS_PER_S if dtype == torch.bfloat16
                 else F32_OPS_PER_S)
-        row("flash_attention", src, replaces, [run()], [run_plain()],
-            nbytes=el * (2 * B * H * Sq * D + 2 * B * Hkv * Skv * D),
-            ops=4.0 * D * pairs * H * B, run=run, run_plain=run_plain,
-            atol=atol, library=library, ops_per_s=peak,
-            case=None if n == 0 else case, exact=exact)
+        ops = 4.0 * D * pairs * H * B
+        entry = row("flash_attention", src, replaces, [run()],
+                    [run_plain()],
+                    nbytes=el * (2 * B * H * Sq * D + 2 * B * Hkv * Skv * D),
+                    ops=ops, run=run, run_plain=run_plain, atol=atol,
+                    library=library, ops_per_s=peak,
+                    case=None if n == 0 else case, exact=exact)
+        entry["tflops"] = ops / entry["ms"] * 1e-9
+        entry["of_bound"] = entry["bound_ms"] / entry["ms"]
+        log(f"  flash_attention {case}: {entry['tflops']:.1f} TFLOP/s of "
+            f"the function's 4*D operations a pair, {entry['of_bound']:.3f} "
+            "of its bound")
         del q, k, v, exact
         torch.cuda.empty_cache()
 
@@ -873,10 +885,12 @@ def drive_prefill(model, params, batch: int, seq: int, calls: int = 3
     branch: one flash_attention launch per layer and call)."""
     import torch
 
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.launch.steps import make_prefill_step, synth_batch
     from repro_torch.models import ShapeSpec
 
     cfg = model.cfg
+    copies = flash_attention.copies
     step = make_prefill_step(model, seq)
     shape = ShapeSpec("prefill", "prefill", seq, batch)
     inputs = synth_batch(model, shape,
@@ -907,12 +921,16 @@ def drive_prefill(model, params, batch: int, seq: int, calls: int = 3
     if nxt.shape != (batch,) or int(nxt.min()) < 0 \
             or int(nxt.max()) >= cfg.vocab:
         raise AssertionError(f"prefill {cfg.name}: next tokens out of range")
+    if flash_attention.copies != copies:
+        raise AssertionError(f"prefill {cfg.name}: flash_attention copied "
+                             f"{flash_attention.copies - copies} inputs")
     out = {"model": cfg.name, "attn_type": cfg.attn_type,
            "window": cfg.window if cfg.attn_type == "sliding" else 0,
            "batch": batch, "seq_len": seq, "calls": calls, "seconds": dt,
            "tokens_per_s": calls * batch * seq / dt,
            "ms_per_call": dt / calls * 1e3,
            "flash_launches_per_call": launches["flash_attention"] / calls,
+           "flash_copies": flash_attention.copies - copies,
            "launches": launches}
     prof = profile_device(lambda: step(params, inputs), 1, unit="call")
     busy = prof["device_busy_ms_per_call"]
@@ -1129,7 +1147,7 @@ def cross_check_model(arch: str, **overrides) -> None:
     runs = {}
     for dev in (DEV, "cpu"):
         model = build_model(cfg, dev)
-        before = flash_attention.launches
+        before, copies = flash_attention.launches, flash_attention.copies
         p = tree_map(lambda x: x.to(dev), params)
         logits, cache = model.prefill(
             p, {"tokens": torch.from_numpy(prompt).to(dev)}, max_len=100)
@@ -1144,6 +1162,9 @@ def cross_check_model(arch: str, **overrides) -> None:
             raise AssertionError(f"{arch}: the card's prefill launched "
                                  f"{flash_attention.launches - before} "
                                  f"flash kernels, want {cfg.n_layers}")
+        if flash_attention.copies != copies:
+            raise AssertionError(f"{arch}: flash_attention copied "
+                                 f"{flash_attention.copies - copies} inputs")
     if not torch.equal(runs[DEV][0], runs["cpu"][0]):
         raise AssertionError(f"{arch}: greedy tokens differ between cuda "
                              "and cpu")

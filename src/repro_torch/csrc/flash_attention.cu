@@ -1,29 +1,26 @@
 // Flash attention forward: causal / sliding-window / bidirectional GQA
 // attention over a whole prompt, with an online softmax over K/V tiles.
 //
-// Replaces src/repro/kernels/flash_attention/kernel.py
+// Replaces src/repro/kernels/flash_attention/kernel.py:86
 // flash_attention_fwd (_flash_kernel), and computes the function of its
 // plain version, src/repro_torch/kernels/flash_attention/ref.py: q is
 // scaled in f32 before QK^T; query i sits at position i + Skv - Sq (the
 // ends are aligned); a key is seen when k_pos < Skv, k_pos <= q_pos
 // (causal) and k_pos > q_pos - window (window > 0); query head h reads
-// kv head h / G; m, l and acc are f32, m starts at -1e30, p is re-masked
-// to 0 where the mask is false, and the output acc / max(l, 1e-30) is
-// cast to q's dtype, so a row that sees no key gives 0.
+// kv head h / G; m, l and acc are f32, p is 0 where the mask is false,
+// and the output acc / max(l, 1e-30) is cast to q's dtype, so a row that
+// sees no key gives 0.
 //
-// Bound: 4 * D operations per visible (query, key) pair against one read
-// of q, k, v and one write of o, so at the model's shapes it is bound by
-// operations: the bf16 tensor-core peak for bf16, the f32 CUDA-core peak
-// for f32 (TF32 is not used).  Like the TPU kernel, both paths below
-// skip the K/V tiles that lie wholly outside the causal and window band,
-// so a sliding-window layer pays for its band only, and start the heavy
-// (late) query tiles of a causal mask first.  Strides are 64-bit: at the
-// prefill shapes B * H * S * D passes 2^31.  Built without -fmad=false
+// Bound: operations.  The function needs 4 * D operations per visible
+// (query, key) pair against one read of q, k, v and one write of o; at
+// the model's shapes that is far above the H100's 295 operations per
+// byte.  Both paths skip the K/V tiles that lie wholly outside the
+// causal and window band (the TPU kernel's lo / hi), so a sliding-window
+// layer pays for its band only.  Strides are 64-bit: at the prefill
+// shapes B * H * S * D passes 2^31.  Built without -fmad=false
 // (kernels/build.py): it is held to a tolerance, not to bitwise
 // equality, and fused multiply-adds double the f32 rate.
 //
-// The simple designs first; wgmma, TMA and warp specialisation are the
-// later redesign.
 // - f32 (flash_attention_kernel): one block per (b, h, 64-row query tile)
 //   keeps its q tile (scaled, f32) in shared memory and walks the 64-row
 //   K/V tiles of its band, staged in shared memory as f32.  Its 256
@@ -32,9 +29,11 @@
 //   the output accumulator in registers; the row max and sum are reduced
 //   across a row group's 16 lanes with shuffles, and the probabilities go
 //   through shared memory to the P.V product, all on the CUDA cores.
-// - bf16 (tc::flash_attention_tc_kernel): the products on the tensor
-//   cores with mma.sync m16n8k16, f32 accumulation; see namespace tc.
+// - bf16 (wg::flash_attention_wg_kernel): TMA, wgmma and warp
+//   specialisation; see namespace wg.
 #include <cstdint>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -254,45 +253,183 @@ flash_attention_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------- //
-// bf16: the products on the tensor cores, mma.sync m16n8k16 bf16 -> f32
+// bf16: TMA-fed K/V ring, wgmma, a producer and two consumer warpgroups
 // ---------------------------------------------------------------------- //
-// One block of 4 warps per (b, h, 64-row query tile); each warp owns 16
-// query rows, keeps their q fragments, the f32 output accumulator and
-// the row max and sum in registers, and walks the block's 64-row K/V
-// tiles, staged in shared memory as bf16 with 16-byte loads.  S = Q K^T
-// takes its B fragments straight from K's rows; the probabilities go
-// from the score accumulators into A fragments in registers (the
-// accumulator layout of two 8-key tiles is the A layout of one 16-key
-// step); V's B fragments come from ldmatrix.trans.  P.V keeps f32
-// accuracy by splitting each probability into a bf16 head and the bf16
-// of its remainder, two products against the exact bf16 V: one bf16 P
-// alone put a bf16 ulp on outputs near 2, against the plain version's
-// f32 product, close to the 2e-2 tolerance.  The scale multiplies the
-// f32 scores
-// after the product (the same number as scaling q in f32 first, without
-// rounding a scaled q to bf16).
-namespace tc {
+// Bound: operations on the tensor cores.  P.V keeps f32 accuracy by
+// splitting each probability into a bf16 head and the bf16 of its
+// remainder, two products against the exact bf16 V (one bf16 P fails
+// the bf16 gate, ref.py::BF16_EXCESS_TOL), so the kernel does 6 * D
+// operations per visible pair against the function's 4 * D: its floor
+// is 1.5x the bound.
+//
+// One block per (h, b, 128-row query tile), the grid's slowest dimension
+// the query tile, late (heavy, causal) tiles first.  384 threads:
+// - warpgroup 0, the producer, gives up registers (setmaxnreg 24); one
+//   thread loads the block's q tile once and then the K/V tiles of its
+//   band into a ring of kStages stages with TMA (cp.async.bulk.tensor,
+//   4-D maps (D, S, heads, B) on the caller's strides, so the model's
+//   transposed (B, S, H, D) views load without a copy; S is its own
+//   dimension, so rows past Skv read zeros).  Each stage has a full
+//   barrier (the TMA bytes arrive) and an empty one (both consumers
+//   are done with it).  Loads of the next tile run while the consumers
+//   compute on this one.
+// - warpgroups 1 and 2, the consumers (setmaxnreg 240), own 64 query rows
+//   each.  For a tile: S = Q K^T with wgmma m64n128k16 (q and K from
+//   shared memory, K-major); scale by scale * log2(e), online softmax
+//   in exp2 with m, l and O in f32; O += P V with wgmma m64nDk16, P from
+//   registers (the S accumulator layout is the A fragment layout) and V
+//   from shared memory as an MN-major operand (the transpose bit), two
+//   products per 16-key step (head and remainder).  The two consumers
+//   interleave on the SM, one's softmax beside the other's products.
+// Each consumer sorts the tiles for its rows: those it cannot see it
+// skips (it still waits for and releases the stage), those wholly inside
+// the band need no mask, and only those that cross the causal diagonal,
+// a window edge or the ragged end Skv are masked per element (the
+// formulas of kernels/flash_attention/ops.py::tile_plan).  A masked
+// score is -inf, so its p is exactly 0 (the TPU kernel's re-mask), and m
+// starts at -1e30, so a row with no key yet has finite m and p = 0.
+// The output goes back through the consumer's q rows in shared memory
+// (same swizzled layout) and out with a TMA store in q's layout, rows
+// past Sq clipped by the map.
+//
+// Against the five causes of the mma.sync design this replaced: loads
+// overlap compute (the ring, the producer); occupancy stops mattering,
+// 8 consumer warps per SM keep the tensor cores fed from shared memory
+// that the TMA fills without registers; wgmma reaches the Hopper tensor
+// rate; unmasked tiles skip the per-element mask; the output leaves as
+// whole TMA boxes.
+//
+// Tiles: kBK = 128 keys, so a score tile is 64 x 128 f32 (64 registers a
+// thread) and with D = 128 the O accumulator 64 more, within the 240 of
+// a consumer; 2 stages of K and V (64 KB a stage at D = 128) and the q
+// tile (32 KB) leave the block at 160 KB, one block per SM.  Swizzle by row
+// width: 128 B for D >= 64 (a D = 128 row loads as two 64-column boxes),
+// 64 B for D = 32, 32 B for D = 16; the wgmma descriptors name the same
+// mode, with 8 rows (one swizzle atom) between core-matrix groups.
+namespace wg {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+constexpr int kBQ = 128;        // query rows per block, 64 per consumer
+constexpr int kBK = 128;        // keys per K/V tile
+constexpr int kStages = 2;      // K/V ring depth
+constexpr int kThreads = 384;   // producer + two consumer warpgroups
+constexpr float kLog2e = 1.4426950408889634f;
 
-// row stride in bf16: 16-byte aligned rows whose 32-bit words shift by
-// 4 banks (D = 64, 128) or an odd multiple of 4 (D = 16, 32) a row, so
-// the 8 rows a fragment load touches fall in distinct banks
-template <int D>
-struct Smem {
-  static constexpr int kStride = D + 8;
-  static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kBQ * kStride;
-  static constexpr int kV = kK + kBK * kStride;
-  static constexpr int kElems = kV + kBK * kStride;
+struct Args {
+  int G, Sq, Skv, causal, window;
+  float scale_log2;  // scale * log2(e)
 };
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Shared memory for head dim D, in bytes from a 1024-aligned base: the
+// q tile, kStages K and V tiles, each as boxes of [rows][kRowBytes]
+// swizzled rows; then the barriers q, full[kStages], empty[kStages].
+template <int D>
+struct Tile {
+  static constexpr int kRowBytes = D * 2 < 128 ? D * 2 : 128;
+  static constexpr int kBoxes = D * 2 / kRowBytes;   // 2 at D = 128
+  static constexpr int kBoxCols = kRowBytes / 2;
+  static constexpr uint32_t kSwz = kRowBytes / 16 - 1;   // 7, 3, 1
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1
+                                      : kRowBytes == 64 ? 2 : 3;
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kKVBytes = kBK * D * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBar = kV + kStages * kKVBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// two f32 as a bf16x2 fragment register (the first in the low half),
+__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accumulator registers across a wgmma's
+// launch and its wait
+template <int N>
+__device__ __forceinline__ void pin(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle mode; the stride offset is one
+// 8-row swizzle atom, the leading one only matters for V at D = 128
+// (the next 64-column box)
+template <int D>
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+  using T = Tile<D>;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((8 * T::kRowBytes) >> 4) << 32 |
+         T::kLayout << 62;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two f32 as a bf16x2 A-fragment register (the first in the low half),
 // and in `rest` the bf16x2 of what rounding left over
 __device__ __forceinline__ uint32_t pack(float a, float b, uint32_t& rest) {
   const __nv_bfloat162 x = __floats2bfloat162_rn(a, b);
@@ -302,234 +439,442 @@ __device__ __forceinline__ uint32_t pack(float a, float b, uint32_t& rest) {
   return *reinterpret_cast<const uint32_t*>(&x);
 }
 
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const __nv_bfloat16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// rows [row0, row0 + 64) of a (rows, D) bf16 slice into shared memory,
-// rows at or past n as 0; 16-byte loads when the slice allows them
-template <int D>
-__device__ __forceinline__ void stage(__nv_bfloat16* dst,
-                                      const __nv_bfloat16* src, long long ss,
-                                      int row0, int n) {
-  constexpr int kChunks = D / 8;
-  const bool vec = (reinterpret_cast<uintptr_t>(src) % 16 == 0) &&
-                   (ss % 8 == 0);
-  if (vec) {
-#pragma unroll
-    for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads) {
-      const int r = idx / kChunks, c = idx % kChunks;
-      const int row = row0 + r;
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (row < n)
-        x = *reinterpret_cast<const uint4*>(src + (long long)row * ss + c * 8);
-      *reinterpret_cast<uint4*>(dst + r * Smem<D>::kStride + c * 8) = x;
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < 64 * D; idx += kThreads) {
-      const int r = idx / D, d = idx % D;
-      const int row = row0 + r;
-      dst[r * Smem<D>::kStride + d] =
-          row < n ? src[(long long)row * ss + d] : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_tc_kernel(const Params p) {
-  using S = Smem<D>;
-  constexpr int kKSteps = D / 16;   // k steps of Q K^T
-  constexpr int kNTiles = kBK / 8;  // 8-key tiles of S
-  constexpr int kDTiles = D / 8;    // 8-column tiles of the output
-  extern __shared__ __align__(16) __nv_bfloat16 smem_h[];
-  __nv_bfloat16* sQ = smem_h + S::kQ;
-  __nv_bfloat16* sK = smem_h + S::kK;
-  __nv_bfloat16* sV = smem_h + S::kV;
-
-  const int qi = gridDim.x - 1 - blockIdx.x;  // late (heavy) tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;     // fragment row, column pair
-  const int q0 = qi * kBQ;
-  const int q_base = q0 + (p.Skv - p.Sq);
-
-  using bf16 = __nv_bfloat16;
-  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* kg =
-      static_cast<const bf16*>(p.k) + b * p.k_sb + (h / p.G) * p.k_sh;
-  const bf16* vg =
-      static_cast<const bf16*>(p.v) + b * p.v_sb + (h / p.G) * p.v_sh;
-  stage<D>(sQ, qg, p.q_ss, q0, p.Sq);
-  __syncthreads();
-
-  // this warp's q fragments: rows warp * 16 + g and + 8
-  uint32_t qa[kKSteps][4];
-  const bf16* qr = sQ + (warp * 16 + g) * S::kStride + t * 2;
-#pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk) {
-    qa[kk][0] = ld32(qr + kk * 16);
-    qa[kk][1] = ld32(qr + 8 * S::kStride + kk * 16);
-    qa[kk][2] = ld32(qr + kk * 16 + 8);
-    qa[kk][3] = ld32(qr + 8 * S::kStride + kk * 16 + 8);
-  }
-
-  const int n_kt = (p.Skv + kBK - 1) / kBK;
-  int hi = n_kt;
-  if (p.causal) {
-    const int last = q_base + min(kBQ, p.Sq - q0) - 1;
+// The K tiles that query rows [r0, r1) can see, [lo, hi), and whether a
+// tile needs no per-element mask: ops.py::tile_plan's formulas.
+__device__ __forceinline__ void tile_range(const Args& a, int r0, int r1,
+                                           int& lo, int& hi) {
+  const int off = a.Skv - a.Sq;
+  const int n_kt = (a.Skv + kBK - 1) / kBK;
+  hi = n_kt;
+  if (a.causal) {
+    const int last = r1 - 1 + off;   // newest query's position
     hi = last < 0 ? 0 : min(n_kt, last / kBK + 1);
   }
-  int lo = 0;
-  if (p.window > 0) {
-    const int first = q_base - p.window + 1;
+  lo = 0;
+  if (a.window > 0) {
+    const int first = r0 + off - a.window + 1;   // oldest key row r0 sees
     lo = first <= 0 ? 0 : first / kBK;
   }
+  lo = min(lo, hi);
+}
 
-  const int qpos[2] = {q_base + warp * 16 + g, q_base + warp * 16 + g + 8};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[kDTiles][4];
-#pragma unroll
-  for (int nd = 0; nd < kDTiles; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+__device__ __forceinline__ bool tile_unmasked(const Args& a, int r0, int r1,
+                                              int kt) {
+  const int off = a.Skv - a.Sq;
+  const int k0 = kt * kBK;
+  return k0 + kBK <= a.Skv && (!a.causal || k0 + kBK - 1 <= r0 + off) &&
+         (a.window == 0 || k0 > r1 - 1 + off - a.window);
+}
 
-  for (int kt = lo; kt < hi; ++kt) {
-    __syncthreads();  // the previous tile's sK, sV are consumed
-    stage<D>(sK, kg, p.k_ss, kt * kBK, p.Skv);
-    stage<D>(sV, vg, p.v_ss, kt * kBK, p.Skv);
-    __syncthreads();
+// S = Q K^T for one 16-deep k step: m64n128k16, A and B from shared
+// memory (both K-major), f32 accumulators; scale_d 0 starts from zero
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
-    // S = Q K^T: element e of tile j is row g + 8 * (e / 2), key
-    // j * 8 + t * 2 + e % 2
-    float s[kNTiles][4];
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-      const bf16* kr = sK + (j * 8 + g) * S::kStride + t * 2;
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk)
-        mma(s[j], qa[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
-    }
+// O += P V for one 16-key step: m64nDk16, P (A) from registers, V (B)
+// from shared memory MN-major (the transpose bit)
+template <int N> __device__ void wgmma_rs(float* d, const uint32_t* a,
+                                          uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
-    // scale, mask, online softmax; a row's 4 lanes form a quad
-    uint32_t valid = 0;
-    float mx[2] = {kNegInf, kNegInf};
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      "%62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int D>
+__device__ __forceinline__ void consume(const Args& a,
+                                       const CUtensorMap* map_o,
+                                       uint32_t base, int q0, int h, int b,
+                                       int lo, int hi) {
+  using T = Tile<D>;
+  constexpr int kRB = T::kRowBytes;
+  constexpr int kO = D / 2;   // O accumulator registers a thread
+  const int c = threadIdx.x / 128 - 1;        // consumer 0 or 1
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int g = lane / 4, tq = lane % 4;      // fragment row, column pair
+  const uint32_t bar_q = base + T::kBar;
+  const int r0 = q0 + 64 * c, r1 = min(r0 + 64, a.Sq);
+  int lo_c = 0, hi_c = 0;                     // this consumer's band
+  if (r0 < a.Sq) tile_range(a, r0, r1, lo_c, hi_c);
+  // positions of this thread's two rows: qpos, qpos + 8
+  const int qpos = r0 + (a.Skv - a.Sq) + 16 * warp + g;
+  const uint32_t sq = base + T::kQ + 64 * c * kRB;
+
+  float o[kO];
 #pragma unroll
-    for (int j = 0; j < kNTiles; ++j)
+  for (int i = 0; i < kO; ++i) o[i] = 0.f;
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+  bar_wait(bar_q, 0);
+
+  for (int kt = lo, i = 0; kt < hi; ++kt, ++i) {
+    const int s = i % kStages;
+    bar_wait(bar_q + 8 * (1 + s), (i / kStages) & 1);
+    if (kt >= lo_c && kt < hi_c) {
+      // S = Q K^T: element 4 j + 2 r + e is row qpos + 8 r, key
+      // kt * kBK + 8 j + 2 tq + e
+      float sc[64];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int k_pos = kt * kBK + j * 8 + t * 2 + (e & 1);
-        bool ok = k_pos < p.Skv;
-        if (p.causal) ok = ok && k_pos <= qpos[r];
-        if (p.window > 0) ok = ok && k_pos > qpos[r] - p.window;
-        s[j][e] = ok ? s[j][e] * p.scale : kNegInf;
-        valid |= (ok ? 1u : 0u) << (j * 4 + e);
-        mx[r] = fmaxf(mx[r], s[j][e]);
+      for (int j = 0; j < 64; ++j) sc[j] = 0.f;
+      const uint32_t sk = base + T::kK + s * T::kKVBytes;
+      wg_fence();
+      pin<64>(sc);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int box = kk * 32 / kRB, col = kk * 32 % kRB;
+        wgmma_ss_n128(sc, desc<D>(sq + box * kBQ * kRB + col, 16),
+                      desc<D>(sk + box * kBK * kRB + col, 16), kk > 0);
       }
-    float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float pe =
-            (valid >> (j * 4 + e)) & 1u ? expf(s[j][e] - m[r]) : 0.f;
-        s[j][e] = pe;
-        sum[r] += pe;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l[r] = l[r] * corr[r] + sum[r];
-    }
-#pragma unroll
-    for (int nd = 0; nd < kDTiles; ++nd) {
-      o[nd][0] *= corr[0];
-      o[nd][1] *= corr[0];
-      o[nd][2] *= corr[1];
-      o[nd][3] *= corr[1];
-    }
+      wg_commit();
+      pin<64>(sc);
+      wg_wait0();
+      pin<64>(sc);
 
-    // O += P V, 16 keys a step
 #pragma unroll
-    for (int jj = 0; jj < kBK / 16; ++jj) {
-      uint32_t pa[4], pr[4];
-      pa[0] = pack(s[2 * jj][0], s[2 * jj][1], pr[0]);
-      pa[1] = pack(s[2 * jj][2], s[2 * jj][3], pr[1]);
-      pa[2] = pack(s[2 * jj + 1][0], s[2 * jj + 1][1], pr[2]);
-      pa[3] = pack(s[2 * jj + 1][2], s[2 * jj + 1][3], pr[3]);
-      const bf16* vr = sV +
-                       (jj * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                           S::kStride +
-                       (lane >> 4) * 8;
+      for (int j = 0; j < 64; ++j) sc[j] *= a.scale_log2;
+      if (!tile_unmasked(a, r0, r1, kt)) {
 #pragma unroll
-      for (int nd2 = 0; nd2 < kDTiles / 2; ++nd2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vr + nd2 * 16);
-        mma(o[2 * nd2], pa, vb[0], vb[1]);
-        mma(o[2 * nd2], pr, vb[0], vb[1]);
-        mma(o[2 * nd2 + 1], pa, vb[2], vb[3]);
-        mma(o[2 * nd2 + 1], pr, vb[2], vb[3]);
+        for (int j = 0; j < 64; ++j) {
+          const int k = kt * kBK + 8 * (j / 4) + 2 * tq + (j & 1);
+          const int qp = qpos + 8 * ((j / 2) & 1);
+          const bool ok = k < a.Skv && (!a.causal || k <= qp) &&
+                          (a.window == 0 || k > qp - a.window);
+          if (!ok) sc[j] = __int_as_float(0xff800000);   // -inf
+        }
       }
+      // online softmax in exp2; a row's 4 lanes form a quad
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        corr[r] = ex2(m[r] - mx);
+        m[r] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = ex2(sc[4 * j + 2 * r + e] - mx);
+            sc[4 * j + 2 * r + e] = p;
+            sum += p;
+          }
+        l[r] = l[r] * corr[r] + sum;   // this thread's share of the row
+      }
+#pragma unroll
+      for (int j = 0; j < kO / 4; ++j) {
+        o[4 * j] *= corr[0];
+        o[4 * j + 1] *= corr[0];
+        o[4 * j + 2] *= corr[1];
+        o[4 * j + 3] *= corr[1];
+      }
+
+      // O += P V, 16 keys a step: head and remainder of P
+      uint32_t ph[kBK / 16][4], pr[kBK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const float* x = sc + 8 * kk;
+        ph[kk][0] = pack(x[0], x[1], pr[kk][0]);
+        ph[kk][1] = pack(x[2], x[3], pr[kk][1]);
+        ph[kk][2] = pack(x[4], x[5], pr[kk][2]);
+        ph[kk][3] = pack(x[6], x[7], pr[kk][3]);
+      }
+      const uint32_t sv = base + T::kV + s * T::kKVBytes;
+      wg_fence();
+      pin<kO>(o);
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t dv = desc<D>(sv + kk * 16 * kRB, kBK * kRB);
+        wgmma_rs<D>(o, ph[kk], dv);
+        wgmma_rs<D>(o, pr[kk], dv);
+      }
+      wg_commit();
+      pin<kO>(o);
+      wg_wait0();
+      pin<kO>(o);
     }
+    __syncwarp();
+    if (lane == 0) bar_arrive(bar_q + 8 * (1 + kStages + s));
   }
 
-  bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  // O / max(l, 1e-30) as bf16 into this consumer's q rows (their last
+  // reader, the final S product, has completed), then one TMA store
+  float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (row >= p.Sq) continue;
-    const float den = fmaxf(l[r], 1e-30f);
-    bf16* orow = og + (long long)row * p.o_ss + t * 2;
-#pragma unroll
-    for (int nd = 0; nd < kDTiles; ++nd) {
-      orow[nd * 8] = __float2bfloat16_rn(o[nd][2 * r] / den);
-      orow[nd * 8 + 1] = __float2bfloat16_rn(o[nd][2 * r + 1] / den);
-    }
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
+#pragma unroll
+  for (int j = 0; j < kO / 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 64 * c + 16 * warp + g + 8 * r;
+      const int byte = (8 * j + 2 * tq) * 2;
+      uint32_t off = (byte / kRB) * kBQ * kRB + row * kRB + byte % kRB;
+      off ^= ((off >> 7) & T::kSwz) << 4;
+      const __nv_bfloat162 x = __floats2bfloat162_rn(
+          o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+      asm volatile("st.shared.b32 [%0], %1;\n"
+                   :: "r"(base + T::kQ + off),
+                      "r"(*reinterpret_cast<const uint32_t*>(&x))
+                   : "memory");
+    }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + c) : "memory");
+  if (t == 0 && r0 < a.Sq) {
+#pragma unroll
+    for (int box = 0; box < T::kBoxes; ++box)
+      tma_store(map_o, sq + box * kBQ * kRB, box * T::kBoxCols, r0, h, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_wg_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_o,
+                          const Args a) {
+  using T = Tile<D>;
+  constexpr int kRB = T::kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + T::kBar;   // then full[], empty[]
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // heavy tiles first
+  int lo, hi;
+  tile_range(a, q0, min(q0 + kBQ, a.Sq), lo, hi);
+
+  if (threadIdx.x == 0) {
+    bar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(bar_q + 8 * (1 + s), 1);              // the producer's
+      bar_init(bar_q + 8 * (1 + kStages + s), 8);    // 8 consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      bar_expect_tx(bar_q, T::kQBytes);
+      for (int c = 0; c < 2; ++c)
+        for (int box = 0; box < T::kBoxes; ++box)
+          tma_load(base + T::kQ + box * kBQ * kRB + 64 * c * kRB, &map_q,
+                   bar_q, box * T::kBoxCols, q0 + 64 * c, h, b);
+      const int hk = h / a.G;
+      for (int kt = lo, i = 0; kt < hi; ++kt, ++i) {
+        const int s = i % kStages;
+        if (i >= kStages)
+          bar_wait(bar_q + 8 * (1 + kStages + s), (i / kStages - 1) & 1);
+        const uint32_t full = bar_q + 8 * (1 + s);
+        bar_expect_tx(full, 2 * T::kKVBytes);
+        for (int box = 0; box < T::kBoxes; ++box) {
+          const uint32_t at = box * kBK * kRB + s * T::kKVBytes;
+          tma_load(base + T::kK + at, &map_k, full, box * T::kBoxCols,
+                   kt * kBK, hk, b);
+          tma_load(base + T::kV + at, &map_v, full, box * T::kBoxCols,
+                   kt * kBK, hk, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    consume<D>(a, &map_o, base, q0, h, b, lo, hi);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry
+// points, so the library links without -lcuda
+PFN_cuTensorMapEncodeTiled encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D bf16 map (D, S, heads, B) over strides given in elements, box
+// (box_cols, box_rows, 1, 1).  A dimension of extent 1 may carry any
+// stride in PyTorch; TMA takes a multiple of 16 bytes, so it gets one.
+bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
+              int B, long long ss, long long sh, long long sb, int box_cols,
+              int box_rows, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                           (cuuint64_t)sb * 2};
+  cuuint64_t span = (cuuint64_t)D * 2;   // bytes below this dimension
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1) strides[i] = (span + 15) / 16 * 16;
+    span = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1,
+                             1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  const int smem = Smem<D>::kElems * (int)sizeof(__nv_bfloat16);
+  using T = Tile<D>;
+  const int n_qt = (p.Sq + kBQ - 1) / kBQ;
+  if (n_qt > 65535 || B > 65535) return cudaErrorInvalidValue;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  const CUtensorMapSwizzle swz = T::kRowBytes == 128
+                                     ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : T::kRowBytes == 64
+                                     ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : CU_TENSOR_MAP_SWIZZLE_32B;
+  const int Hkv = p.H / p.G;
+  CUtensorMap mq, mk, mv, mo;
+  if (!make_map(&mq, p.q, D, p.Sq, p.H, B, p.q_ss, p.q_sh, p.q_sb,
+                T::kBoxCols, 64, swz) ||
+      !make_map(&mo, p.o, D, p.Sq, p.H, B, p.o_ss, p.o_sh, p.o_sb,
+                T::kBoxCols, 64, swz))
+    return cudaErrorInvalidValue;   // misaligned base or strides
+  if (p.Skv == 0) {
+    mk = mv = mq;   // no K tile to load: every row gives 0
+  } else if (!make_map(&mk, p.k, D, p.Skv, Hkv, B, p.k_ss, p.k_sh, p.k_sb,
+                       T::kBoxCols, kBK, swz) ||
+             !make_map(&mv, p.v, D, p.Skv, Hkv, B, p.v_ss, p.v_sh, p.v_sb,
+                       T::kBoxCols, kBK, swz)) {
+    return cudaErrorInvalidValue;
+  }
+  const int smem = T::kBytes + 1024;   // + room to align the base
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_tc_kernel<D>,
+      flash_attention_wg_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, B);
-  flash_attention_tc_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+  const Args a{p.G, p.Sq, p.Skv, p.causal, p.window, p.scale * kLog2e};
+  const dim3 grid(p.H, B, n_qt);
+  flash_attention_wg_kernel<D><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, mo, a);
   return cudaGetLastError();
 }
 
-}  // namespace tc
+}  // namespace wg
 
 template <int D>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
@@ -555,10 +900,10 @@ cudaError_t launch_f32(const Params& p, int B, int D, cudaStream_t stream) {
 
 cudaError_t launch_bf16(const Params& p, int B, int D, cudaStream_t stream) {
   switch (D) {
-    case 16: return tc::launch<16>(p, B, stream);
-    case 32: return tc::launch<32>(p, B, stream);
-    case 64: return tc::launch<64>(p, B, stream);
-    case 128: return tc::launch<128>(p, B, stream);
+    case 16: return wg::launch<16>(p, B, stream);
+    case 32: return wg::launch<32>(p, B, stream);
+    case 64: return wg::launch<64>(p, B, stream);
+    case 128: return wg::launch<128>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }

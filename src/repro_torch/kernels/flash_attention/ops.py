@@ -8,10 +8,19 @@ else.
 
 q, k and v may be strided views: ``models/blocked_attention.py`` passes
 the (B, S, H, D) projections transposed to (B, H, S, D).  The kernel
-takes the batch, head and sequence strides of all four tensors, so no
-call copies an input; only the head dim must be dense.  The output has
-q's layout (``torch.empty_like``), so the transposed view comes back as
-a dense (B, S, H, D) tensor.
+takes the batch, head and sequence strides of all four tensors, so the
+main path copies no input; only the head dim must be dense.  The bf16
+kernel loads through TMA, which needs a 16-byte aligned base and
+strides of whole 16 bytes (``tma_compatible``): a bf16 input that
+fails it is first copied into a fresh dense tensor, and
+``flash_attention.copies`` counts those copies (the f32 kernel loads
+with plain loads and takes any such view).  The output has q's layout
+(``torch.empty_like``), so the transposed view comes back as a dense
+(B, S, H, D) tensor.
+
+``tile_plan`` is the K-tile plan that the bf16 kernel computes for
+each query tile, in Python so that the CPU tests can hold it against a
+brute-force mask.
 """
 
 from __future__ import annotations
@@ -25,6 +34,49 @@ from repro_torch.kernels.flash_attention.ref import mha_reference
 # what csrc/flash_attention.cu instantiates
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def tma_compatible(t: torch.Tensor) -> bool:
+    """Whether TMA can load ``t`` (B, H, S, D) as it lies: a dense head
+    dim, a 16-byte aligned base, and every other stride a whole number
+    of 16 bytes (the stride of a dimension of extent 1 is never used)."""
+    el = t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all((t.stride(i) * el) % 16 == 0 for i in range(3)
+                    if t.shape[i] > 1))
+
+
+def tile_plan(Sq: int, Skv: int, causal: bool, window: int, bq: int,
+              bk: int) -> list[tuple[int, int, tuple[bool, ...]]]:
+    """For each tile of ``bq`` query rows, ``(lo, hi, masked)``: the K
+    tiles of ``bk`` keys ``[lo, hi)`` that its rows can see (the others
+    are skipped), and for each of them whether it needs a per-element
+    mask (it crosses the causal diagonal, a window edge or the ragged
+    end ``Skv``) or lies wholly inside the band.  Query row ``i`` sits
+    at position ``i + Skv - Sq``.  ``csrc/flash_attention.cu``'s bf16
+    kernel computes the same formulas (``tile_range``,
+    ``tile_unmasked``) with ``bq`` 128 for a block and 64 for each of
+    its consumers, ``bk`` 128."""
+    off = Skv - Sq
+    n_kt = -(-Skv // bk)
+    plan = []
+    for r0 in range(0, Sq, bq):
+        r1 = min(r0 + bq, Sq)
+        first, last = r0 + off, r1 - 1 + off        # positions
+        hi = n_kt
+        if causal:
+            hi = 0 if last < 0 else min(n_kt, last // bk + 1)
+        lo = 0
+        if window > 0:
+            lo = 0 if first - window + 1 <= 0 else (first - window + 1) // bk
+        lo = min(lo, hi)
+        masked = tuple(
+            not ((kt + 1) * bk <= Skv
+                 and (not causal or (kt + 1) * bk - 1 <= first)
+                 and (window == 0 or kt * bk > last - window))
+            for kt in range(lo, hi))
+        plan.append((lo, hi, masked))
+    return plan
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -62,6 +114,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              "flash_attention: all inputs must be on one device")
     from repro_torch.kernels.build import library
 
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_tma_ready(x) for x in (q, k, v))
     out = torch.empty_like(q)     # q's layout: its head dim is dense
     if out.numel() == 0:
         return out
@@ -79,6 +133,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-flash_attention.launches = 0
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    if tma_compatible(t):
+        return t
+    flash_attention.copies += 1
+    return t.clone(memory_format=torch.contiguous_format)
 
-__all__ = ["flash_attention", "mha_reference"]
+
+flash_attention.launches = 0
+flash_attention.copies = 0
+
+__all__ = ["flash_attention", "mha_reference", "tile_plan",
+           "tma_compatible"]

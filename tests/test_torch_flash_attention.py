@@ -203,3 +203,79 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     before = ops.flash_attention.launches
     ops.flash_attention(q, q, q)                        # plain on the CPU
     assert ops.flash_attention.launches == before
+
+
+def _visible(Sq, Skv, causal, window):
+    """The (Sq, Skv) mask of ``mha_reference``, brute force."""
+    qpos = np.arange(Sq)[:, None] + Skv - Sq
+    kpos = np.arange(Skv)[None, :]
+    mask = np.ones((Sq, Skv), bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
+
+
+@pytest.mark.parametrize("bq,bk", [(128, 128), (64, 128), (64, 64)])
+@pytest.mark.parametrize("Sq,Skv,causal,window", [
+    (256, 256, True, 0),       # tile-aligned causal
+    (200, 200, True, 0),       # S no multiple of the tile
+    (64, 700, True, 0),        # end-aligned, Sq < Skv
+    (384, 640, True, 0),
+    (300, 130, True, 0),       # Sq > Skv: rows that see no key
+    (500, 500, True, 30),      # a window shorter than a tile
+    (1000, 1000, True, 300),
+    (129, 129, False, 0),      # non-causal, ragged end
+    (100, 300, False, 50),     # non-causal window, end-aligned
+])
+def test_tile_plan_matches_a_brute_force_mask(Sq, Skv, causal, window, bq,
+                                              bk):
+    """The bf16 kernel's plan of K tiles per query tile: a skipped tile
+    holds no visible pair, a tile left unmasked only visible pairs (and
+    a full one), every other tile of the range is masked, and the range
+    is tight (its first and last tiles hold a visible pair)."""
+    vis = _visible(Sq, Skv, causal, window)
+    plan = ops.tile_plan(Sq, Skv, causal, window, bq, bk)
+    assert len(plan) == -(-Sq // bq)
+    for qi, (lo, hi, masked) in enumerate(plan):
+        rows = vis[qi * bq:(qi + 1) * bq]
+        assert 0 <= lo <= hi <= -(-Skv // bk) and len(masked) == hi - lo
+        for kt in range(-(-Skv // bk)):
+            tile = rows[:, kt * bk:(kt + 1) * bk]
+            if not lo <= kt < hi:
+                assert not tile.any(), (qi, kt)
+            else:
+                inside = tile.shape[1] == bk and tile.all()
+                assert masked[kt - lo] == (not inside), (qi, kt)
+        if lo < hi:
+            assert rows[:, lo * bk:(lo + 1) * bk].any()
+            assert rows[:, (hi - 1) * bk:hi * bk].any()
+        else:
+            assert not rows.any()
+
+
+def _offset_view(shape):
+    flat = torch.zeros(1 + int(np.prod(shape)), dtype=torch.bfloat16)
+    return flat[1:].view(shape)
+
+
+@pytest.mark.parametrize("make,want", [
+    # one element into its buffer: a base TMA cannot take
+    (lambda: _offset_view((1, 4, 130, 32)), False),
+    # the model's (B, S, H, D) projection seen as (B, H, S, D)
+    (lambda: torch.zeros((2, 64, 4, 128),
+                         dtype=torch.bfloat16).transpose(1, 2), True),
+    (lambda: torch.zeros((1, 2, 64, 16), dtype=torch.bfloat16), True),
+    # a head dim that is not dense
+    (lambda: torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16)[..., ::2],
+     False),
+    # rows of 36 elements (72 bytes) holding a head dim of 32
+    (lambda: torch.zeros((1, 2, 64, 36), dtype=torch.bfloat16)[..., :32],
+     False),
+    # rows of 40 (80 bytes): every stride a whole number of 16 bytes
+    (lambda: torch.zeros((1, 2, 64, 40), dtype=torch.bfloat16)[..., :32],
+     True),
+])
+def test_tma_compatible(make, want):
+    assert ops.tma_compatible(make()) is want

@@ -3,8 +3,8 @@ card (bitwise, except decode attention: within 1e-5 in f32 and 2e-2 in
 bf16, and flash attention: within 3e-5 in f32 and 2e-2 in bf16, the
 tolerances of tests/test_kernels.py, since their sums run in another
 order; in bf16 also within ``BF16_EXCESS_TOL`` of the rounding of the
-exact value, ``kernels/flash_attention/ref.py::rounding_excess``), and a pool and a decode server on the card against the same on
-the CPU.
+exact value, ``kernels/flash_attention/ref.py::rounding_excess``), and
+a pool and a decode server on the card against the same on the CPU.
 These need a CUDA device: each test is marked ``gpu`` and skips without
 one.  Run them on the card with
 
@@ -140,6 +140,12 @@ def test_decode_attention_kernel(cuda, H, Hkv, D, dtype):
     # the tensor-core path with a window, end-aligned; D = 16
     (1, 4, 2, 150, 333, 64, True, 45, torch.bfloat16),
     (2, 4, 4, 64, 64, 16, True, 0, torch.bfloat16),
+    # the K/V ring wraps many times and every mask class occurs at the
+    # bf16 kernel's 128 x 128 tiles: skipped, unmasked, diagonal, window
+    # edge, ragged end; end-aligned Sq < Skv; non-causal with a ragged end
+    (1, 8, 2, 1000, 1000, 128, True, 300, torch.bfloat16),
+    (2, 4, 1, 384, 640, 64, True, 0, torch.bfloat16),
+    (1, 2, 2, 129, 129, 32, False, 0, torch.bfloat16),
 ])
 def test_flash_attention_kernel(cuda, B, H, Hkv, Sq, Skv, D, causal, window,
                                 dtype):
@@ -150,9 +156,10 @@ def test_flash_attention_kernel(cuda, B, H, Hkv, Sq, Skv, D, causal, window,
         np.float32)).to(cuda, dtype).transpose(1, 2)
     k, v = (torch.from_numpy(rng.normal(0, 1, (B, Skv, Hkv, D)).astype(
         np.float32)).to(cuda, dtype).transpose(1, 2) for _ in range(2))
-    before = flash_attention.launches
+    before, copies = flash_attention.launches, flash_attention.copies
     got = flash_attention(q, k, v, causal=causal, window=window)
     assert flash_attention.launches == before + 1
+    assert flash_attention.copies == copies      # aligned views: no copy
     want = flash_attention(q, k, v, causal=causal, window=window,
                            backend="reference")
     assert flash_attention.launches == before + 1
@@ -173,7 +180,9 @@ def _check_flash(got, want, q, k, v, **masks):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_unaligned_inputs(cuda, dtype):
-    """Views that start one element into their buffer: no 16-byte loads."""
+    """Views that start one element into their buffer.  TMA cannot load
+    them, so in bf16 the wrapper copies each of q, k and v into a fresh
+    dense tensor first; the f32 kernel reads them as they lie."""
     rng = np.random.default_rng(11)
     B, H, S, D = 1, 4, 130, 32
 
@@ -183,7 +192,11 @@ def test_flash_attention_unaligned_inputs(cuda, dtype):
         return flat[1:].view(shape)
 
     q, k, v = view((B, H, S, D)), view((B, 2, S, D)), view((B, 2, S, D))
+    before, copies = flash_attention.launches, flash_attention.copies
     got = flash_attention(q, k, v, window=20)
+    assert flash_attention.launches == before + 1
+    assert flash_attention.copies == copies + (
+        3 if dtype == torch.bfloat16 else 0)
     want = flash_attention(q, k, v, window=20, backend="reference")
     _check_flash(got, want, q, k, v, window=20)
 
@@ -194,6 +207,16 @@ def test_flash_attention_row_without_keys_is_zero(cuda):
     out = flash_attention(q, k, k)                  # causal, Sq > Skv
     assert torch.all(out[:, :, :56] == 0)
     assert torch.allclose(out[:, :, 56:], torch.ones_like(out[:, :, 56:]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_without_keys_is_zero(cuda, dtype):
+    """Skv = 0: every row sees no key and gives 0."""
+    q = torch.ones((1, 2, 70, 64), device=cuda, dtype=dtype)
+    k = torch.ones((1, 1, 0, 64), device=cuda, dtype=dtype)
+    for causal in (True, False):
+        out = flash_attention(q, k, k, causal=causal)
+        assert out.shape == q.shape and torch.all(out == 0)
 
 
 def test_decode_pool_on_the_card_matches_the_cpu(cuda):
