@@ -26,7 +26,13 @@ Phases, in order; any failure exits non-zero:
    calls queued behind a sleep on the card so that host launch gaps
    stay out; each flash row also gives ``tflops``, the rate of the
    function's 4 * D operations per visible pair, and ``of_bound``,
-   bound_ms / ms;
+   bound_ms / ms.  The decode attention and resize rows are also timed
+   cold (``ms_cold``: the same call rotated over inputs that exceed the
+   50 MB L2, the 28 layer views of the cache and four grayscale
+   batches, as their callers find them) with ``of_bound`` = bound_ms /
+   ms_cold; their ``cases``: decode at the LM collect's shape (128
+   lanes, cache 64) with its SDPA time, resize of the cropped 160x160
+   playfield;
 3. the main paths on the card, each warmed up, its kernels' launch
    counts set to 0 just before it and read just after; every kernel of
    the path must have launched:
@@ -146,13 +152,21 @@ def time_ms(fn, reps: int = 10, trials: int = 5) -> float:
     queue the ``reps`` calls, so the calls run back to back on the card
     and the time is the device's: without the sleep, a small kernel's
     time is the host's launch interval (its wrapper's Python and
-    ``ctypes`` overhead), which moved 2x between machines."""
+    ``ctypes`` overhead), which moved 2x between machines.
+
+    ``fn`` may be a list of calls on distinct inputs, taken in turn
+    (``reps`` rounded up to a multiple of its length): with more bytes
+    among them than the 50 MB L2 holds, each call finds its inputs cold,
+    as a caller that touched other data in between does."""
     import torch
 
-    fn()
+    fns = list(fn) if isinstance(fn, (list, tuple)) else [fn]
+    reps = -(-reps // len(fns)) * len(fns)
+    for f in fns:
+        f()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    fns[0]()
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     # ~2e9 cycles/s at the H100's boost clock; the margin only costs wall
@@ -164,12 +178,22 @@ def time_ms(fn, reps: int = 10, trials: int = 5) -> float:
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(cycles)
         start.record()
-        for _ in range(reps):
-            fn()
+        for i in range(reps):
+            fns[i % len(fns)]()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
+
+
+def band_taps(in_size: int, out_size: int) -> int:
+    """Taps of an area resize's weight rows, each row's span from its
+    first to its last nonzero weight, summed over the rows."""
+    from repro_torch.kernels.image.ref import resize_weights
+
+    nz = resize_weights(in_size, out_size, "area") != 0
+    return int((in_size - nz[:, ::-1].argmax(axis=1) - nz.argmax(axis=1))
+               .sum())
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S
@@ -187,7 +211,6 @@ def check_kernels() -> dict[str, dict]:
 
     from repro_torch.kernels.env_step import ops as env_ops
     from repro_torch.kernels.image import ops as img_ops
-    from repro_torch.kernels.image.ops import _band_weights
 
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
@@ -195,12 +218,15 @@ def check_kernels() -> dict[str, dict]:
 
     def row(name, src, replaces, out, plain, nbytes, ops, run, run_plain,
             atol=None, library=None, ops_per_s=F32_OPS_PER_S, case=None,
-            exact=None):
+            exact=None, cold=None):
         """``atol`` None: bitwise; ``library``: one PyTorch call that
         computes the same function, timed as the yardstick; ``case``:
         a further shape of a kernel already in ``res``, kept in its
         ``cases``; ``exact``: the f32 values of a bf16 output, which
-        must lie within ``BF16_EXCESS_TOL`` of their rounding."""
+        must lie within ``BF16_EXCESS_TOL`` of their rounding; ``cold``:
+        the same call on distinct inputs that together exceed the L2,
+        timed in turn as ``ms_cold``, with ``of_bound`` = bound_ms /
+        ms_cold."""
         from repro_torch.kernels.flash_attention.ref import (
             BF16_EXCESS_TOL, rounding_excess)
 
@@ -232,20 +258,27 @@ def check_kernels() -> dict[str, dict]:
         }
         if excess is not None:
             entry["rounding_excess"] = excess
+        if cold is not None:
+            entry["ms_cold"] = time_ms(cold)
+            entry["of_bound"] = b_ms / entry["ms_cold"]
         if case is None:
             res[name] = entry
         else:
             res[name].setdefault("cases", []).append(
                 {"case": case, **{k: v for k, v in entry.items() if k in (
-                    "max_abs_err", "rounding_excess", "ms", "plain_ms",
-                    "bound_ms", "bound_by", "library_ms")}})
+                    "max_abs_err", "rounding_excess", "ms", "ms_cold",
+                    "of_bound", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}})
         log(f"  {name} {case or ''}: "
             f"{'bitwise equal' if atol is None else f'within {atol}'}"
             f" (max abs err {err}"
             f"{'' if excess is None else f', rounding excess {excess}'})"
             f"; kernel {entry['ms']:.4f} ms, plain "
             f"{entry['plain_ms']:.4f} ms, library "
-            f"{entry['library_ms']} ms, bound {b_ms:.4f} ms ({b_by})")
+            f"{entry['library_ms']} ms, bound {b_ms:.4f} ms ({b_by})"
+            + ("" if cold is None else
+               f"; cold {entry['ms_cold']:.4f} ms, {entry['of_bound']:.3f} "
+               "of its bound"))
         return res[name] if case is None else res[name]["cases"][-1]
 
     # env_step: Ant N = 4096, costs 5..9 (main path: state gathered from
@@ -315,7 +348,8 @@ def check_kernels() -> dict[str, dict]:
         run=run, run_plain=run_plain)
 
     # resize: 210x160 -> 84x84 area (main path), plus bilinear and a size
-    # that does not divide, checked but not timed
+    # that does not divide, checked but not timed; timed warm on one batch
+    # and cold in turn over four (138 MB); then the cropped playfield
     gray = img_ops.grayscale(img)
     for h, w, oh, ow, method in ((210, 160, 84, 84, "bilinear"),
                                  (37, 29, 11, 17, "area")):
@@ -325,20 +359,30 @@ def check_kernels() -> dict[str, dict]:
                                           backend="reference")):
             raise AssertionError(f"resize {h}x{w}->{oh}x{ow} {method}: "
                                  "kernel != plain version")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    grays = [gray] + [torch.randint(0, 256, gray.shape, generator=gen,
+                                    dtype=torch.uint8, device=dev)
+                      for _ in range(3)]
+    top, left, ch, cw = PONG_CROP
+    for case, batches in ((None, grays),
+                          ("cropped-160x160", [
+                              img_ops.crop(g, *PONG_CROP) for g in grays])):
+        x = batches[0]
 
-    def run():
-        return img_ops.resize(gray, 84, 84)
+        def run(x=x):
+            return img_ops.resize(x, 84, 84)
 
-    def run_plain():
-        return img_ops.resize(gray, 84, 84, backend="reference")
+        def run_plain(x=x):
+            return img_ops.resize(x, 84, 84, backend="reference")
 
-    _, a_lo, a_hi = _band_weights(210, 84, "area", dev)
-    _, b_lo, b_hi = _band_weights(160, 84, "area", dev)
-    taps = 160 * float((a_hi - a_lo).sum()) + 84 * float((b_hi - b_lo).sum())
-    row("resize", "src/repro_torch/csrc/image.cu",
-        "src/repro/kernels/image/kernel.py:98", [run()], [run_plain()],
-        nbytes=gray.numel() + n * 84 * 84, ops=n * 2 * taps,
-        run=run, run_plain=run_plain)
+        h, w = x.shape[-2:]
+        taps = w * band_taps(h, 84) + 84 * band_taps(w, 84)
+        row("resize", "src/repro_torch/csrc/image.cu",
+            "src/repro/kernels/image/kernel.py:98", [run()], [run_plain()],
+            nbytes=x.numel() + n * 84 * 84, ops=n * 2.0 * taps,
+            run=run, run_plain=run_plain, case=case,
+            cold=[lambda b=b: img_ops.resize(b, 84, 84) for b in batches])
+    del grays, batches
 
     # crop: the Pong playfield of the grayscale screens (main path), plus
     # a window that is not word aligned, checked but not timed
@@ -346,7 +390,6 @@ def check_kernels() -> dict[str, dict]:
     if not torch.equal(img_ops.crop(x, 3, 5, 101, 37),
                        img_ops.crop(x, 3, 5, 101, 37, backend="reference")):
         raise AssertionError("crop (3, 5, 101, 37): kernel != plain version")
-    top, left, ch, cw = PONG_CROP
 
     def run():
         return img_ops.crop(gray, *PONG_CROP)
@@ -370,64 +413,85 @@ def check_decode_attention(rng, row) -> dict:
     """decode_attention at the serve cell's shapes: 32 lanes, qwen3-0.6b
     heads (16 query, 8 kv, D 128), a 161-position cache in bf16 passed
     as layer 5 of a (B, 28, 8, T, 128) cache, ragged lengths with 0, 1
-    and T.  f32 is checked at the same shapes, bf16 is timed.  The
-    library yardstick is SDPA with GQA and a boolean length mask (it
-    gives NaN, not 0, for the length-0 lane; only its time is used)."""
+    and T.  f32 is checked at the same shapes, bf16 is timed: warm on
+    layer 5, and cold in turn over the 28 layer views, as a decode step
+    reads them (0.29 GB of valid rows).  Then the LM collect's shape as a
+    case: 128 lanes, a 64-position cache (``LMPolicy``'s default
+    ``max_len``).  The library yardstick is SDPA with GQA and a boolean
+    length mask (it gives NaN, not 0, for the length-0 lane; only its
+    time is used)."""
+    import torch
+
+    def ragged(B, T):
+        lengths = rng.integers(0, T + 1, B).astype(np.int32)
+        lengths[:3] = (0, 1, T)
+        return lengths
+
+    res = {}
+    serve = ragged(SERVE_LANES, SERVE_MAX_LEN)
+    for dtype in (torch.float32, torch.bfloat16):
+        decode_row(row, res, None, SERVE_LANES, SERVE_MAX_LEN, dtype, serve)
+    decode_row(row, res, "collect-B128-T64-bf16", 128, 64, torch.bfloat16,
+               ragged(128, 64))
+    return res
+
+
+def decode_row(row, res, case, B, T, dtype, lengths_np) -> None:
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.ops import decode_attention
 
     dev = torch.device("cuda")
-    B, H, Hkv, T, D, L = SERVE_LANES, 16, 8, SERVE_MAX_LEN, 128, 28
-    lengths_np = rng.integers(0, T + 1, B).astype(np.int32)
-    lengths_np[:3] = (0, 1, T)
+    H, Hkv, D, L = 16, 8, 128, 28
     lengths = torch.from_numpy(lengths_np).to(dev)
-    # 0.3 G values: drawn on the card from a seeded generator
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    q32 = torch.randn((B, H, D), generator=gen, device=dev)
-    cache32 = torch.randn((2, B, L, Hkv, T, D), generator=gen, device=dev)
-    res = {}
-    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        cache = cache32.to(dtype)
-        q = q32.to(dtype)
-        k, v = cache[0][:, 5], cache[1][:, 5]
+    # up to 0.3 G values: drawn on the card from a seeded generator
+    gen = torch.Generator(device=dev).manual_seed(SEED + B)
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
+    cache = torch.randn((2, B, L, Hkv, T, D), generator=gen,
+                        device=dev).to(dtype)
+    k, v = cache[0][:, 5], cache[1][:, 5]
+    atol = 1e-5 if dtype == torch.float32 else 2e-2
 
-        def run():
-            return decode_attention(q, k, v, lengths)
+    def run():
+        return decode_attention(q, k, v, lengths)
 
-        def run_plain():
-            return decode_attention(q, k, v, lengths, backend="reference")
+    def run_plain():
+        return decode_attention(q, k, v, lengths, backend="reference")
 
-        if dtype == torch.float32:
-            err = float((run() - run_plain()).abs().max())
-            if err > atol:
-                raise AssertionError(f"decode_attention f32: max abs err "
-                                     f"{err} > {atol}")
-            log(f"  decode_attention f32: within {atol} (max abs err {err})")
-            continue
-        q4 = q[:, :, None, :]
-        mask = (torch.arange(T, device=dev)[None, :] < lengths[:, None])[
-            :, None, None, :]
+    if dtype == torch.float32:
+        err = float((run() - run_plain()).abs().max())
+        if err > atol:
+            raise AssertionError(f"decode_attention f32: max abs err "
+                                 f"{err} > {atol}")
+        log(f"  decode_attention f32: within {atol} (max abs err {err})")
+        return
+    q4 = q[:, :, None, :]
+    mask = (torch.arange(T, device=dev)[None, :] < lengths[:, None])[
+        :, None, None, :]
 
-        def library():
-            return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
-                                                  enable_gqa=True)
+    def library():
+        return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
+                                              enable_gqa=True)
 
-        try:
-            library()
-        except (TypeError, RuntimeError) as e:   # a torch without GQA SDPA
-            log(f"  decode_attention: no SDPA yardstick ({e})")
-            library = None
+    try:
+        library()
+    except (TypeError, RuntimeError) as e:   # a torch without GQA SDPA
+        log(f"  decode_attention: no SDPA yardstick ({e})")
+        library = None
 
-        valid = int(lengths_np.sum())
-        row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
-            "src/repro/kernels/decode_attention/kernel.py:56", [run()],
-            [run_plain()],
-            nbytes=2 * (2 * B * H * D + 2 * valid * Hkv * D) + 4 * B,
-            ops=4.0 * valid * H * D, run=run, run_plain=run_plain,
-            atol=atol, library=library)
-    return res
+    valid = int(lengths_np.sum())
+    row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:56", [run()],
+        [run_plain()],
+        nbytes=2 * (2 * B * H * D + 2 * valid * Hkv * D) + 4 * B,
+        ops=4.0 * valid * H * D, run=run, run_plain=run_plain,
+        atol=atol, library=library, case=case,
+        cold=[lambda i=i: decode_attention(q, cache[0][:, i],
+                                           cache[1][:, i], lengths)
+              for i in range(L)])
+    del cache
+    torch.cuda.empty_cache()
 
 
 def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:

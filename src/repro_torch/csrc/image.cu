@@ -90,49 +90,241 @@ __global__ void grayscale_kernel(const uint8_t* __restrict__ rgb,
 //
 // Bound: it reads H*W bytes and writes out_h*out_w per image (34.4 MB in,
 // 7.2 MB out at N = 1024, 210x160 -> 84x84); the arithmetic is a few
-// integer multiply-adds per byte, so it is bound by bytes.  Design: one
-// block per image.  The source image goes into shared memory (33.6 KB),
-// the vertical pass writes an (out_h, W) intermediate that holds values
-// <= 255 after rounding into shared memory as uint16 (26.9 KB), then the
-// horizontal pass writes the output.  Each output row or column sums
-// only its band of nonzero taps [lo, hi) of the dense weight table;
-// integer accumulation is exact, so the order of the sum is free.
+// integer multiply-adds per byte, so it is bound by bytes.
+//
+// Design: persistent blocks fed by bulk copies.
+//   - The grid is min(N, the blocks that fit on the card at once); each
+//     block walks images i, i + grid, ...  One thread keeps a ring of
+//     `stages` (2 where it fits) images in shared memory full with 1-D
+//     bulk copies (cp.async.bulk ... mbarrier::complete_tx), so the next
+//     image arrives while the block computes this one.  A bulk copy needs
+//     a 16-byte-aligned image of a multiple of 16 bytes (210x160 and
+//     160x160 are); other images take a cooperative byte copy into one
+//     stage in the same kernel (`bulk` from ops.py::bulk_copies).
+//   - Each output row and column keeps its first tap and its band of ka
+//     (kb) weights (ops.py::compact_taps, the rows of
+//     ref.py::resize_weights), loaded into shared memory once per block.
+//   - The vertical pass makes 4 adjacent columns per thread from 32-bit
+//     loads, two columns per 32-bit register at once: a weight (<= 2^8)
+//     times a byte, summed over a band whose weights sum to 2^8, stays
+//     below 2^16, so (px & 0x00ff00ff) * w never carries into the next
+//     column.  The intermediate is uint8 (the rounding shift leaves
+//     values <= 255), (out_h, W).
+//   - The horizontal pass makes 4 outputs per thread, one 32-bit word in
+//     a shared output image, which leaves as 16-byte stores (bytes when
+//     the output image is not 16-byte aligned).
+//   - Each thread keeps one column (of words) of both passes for the
+//     whole kernel and walks the rows, so no index is divided per output
+//     and the horizontal taps of its four columns stay in registers; a
+//     row's taps (first input, 3 weights) are one 16-byte load.  This
+//     fast path needs W and out_w multiples of 4 and bands of at most 3
+//     taps (every main-path size); any other size takes a general path of
+//     byte columns in the same kernel.
+// Integer accumulation is exact, so the order of the sum is free and the
+// result is bitwise that of the plain version.
 // ------------------------------------------------------------------------
-__global__ void resize_kernel(const uint8_t* __restrict__ img,
-                              const int* __restrict__ a,
-                              const int* __restrict__ a_lo,
-                              const int* __restrict__ a_hi,
-                              const int* __restrict__ b,
-                              const int* __restrict__ b_lo,
-                              const int* __restrict__ b_hi,
-                              uint8_t* __restrict__ out, int h, int w,
-                              int out_h, int out_w) {
+constexpr int kResizeThreads = 512;
+
+__host__ __device__ __forceinline__ int round16(int x) {
+  return (x + 15) / 16 * 16;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
+// one thread: `bytes` from global to shared, completion on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Shared memory, each part 16-byte aligned, at these offsets: `stages`
+// source images, the (out_h, W) uint8 intermediate, the output image, the
+// taps as int32 rows (a[out_h][1 + ka], then b[out_w][1 + kb], each row
+// its first input and its band of weights), one mbarrier per stage.
+// resize_launch sizes the block's shared memory with the same struct.
+struct ResizeSmem {
+  int stage, mid, obuf, tap, bars, bytes;
+  __host__ __device__ ResizeSmem(int stages, int h, int w, int out_h,
+                                 int out_w, int ka, int kb)
+      : stage(round16(h * w)),
+        mid(stages * stage),
+        obuf(mid + round16(out_h * w)),
+        tap(obuf + round16(out_h * out_w)),
+        bars(tap + round16(4 * (out_h * (1 + ka) + out_w * (1 + kb)))),
+        bytes(bars + 8 * stages) {}
+};
+
+// kFast: W and out_w multiples of 4, W / 4 and out_w / 4 at most the
+// block's threads, ka = kb = 3 (ops.py pads every band of 3 or fewer taps
+// to 3), so a row of taps is one 16-byte load.
+template <bool kFast>
+__global__ void __launch_bounds__(kResizeThreads)
+resize_kernel(const uint8_t* __restrict__ img, const int* __restrict__ taps,
+              uint8_t* __restrict__ out, int n, int h, int w, int out_h,
+              int out_w, int ka, int kb, int stages, bool bulk,
+              bool vec_out) {
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* src = smem;
-  uint16_t* mid = (uint16_t*)(smem + ((h * w + 15) / 16) * 16);
-  const long image = blockIdx.x;
-  const uint8_t* in = img + image * h * w;
+  const ResizeSmem at(stages, h, w, out_h, out_w, ka, kb);
+  const int img_bytes = h * w, out_bytes = out_h * out_w;
+  const int stage_bytes = at.stage;
+  uint8_t* mid = smem + at.mid;
+  uint8_t* obuf = smem + at.obuf;
+  int* tap = reinterpret_cast<int*>(smem + at.tap);
+  const int n_taps = out_h * (1 + ka) + out_w * (1 + kb);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + at.bars);
+  const int* a_rows = tap;
+  const int* b_rows = tap + out_h * (1 + ka);
+  const int tid = threadIdx.x;
 
-  for (int i = threadIdx.x; i < h * w; i += blockDim.x) src[i] = in[i];
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < out_h * w; i += blockDim.x) {
-    const int o = i / w, x = i % w;
-    const int* row = a + (long)o * h;
-    int acc = 0;
-    for (int k = a_lo[o]; k < a_hi[o]; ++k) acc += row[k] * src[k * w + x];
-    mid[i] = (uint16_t)((acc + 128) >> 8);
+  // image i into stage j % stages (thread 0)
+  auto load = [&](int j, long long i) {
+    bulk_load(smem_u32(smem + (j % stages) * stage_bytes),
+              img + i * img_bytes, img_bytes,
+              smem_u32(&bars[j % stages]));
+  };
+  for (int i = tid; i < n_taps; i += blockDim.x) tap[i] = taps[i];
+  if (bulk && tid == 0) {
+    for (int s = 0; s < stages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   :: "r"(smem_u32(&bars[s])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < stages; ++s) {
+      const long long i = blockIdx.x + (long long)s * gridDim.x;
+      if (i < n) load(s, i);
+    }
   }
   __syncthreads();
 
-  uint8_t* dst = out + image * out_h * out_w;
-  for (int i = threadIdx.x; i < out_h * out_w; i += blockDim.x) {
-    const int o = i / out_w, p = i % out_w;
-    const int* row = b + (long)p * w;
-    const uint16_t* t = mid + o * w;
-    int acc = 0;
-    for (int k = b_lo[p]; k < b_hi[p]; ++k) acc += row[k] * t[k];
-    dst[i] = (uint8_t)((acc + 128) >> 8);
+  // fast path: this thread's word column of each pass, its rows, and the
+  // horizontal taps of its four output columns
+  const int wq = w / 4, wpr = out_w / 4;
+  const int v_step = kFast ? blockDim.x / wq : 0;
+  const int h_step = kFast ? blockDim.x / wpr : 0;
+  const int v_col = kFast ? tid % wq : 0, v_row = kFast ? tid / wq : 0;
+  const int h_col = kFast ? tid % wpr : 0, h_row = kFast ? tid / wpr : 0;
+  int4 bt[4] = {};   // first input and 3 weights of each output column
+  if (kFast && h_row < h_step) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      bt[q] = reinterpret_cast<const int4*>(b_rows)[4 * h_col + q];
+  }
+
+  int j = 0;
+  for (long long i = blockIdx.x; i < n; i += gridDim.x, ++j) {
+    uint8_t* src = smem + (j % stages) * stage_bytes;
+    if (bulk) {
+      bar_wait(smem_u32(&bars[j % stages]), (j / stages) & 1);
+    } else {
+      for (int x = tid; x < img_bytes; x += blockDim.x)
+        src[x] = img[i * img_bytes + x];
+      __syncthreads();
+    }
+
+    // vertical: mid[o][x] = round_shift(sum_k a[o][k] src[a_first + k][x])
+    if (kFast) {
+      if (v_row < v_step) {
+#pragma unroll 2
+        for (int o = v_row; o < out_h; o += v_step) {
+          const int4 t = reinterpret_cast<const int4*>(a_rows)[o];
+          const uint8_t* col = src + t.x * w + 4 * v_col;
+          const uint32_t px0 = *reinterpret_cast<const uint32_t*>(col);
+          const uint32_t px1 = *reinterpret_cast<const uint32_t*>(col + w);
+          const uint32_t px2 =
+              *reinterpret_cast<const uint32_t*>(col + 2 * w);
+          const uint32_t even = 0x00800080u +   // 2^7 rounding
+                                (px0 & 0x00ff00ffu) * (uint32_t)t.y +
+                                (px1 & 0x00ff00ffu) * (uint32_t)t.z +
+                                (px2 & 0x00ff00ffu) * (uint32_t)t.w;
+          const uint32_t odd = 0x00800080u +
+                               ((px0 >> 8) & 0x00ff00ffu) * (uint32_t)t.y +
+                               ((px1 >> 8) & 0x00ff00ffu) * (uint32_t)t.z +
+                               ((px2 >> 8) & 0x00ff00ffu) * (uint32_t)t.w;
+          *reinterpret_cast<uint32_t*>(mid + o * w + 4 * v_col) =
+              ((even >> 8) & 0x00ff00ffu) | (odd & 0xff00ff00u);
+        }
+      }
+    } else {
+      for (int it = tid; it < out_h * w; it += blockDim.x) {
+        const int o = it / w, x = it % w;
+        const int* row = a_rows + o * (1 + ka);
+        const uint8_t* col = src + row[0] * w + x;
+        int acc = 128;
+        for (int k = 0; k < ka; ++k) acc += row[1 + k] * col[k * w];
+        mid[it] = (uint8_t)(acc >> 8);
+      }
+    }
+    __syncthreads();   // mid is whole, and this stage free for the
+                       // image `stages` rounds ahead
+    if (bulk && tid == 0) {
+      const long long next = i + (long long)stages * gridDim.x;
+      if (next < n) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        load(j + stages, next);
+      }
+    }
+
+    // horizontal: 4 outputs per thread, one word of the output image
+    if (kFast) {
+      if (h_row < h_step) {
+#pragma unroll 2
+        for (int o = h_row; o < out_h; o += h_step) {
+          const uint8_t* row = mid + o * w;
+          uint32_t word = 0;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const uint8_t* x = row + bt[q].x;
+            const int acc = 128 + bt[q].y * x[0] + bt[q].z * x[1] +
+                            bt[q].w * x[2];
+            word |= (uint32_t)(acc >> 8) << (8 * q);
+          }
+          reinterpret_cast<uint32_t*>(obuf)[o * wpr + h_col] = word;
+        }
+      }
+    } else {
+      for (int wi = tid; wi < (out_bytes + 3) / 4; wi += blockDim.x) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int e = wi * 4 + q;
+          if (e < out_bytes) {
+            const int o = e / out_w, x = e % out_w;
+            const int* trow = b_rows + x * (1 + kb);
+            const uint8_t* row = mid + o * w + trow[0];
+            int acc = 128;
+            for (int k = 0; k < kb; ++k) acc += trow[1 + k] * row[k];
+            word |= (uint32_t)(acc >> 8) << (8 * q);
+          }
+        }
+        reinterpret_cast<uint32_t*>(obuf)[wi] = word;
+      }
+    }
+    __syncthreads();
+
+    uint8_t* dst = out + i * out_bytes;
+    if (vec_out) {
+      for (int v = tid; v < out_bytes / 16; v += blockDim.x)
+        reinterpret_cast<uint4*>(dst)[v] =
+            reinterpret_cast<const uint4*>(obuf)[v];
+    } else {
+      for (int e = tid; e < out_bytes; e += blockDim.x) dst[e] = obuf[e];
+    }
   }
 }
 
@@ -187,20 +379,58 @@ extern "C" int grayscale_launch(const void* rgb, void* out,
   return (int)cudaGetLastError();
 }
 
-extern "C" int resize_launch(const void* img, const void* a, const void* a_lo,
-                             const void* a_hi, const void* b, const void* b_lo,
-                             const void* b_hi, void* out, int n, int h, int w,
-                             int out_h, int out_w, void* stream) {
-  if (n > 0) {
-    const int smem = ((h * w + 15) / 16) * 16 + 2 * out_h * w;
-    cudaError_t err = cudaFuncSetAttribute(
-        resize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// img (n, h, w) uint8 dense; taps int32 rows (first input, ka weights)
+// for the out_h output rows, then (first, kb weights) for the out_w
+// columns (ops.py::compact_taps); out (n, out_h, out_w) uint8 dense.  bulk:
+// the images come in by 1-D bulk copies (img 16-byte aligned and h * w %
+// 16 == 0, ops.py::bulk_copies); then two source images are staged where
+// they fit, so the next loads while this one is computed.  The grid is
+// the blocks that fit on the card at once (at most n); the fit and the
+// shared-memory attribute are kept per kernel instance, and found again
+// when the device or the size changes.
+extern "C" int resize_launch(const void* img, const void* taps, void* out,
+                             int n, int h, int w, int out_h, int out_w,
+                             int ka, int kb, int bulk, void* stream) {
+  constexpr int kMaxSmem = 232448;   // a Hopper block's shared memory
+  if (n <= 0) return (int)cudaGetLastError();
+  if (ka < 1 || kb < 1 ||
+      (bulk && ((uintptr_t)img % 16 != 0 || (h * w) % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  int stages = bulk ? 2 : 1;
+  if (ResizeSmem(stages, h, w, out_h, out_w, ka, kb).bytes > kMaxSmem)
+    stages = 1;
+  const int smem = ResizeSmem(stages, h, w, out_h, out_w, ka, kb).bytes;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const bool fast = w % 4 == 0 && out_w % 4 == 0 &&
+                    w / 4 <= kResizeThreads && out_w / 4 <= kResizeThreads &&
+                    ka == 3 && kb == 3;
+  const bool vec_out = (uintptr_t)out % 16 == 0 && (out_h * out_w) % 16 == 0;
+  auto kernel = fast ? resize_kernel<true> : resize_kernel<false>;
+  struct Fit {
+    int dev = -1, smem = 0, blocks = 0;   // blocks resident on the card
+  };
+  static Fit fit[2];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  Fit& f = fit[fast];
+  if (f.dev != dev || f.smem != smem) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, kResizeThreads, smem);
     if (err != cudaSuccess) return (int)err;
-    resize_kernel<<<n, 256, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)img, (const int*)a, (const int*)a_lo,
-        (const int*)a_hi, (const int*)b, (const int*)b_lo, (const int*)b_hi,
-        (uint8_t*)out, h, w, out_h, out_w);
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    f = Fit{dev, smem, per_sm * sms};
   }
+  const int grid = n < f.blocks ? n : f.blocks;
+  kernel<<<grid, kResizeThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)img, (const int*)taps, (uint8_t*)out, n, h, w, out_h,
+      out_w, ka, kb, stages, bulk != 0, vec_out);
   return (int)cudaGetLastError();
 }
 

@@ -10,9 +10,16 @@ The cache may be a strided view: ``LMPolicy.decode_step`` passes layer
 ``i`` of a ``(B, n_layers, Hkv, T, D)`` cache, whose batch stride spans
 every layer.  The kernel takes the batch, head and position strides of
 q, k and v, so no call copies a cache; only the last dim must be dense.
+
+``split_plan`` picks how the kernel splits T over the warps of its block
+per (kv head, lane), and ``load_width`` how wide its copies of K and V
+into shared memory are; both are plain functions of shapes and
+addresses, tested on the CPU.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -26,6 +33,72 @@ from repro_torch.kernels.decode_attention.ref import (
 MAX_GROUP = 16      # query heads per kv head
 MAX_HEAD_DIM = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+CHUNK = 16          # positions a warp stages and computes at a time
+MAX_WARPS = 8       # warps of a block
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << (max(1, x) - 1).bit_length()
+
+
+def _pow2_at_most(x: int) -> int:
+    return 1 << (max(1, x).bit_length() - 1)
+
+
+def resident_rows(sms: int, smem_per_sm: int, row_bytes: int) -> int:
+    """Rows of K and V the card stages at once: its shared memory over
+    the bytes of one staged position (a K and a V row in each of a warp's
+    two stages).  An estimate for ``split_plan``: the kernel pads rows
+    and keeps q and the warps' partials beside them, and clamps a chunk
+    to what one block can hold."""
+    return sms * smem_per_sm // (4 * row_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_rows(device: torch.device, row_bytes: int) -> int:
+    props = torch.cuda.get_device_properties(device)
+    return resident_rows(props.multi_processor_count,
+                         props.shared_memory_per_multiprocessor, row_bytes)
+
+
+def split_plan(B: int, Hkv: int, T: int, resident: int
+               ) -> tuple[int, int]:
+    """``(warps, rows)``: the warps of the kernel's block per (kv head,
+    lane) and the positions of a chunk.  A lane's chunks ``[c * rows, (c
+    + 1) * rows)`` below its length are dealt out in turn to the warps:
+    chunk c to warp ``c % warps``.  So a short lane spreads over the
+    warps as a long one does (the lengths live on the card; the plan sees
+    only T), and a long T gives each warp more chunks.  As many warps as
+    there are chunks, up to ``MAX_WARPS``, while the grid's staged rows
+    all fit on the card at once (the B * Hkv blocks share ``resident``
+    rows, from ``resident_rows``); chunks of ``CHUNK`` rows, or half that
+    where a block would get one warp for several chunks and half gives it
+    more (the LM collect's 1024 blocks)."""
+    def plan(rows: int) -> tuple[int, int, int]:
+        chunks = max(1, -(-T // rows))
+        fit = _pow2_at_most(resident // rows // max(1, B * Hkv))
+        return min(MAX_WARPS, _pow2_at_least(chunks), fit), rows, chunks
+
+    warps, rows, chunks = plan(CHUNK)
+    if warps == 1 and chunks > 1:
+        half = plan(CHUNK // 2)
+        if half[0] > 1:
+            warps, rows = half[:2]
+    return warps, rows
+
+
+def load_width(k: torch.Tensor, v: torch.Tensor) -> int:
+    """Bytes per copy of K and V into shared memory: the widest of 16, 8
+    and 4 that divides both base addresses, every stride in bytes and a
+    row's bytes (D * element size); else the element size (2 for bf16,
+    which takes 2-byte loads)."""
+    es = k.element_size()
+    sizes = [k.data_ptr(), v.data_ptr(), k.shape[3] * es]
+    sizes += [s * es for s in k.stride()[:3] + v.stride()[:3]]
+    for w in (16, 8, 4):
+        if all(x % w == 0 for x in sizes):
+            return w
+    return es
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -66,12 +139,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from repro_torch.kernels.build import library
 
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    warps, rows = split_plan(
+        B, Hkv, T, _device_rows(q.device, D * q.element_size()))
     err = library().decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), B, H, Hkv, T, D,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), default_scale(D),
-        DTYPES[q.dtype],
+        DTYPES[q.dtype], warps, rows, load_width(k, v),
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("decode_attention", err)
     decode_attention.launches += 1
@@ -80,4 +155,5 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 decode_attention.launches = 0
 
-__all__ = ["decode_attention", "decode_attention_reference"]
+__all__ = ["decode_attention", "decode_attention_reference", "load_width",
+           "resident_rows", "split_plan"]

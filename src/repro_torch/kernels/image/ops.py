@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.backend import check_launch, resolve_backend
@@ -24,10 +25,6 @@ from repro_torch.kernels.image.ref import (
     resize_reference,
     resize_weights,
 )
-
-# a block can hold at most this much shared memory on Hopper
-_MAX_SMEM = 232448
-
 
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
@@ -106,17 +103,49 @@ def crop(img: torch.Tensor, top: int, left: int, height: int, width: int,
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _band_weights(in_size: int, out_size: int, method: str,
-                  device: torch.device) -> tuple[torch.Tensor, ...]:
-    """Dense int32 weights plus each row's first and one-past-last
-    nonzero tap, on ``device``."""
+# bands of up to this many taps are padded to it: the kernel's fast path
+# reads a row's first tap and 3 weights as one 16-byte load
+FAST_TAPS = 3
+
+
+def compact_taps(in_size: int, out_size: int, method: str
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """``resize_weights`` as the kernel reads it: each output row's first
+    tap ``first`` (out_size,) and its band of ``K`` weights ``taps``
+    (out_size, K), K the widest band, at least ``FAST_TAPS`` while the
+    input has that many, so that ``taps[o, j]`` is the weight of input
+    ``first[o] + j``.  A band near the end starts earlier, so ``first + K
+    <= in_size``; weights outside a row's band are 0."""
     w = resize_weights(in_size, out_size, method)
     nz = w != 0
     lo = nz.argmax(axis=1)
     hi = in_size - nz[:, ::-1].argmax(axis=1)
-    return tuple(torch.tensor(x, dtype=torch.int32, device=device)
-                 for x in (w, lo, hi))
+    k = min(max(int((hi - lo).max()), FAST_TAPS), in_size)
+    first = np.minimum(lo, in_size - k)
+    taps = np.take_along_axis(w, first[:, None] + np.arange(k), axis=1)
+    return first.astype(np.int32), taps.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_taps(h: int, w: int, out_h: int, out_w: int, method: str,
+                 device: torch.device) -> tuple[torch.Tensor, int, int]:
+    """The kernel's tap table on ``device``: one int32 row (first input,
+    then the band's weights) per output row, then per output column; and
+    the band widths (ka, kb)."""
+    rows = []
+    for n_in, n_out in ((h, out_h), (w, out_w)):
+        first, taps = compact_taps(n_in, n_out, method)
+        rows.append(np.concatenate([first[:, None], taps], axis=1))
+    flat = np.concatenate([r.ravel() for r in rows])
+    return (torch.tensor(flat, dtype=torch.int32, device=device),
+            rows[0].shape[1] - 1, rows[1].shape[1] - 1)
+
+
+def bulk_copies(img_ptr: int, h: int, w: int) -> bool:
+    """Whether the resize kernel takes its images by 1-D bulk copies,
+    which need a 16-byte-aligned image of a multiple of 16 bytes; else a
+    byte copy brings them in."""
+    return img_ptr % 16 == 0 and (h * w) % 16 == 0
 
 
 def resize(img: torch.Tensor, out_h: int, out_w: int, method: str = "area",
@@ -129,12 +158,7 @@ def resize(img: torch.Tensor, out_h: int, out_w: int, method: str = "area",
     h, w = img.shape[-2], img.shape[-1]
     _require(img.dtype == torch.uint8 and img.is_contiguous(),
              f"resize wants contiguous uint8; got {img.dtype}")
-    smem = -(-h * w // 16) * 16 + 2 * out_h * w
-    _require(smem <= _MAX_SMEM,
-             f"resize {h}x{w} -> {out_h}x{out_w} needs {smem} B of shared "
-             f"memory; a block has {_MAX_SMEM}")
-    a, a_lo, a_hi = _band_weights(h, out_h, method, img.device)
-    b, b_lo, b_hi = _band_weights(w, out_w, method, img.device)
+    taps, ka, kb = _device_taps(h, w, out_h, out_w, method, img.device)
     from repro_torch.kernels.build import library
 
     lead = img.shape[:-2]
@@ -142,9 +166,8 @@ def resize(img: torch.Tensor, out_h: int, out_w: int, method: str = "area",
     out = torch.empty(lead + (out_h, out_w), dtype=torch.uint8,
                       device=img.device)
     err = library().resize_launch(
-        img.data_ptr(), a.data_ptr(), a_lo.data_ptr(), a_hi.data_ptr(),
-        b.data_ptr(), b_lo.data_ptr(), b_hi.data_ptr(), out.data_ptr(),
-        n, h, w, out_h, out_w, _stream(img))
+        img.data_ptr(), taps.data_ptr(), out.data_ptr(), n, h, w, out_h,
+        out_w, ka, kb, int(bulk_copies(img.data_ptr(), h, w)), _stream(img))
     check_launch("resize", err)
     resize.launches += 1
     return out
@@ -155,4 +178,5 @@ grayscale.launches = 0
 crop.launches = 0
 resize.launches = 0
 
-__all__ = ["crop", "grayscale", "pong_render", "resize"]
+__all__ = ["bulk_copies", "compact_taps", "crop", "grayscale",
+           "pong_render", "resize"]

@@ -103,3 +103,74 @@ def test_cuda_backend_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ops.decode_attention(*(torch.from_numpy(x) for x in (q, k, v)),
                              torch.from_numpy(lengths), backend="cuda")
+
+
+# rows an NVIDIA H100 SXM stages at once in bf16 D = 128: 132 SMs of
+# 228 KB of shared memory
+H100_ROWS = ops.resident_rows(132, 233472, 256)
+
+
+@pytest.mark.parametrize("T", [1, 2, 16, 17, 64, 97, 161, 256, 257, 512,
+                               513, 1000, 5000, 32768])
+@pytest.mark.parametrize("B,Hkv", [(1, 1), (32, 8), (128, 8)])
+def test_split_plan_deals_every_position_once(B, Hkv, T):
+    """For lengths up to T, the chunks the kernel's warps take in turn
+    (warp w takes chunks w + warps * turn, as csrc/decode_attention.cu
+    deals them) cover 0..length exactly once; warps are a power of two
+    within the block's limit, fewer than twice as many as T has chunks,
+    and the grid fits on the card at once."""
+    warps, rows = ops.split_plan(B, Hkv, T, H100_ROWS)
+    assert warps in (1, 2, 4, 8)
+    assert 1 <= rows <= 32
+    for length in {0, 1, T // 3, T - 1, T}:
+        chunks = -(-length // rows)
+        seen = np.zeros(length, np.int64)
+        for w in range(warps):
+            n = (chunks - w - 1) // warps + 1 if chunks > w else 0
+            for turn in range(n):
+                c = w + warps * turn
+                seen[c * rows:min((c + 1) * rows, length)] += 1
+        assert np.all(seen == 1)
+    assert warps < 2 * max(1, -(-T // rows))
+    assert B * Hkv * warps * rows <= max(H100_ROWS, B * Hkv * rows)
+
+
+def test_split_plan_at_the_main_path_shapes():
+    assert H100_ROWS == 30096
+    assert ops.split_plan(32, 8, 161, H100_ROWS) == (4, 16)   # serve
+    assert ops.split_plan(128, 8, 64, H100_ROWS) == (2, 8)    # LM collect
+    assert ops.split_plan(4, 2, 1, H100_ROWS) == (1, 16)
+    assert ops.split_plan(5, 2, 1000, H100_ROWS) == (8, 16)   # 8 a warp
+    assert ops.split_plan(5, 2, 5000, H100_ROWS) == (8, 16)   # 40 a warp
+    # a card with half the shared memory halves the warps at the serve
+    assert ops.split_plan(32, 8, 161, H100_ROWS // 2) == (2, 16)
+
+
+@pytest.mark.parametrize("dtype,D,offset,width", [
+    (torch.bfloat16, 128, 0, 16),   # the serve's rows: 256 bytes
+    (torch.float32, 128, 0, 16),
+    (torch.bfloat16, 20, 0, 8),     # 40-byte rows
+    (torch.bfloat16, 6, 0, 4),      # 12-byte rows
+    (torch.bfloat16, 64, 1, 2),     # one element into the buffer
+    (torch.float32, 64, 1, 4),
+    (torch.bfloat16, 64, 4, 8),     # 8 bytes in
+])
+def test_load_width_is_the_widest_aligned_copy(dtype, D, offset, width):
+    B, Hkv, T = 2, 3, 10
+    n = B * Hkv * T * D
+    buf = torch.zeros(offset + n, dtype=dtype)
+    assert buf.data_ptr() % 64 == 0          # the CPU allocator's alignment
+    k = buf[offset:].view(B, Hkv, T, D)
+    assert ops.load_width(k, k) == width
+
+
+def test_load_width_reads_strides_of_layer_views():
+    """Layer i of a (B, L, Hkv, T, D) cache: its batch stride spans
+    every layer, and an odd T * D * L in bf16 leaves 16-byte strides
+    only when each stride is a multiple of 8 elements."""
+    cache = torch.zeros((2, 3, 5, 2, 7, 8), dtype=torch.bfloat16)
+    k, v = cache[0][:, 1], cache[1][:, 1]
+    assert ops.load_width(k, v) == 16            # every stride 16 B
+    cache = torch.zeros((2, 3, 5, 2, 7, 4), dtype=torch.bfloat16)
+    k, v = cache[0][:, 1], cache[1][:, 1]
+    assert ops.load_width(k, v) == 8             # 8-byte rows

@@ -23,6 +23,9 @@ import repro_torch  # noqa: E402
 from repro_torch.core.specs import ArraySpec, EnvSpec  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     decode_attention,
+    load_width,
+    resident_rows,
+    split_plan,
 )
 from repro_torch.kernels.env_step.ops import env_multi_step  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
@@ -127,6 +130,121 @@ def test_decode_attention_kernel(cuda, H, Hkv, D, dtype):
     assert got.dtype == dtype and torch.all(got[0] == 0)
     atol = 1e-5 if dtype == torch.float32 else 2e-2
     assert torch.allclose(got.float(), want.float(), rtol=0, atol=atol)
+
+
+def _decode_case(cuda, B, H, Hkv, T, D, dtype, L=3, seed=0):
+    """q and strided layer-1 views of a (B, L, Hkv, T, D) cache, lengths
+    with 0, 1 and T."""
+    rng = np.random.default_rng(seed)
+    cache = torch.from_numpy(rng.normal(0, 1, (2, B, L, Hkv, T, D)).astype(
+        np.float32)).to(cuda, dtype)
+    q = torch.from_numpy(rng.normal(0, 1, (B, H, D)).astype(
+        np.float32)).to(cuda, dtype)
+    lengths = rng.integers(0, T + 1, B).astype(np.int32)
+    lengths[:3] = (0, 1, T)
+    return q, cache[0][:, 1], cache[1][:, 1], torch.from_numpy(lengths).to(
+        cuda)
+
+
+def _check_decode(q, k, v, lengths):
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, lengths)
+    assert decode_attention.launches == before + 1
+    want = decode_attention(q, k, v, lengths, backend="reference")
+    assert got.dtype == q.dtype and torch.all(got[lengths == 0] == 0)
+    atol = 1e-5 if q.dtype == torch.float32 else 2e-2
+    assert torch.allclose(got.float(), want.float(), rtol=0, atol=atol)
+    return got
+
+
+@pytest.mark.parametrize("B,T", [(32, 161), (128, 64)])  # serve, collect
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_main_path_shapes(cuda, B, T, dtype):
+    """qwen3-0.6b heads at the serve cell's (32 lanes, cache 161) and the
+    LM collect's (128 lanes, cache 64) shapes, with 16-byte copies."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, lengths = _decode_case(cuda, B, 16, 8, T, 128, dtype, seed=T)
+    assert load_width(k, v) == 16
+    _check_decode(q, k, v, lengths)
+
+
+@pytest.mark.parametrize("T,chunks", [(1000, 8), (5000, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_long_caches(cuda, T, chunks, dtype):
+    """Caches far longer than any caller's: each of the block's 8 warps
+    takes up to ``chunks`` chunks of 16 positions in turn."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, lengths = _decode_case(cuda, 5, 8, 2, T, 64, dtype, seed=5)
+    props = torch.cuda.get_device_properties(cuda)
+    resident = resident_rows(props.multi_processor_count,
+                             props.shared_memory_per_multiprocessor,
+                             64 * q.element_size())
+    warps, rows = split_plan(5, 2, T, resident)
+    assert (warps, rows) == (8, 16) and -(-T // (warps * rows)) == chunks
+    _check_decode(q, k, v, lengths)
+
+
+@pytest.mark.parametrize("D,offset,width", [
+    (20, 0, 8),      # a 40-byte bf16 row
+    (64, 1, 2),      # a view one element into its buffer
+])
+def test_decode_attention_narrow_loads(cuda, D, offset, width):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(D)
+    B, H, Hkv, T = 6, 6, 3, 70
+    shape = (B, Hkv, T, D)
+
+    def view(shape):
+        flat = torch.from_numpy(rng.normal(0, 1, offset + int(np.prod(
+            shape))).astype(np.float32)).to(cuda, torch.bfloat16)
+        return flat[offset:].view(shape)
+
+    q, k, v = view((B, H, D)), view(shape), view(shape)
+    lengths = torch.tensor([0, 1, T, 33, 64, 9], dtype=torch.int32,
+                           device=cuda)
+    assert load_width(k, v) == width
+    _check_decode(q, k, v, lengths)
+
+
+def test_decode_attention_is_deterministic(cuda):
+    q, k, v, lengths = _decode_case(cuda, 32, 16, 8, 161, 128,
+                                    torch.bfloat16, seed=1)
+    first = decode_attention(q, k, v, lengths)
+    for _ in range(5):
+        assert torch.equal(decode_attention(q, k, v, lengths), first)
+
+
+@pytest.mark.parametrize("shape,out,method", [
+    ((1, 210, 160), (84, 84), "area"),
+    ((5, 210, 160), (84, 84), "area"),
+    ((1024, 210, 160), (84, 84), "area"),     # the PongClassic sync block
+    ((2, 3, 210, 160), (84, 84), "area"),     # leading batch dims
+    ((1024, 160, 160), (84, 84), "area"),     # the cropped playfield
+    ((7, 210, 160), (84, 84), "bilinear"),
+    ((9, 37, 29), (11, 17), "area"),          # no bulk copy, byte columns
+    ((9, 37, 29), (11, 17), "bilinear"),
+])
+def test_resize_kernel_shapes(cuda, shape, out, method):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    img = torch.from_numpy(np.random.default_rng(len(shape)).integers(
+        0, 256, shape, np.uint8)).to(cuda)
+    before = ops.resize.launches
+    got = ops.resize(img, *out, method)
+    assert ops.resize.launches == before + 1
+    assert got.shape == shape[:-2] + out
+    assert torch.equal(got, ops.resize(img, *out, method,
+                                       backend="reference"))
+
+
+def test_resize_kernel_unaligned_image(cuda):
+    """A batch one byte into its buffer takes the byte copy."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flat = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, 1 + 3 * 210 * 160, np.uint8)).to(cuda)
+    img = flat[1:].view(3, 210, 160)
+    assert not ops.bulk_copies(img.data_ptr(), 210, 160)
+    assert torch.equal(ops.resize(img, 84, 84),
+                       ops.resize(img, 84, 84, backend="reference"))
 
 
 @pytest.mark.parametrize("B,H,Hkv,Sq,Skv,D,causal,window,dtype", [

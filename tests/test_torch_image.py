@@ -152,3 +152,67 @@ def test_launch_signatures_match_the_c_entry_points():
                 for p in params.split(","))
     assert declared == SIGNATURES
     assert SIGNATURES["grayscale_launch"][2] is ctypes.c_longlong
+
+
+@pytest.mark.parametrize("in_size,out_size,method", [
+    (210, 84, "area"), (160, 84, "area"), (210, 84, "bilinear"),
+    (160, 84, "bilinear"), (37, 11, "area"), (29, 17, "area"),
+    (37, 11, "bilinear"), (29, 17, "bilinear"), (5, 50, "bilinear"),
+    (1, 3, "area"), (84, 84, "area"), (2, 1, "area"), (2, 1, "bilinear"),
+    (3, 7, "area"), (3, 7, "bilinear"), (64, 32, "area"),
+    (64, 32, "bilinear"), (100, 33, "area"), (250, 84, "area"),
+    (250, 84, "bilinear"), (11, 11, "bilinear"), (160, 160, "area"),
+])
+def test_compact_taps_expand_to_the_weights(in_size, out_size, method):
+    """The kernel's taps (first tap and a band of K weights per output
+    row, padded to the fast path's 3 where the band is narrower) expand
+    back to ``resize_weights`` exactly, and every band lies inside the
+    input."""
+    first, taps = ops.compact_taps(in_size, out_size, method)
+    k = taps.shape[1]
+    assert first.shape == (out_size,) and taps.shape == (out_size, k)
+    assert k >= min(ops.FAST_TAPS, in_size)
+    assert np.all(first >= 0) and np.all(first + k <= in_size)
+    dense = np.zeros((out_size, in_size), np.int64)
+    for o in range(out_size):
+        dense[o, first[o]:first[o] + k] = taps[o]
+    np.testing.assert_array_equal(dense,
+                                  ref.resize_weights(in_size, out_size,
+                                                     method))
+
+
+def test_compact_taps_band_widths():
+    """The main path's bands: 3 taps for area 210 -> 84 and 160 -> 84, 2
+    for bilinear (padded to 3 with a zero weight); 5 for area 37 -> 11."""
+    assert ops.compact_taps(210, 84, "area")[1].shape[1] == 3
+    assert ops.compact_taps(160, 84, "area")[1].shape[1] == 3
+    bilinear = ops.compact_taps(210, 84, "bilinear")[1]
+    assert bilinear.shape[1] == 3
+    assert np.all((bilinear != 0).sum(axis=1) <= 2)
+    assert ops.compact_taps(37, 11, "area")[1].shape[1] == 5
+
+
+def test_device_taps_table():
+    """One int32 row per output row, then per output column: its first
+    input, then its band; the fast path's rows are 4 ints (16 bytes)."""
+    taps, ka, kb = ops._device_taps(210, 160, 84, 84, "area",
+                                    torch.device("cpu"))
+    assert (ka, kb) == (3, 3)
+    rows = taps.numpy().reshape(168, 4)
+    for table, (n_in, n_out) in ((rows[:84], (210, 84)),
+                                 (rows[84:], (160, 84))):
+        first, band = ops.compact_taps(n_in, n_out, "area")
+        np.testing.assert_array_equal(table[:, 0], first)
+        np.testing.assert_array_equal(table[:, 1:], band)
+
+
+@pytest.mark.parametrize("ptr,h,w,bulk", [
+    (0, 210, 160, True),        # the Pong screen: 33,600 = 2100 x 16 B
+    (4096, 160, 160, True),     # the cropped playfield
+    (1, 210, 160, False),       # a batch one byte into its buffer
+    (8, 210, 160, False),       # 8-byte aligned is not enough
+    (0, 37, 29, False),         # 1,073 B: not a multiple of 16
+    (0, 300, 400, True),        # a 120 KB image
+])
+def test_bulk_copies_predicate(ptr, h, w, bulk):
+    assert ops.bulk_copies(ptr, h, w) is bulk
