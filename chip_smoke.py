@@ -26,7 +26,9 @@ Phases, in order; any failure exits non-zero:
    calls queued behind a sleep on the card so that host launch gaps
    stay out; each flash row also gives ``tflops``, the rate of the
    function's 4 * D operations per visible pair, and ``of_bound``,
-   bound_ms / ms.  The decode attention and resize rows are also timed
+   bound_ms / ms, as do the pong_render and grayscale rows (grayscale
+   is also checked, not timed, on a batch one byte into its buffer and
+   an odd shape).  The decode attention and resize rows are also timed
    cold (``ms_cold``: the same call rotated over inputs that exceed the
    50 MB L2, the 28 layer views of the cache and four grayscale
    batches, as their callers find them) with ``of_bound`` = bound_ms /
@@ -218,7 +220,7 @@ def check_kernels() -> dict[str, dict]:
 
     def row(name, src, replaces, out, plain, nbytes, ops, run, run_plain,
             atol=None, library=None, ops_per_s=F32_OPS_PER_S, case=None,
-            exact=None, cold=None):
+            exact=None, cold=None, of_bound=False):
         """``atol`` None: bitwise; ``library``: one PyTorch call that
         computes the same function, timed as the yardstick; ``case``:
         a further shape of a kernel already in ``res``, kept in its
@@ -226,7 +228,8 @@ def check_kernels() -> dict[str, dict]:
         must lie within ``BF16_EXCESS_TOL`` of their rounding; ``cold``:
         the same call on distinct inputs that together exceed the L2,
         timed in turn as ``ms_cold``, with ``of_bound`` = bound_ms /
-        ms_cold."""
+        ms_cold; else ``of_bound`` True gives ``of_bound`` = bound_ms /
+        ms."""
         from repro_torch.kernels.flash_attention.ref import (
             BF16_EXCESS_TOL, rounding_excess)
 
@@ -261,6 +264,8 @@ def check_kernels() -> dict[str, dict]:
         if cold is not None:
             entry["ms_cold"] = time_ms(cold)
             entry["of_bound"] = b_ms / entry["ms_cold"]
+        elif of_bound:
+            entry["of_bound"] = b_ms / entry["ms"]
         if case is None:
             res[name] = entry
         else:
@@ -277,8 +282,9 @@ def check_kernels() -> dict[str, dict]:
             f"{entry['plain_ms']:.4f} ms, library "
             f"{entry['library_ms']} ms, bound {b_ms:.4f} ms ({b_by})"
             + ("" if cold is None else
-               f"; cold {entry['ms_cold']:.4f} ms, {entry['of_bound']:.3f} "
-               "of its bound"))
+               f"; cold {entry['ms_cold']:.4f} ms")
+            + ("" if "of_bound" not in entry else
+               f", {entry['of_bound']:.3f} of its bound"))
         return res[name] if case is None else res[name]["cases"][-1]
 
     # env_step: Ant N = 4096, costs 5..9 (main path: state gathered from
@@ -309,10 +315,14 @@ def check_kernels() -> dict[str, dict]:
         ops=ENV_STEP_OPS * float(c.sum()), run=run, run_plain=run_plain)
 
     # pong_render: PongClassic N = 1024 (sync block); ball positions
-    # include whole and half grid values, where compares sit on an edge
+    # include whole and half grid values, where compares sit on an edge,
+    # and the ball on, at and beyond the edges and the paddles
     n = 1024
     pos = rng.uniform(0, 84, (4, n)).astype(np.float32)
     pos[:, : n // 4] = np.round(pos[:, : n // 4] * 2) / 2
+    pos[:, :6] = np.array([(0, 0, 0, 84), (84, 84, 84, 0), (-3, 90, 42, 42),
+                           (82.5, 40, 40, 10), (1, 20, 60, 20),
+                           (90, -3, 0.5, 83.5)], np.float32).T
     bx, by, py, ey = (torch.from_numpy(p).to(dev) for p in pos)
     rgb = img_ops.pong_render(bx, by, py, ey)
 
@@ -322,19 +332,28 @@ def check_kernels() -> dict[str, dict]:
     def run_plain():
         return img_ops.pong_render(bx, by, py, ey, backend="reference")
 
+    # the bound's operations: the plain version's 20 a pixel (the kernel
+    # tests a row or a column once, far fewer); the bytes bind it anyway
     row("pong_render", "src/repro_torch/csrc/image.cu",
         "src/repro/kernels/image/kernel.py:167", [rgb], [run_plain()],
         nbytes=n * 16 + rgb.numel(), ops=rgb.numel() // 3 * 20.0,
-        run=run, run_plain=run_plain)
+        run=run, run_plain=run_plain, of_bound=True)
 
     # grayscale: the main path feeds it the render; random bytes cover
-    # every input value
+    # every input value; a batch one byte into its buffer and an odd
+    # shape take the byte path (checked, not timed)
     img = torch.from_numpy(rng.integers(0, 256, (n, 210, 160, 3),
                                         dtype=np.uint8)).to(dev)
-    for x in (rgb, img):
+    flat = torch.from_numpy(rng.integers(0, 256, 1 + 64 * 210 * 160 * 3,
+                                         dtype=np.uint8)).to(dev)
+    for case, x in (("render", rgb), ("random", img),
+                    ("unaligned", flat[1:].view(64, 210, 160, 3)),
+                    ("odd", img[:3, :7, :5].contiguous())):
         if not torch.equal(img_ops.grayscale(x),
                            img_ops.grayscale(x, backend="reference")):
-            raise AssertionError("grayscale: kernel != plain version")
+            raise AssertionError(f"grayscale {case}: kernel != plain "
+                                 "version")
+    del flat
 
     def run():
         return img_ops.grayscale(img)
@@ -345,7 +364,7 @@ def check_kernels() -> dict[str, dict]:
     row("grayscale", "src/repro_torch/csrc/image.cu",
         "src/repro/kernels/image/kernel.py:63", [run()], [run_plain()],
         nbytes=img.numel() * 4 // 3, ops=img.numel() // 3 * 7.0,
-        run=run, run_plain=run_plain)
+        run=run, run_plain=run_plain, of_bound=True)
 
     # resize: 210x160 -> 84x84 area (main path), plus bilinear and a size
     # that does not divide, checked but not timed; timed warm on one batch

@@ -81,8 +81,8 @@ class DeviceEnvPool:
 
     def __init__(self, env: Environment, num_envs: int,
                  batch_size: int | None = None, mode: str | None = None,
-                 schedule: str = "fifo", transforms: Any = (),
-                 device: torch.device | str = "cuda"):
+                 batched: bool | None = None, schedule: str = "fifo",
+                 transforms: Any = (), device: torch.device | str = "cuda"):
         if batch_size is None:
             batch_size = num_envs
         if mode is None:
@@ -103,7 +103,9 @@ class DeviceEnvPool:
         self.mode = mode
         self.scheduler = get_scheduler(schedule)
         self.pipeline = TransformPipeline(transforms, env.spec)
-        self.benv = as_batch_env(env)
+        # batched=False: the generic adapter (the A/B baseline), as in the
+        # JAX package's engine
+        self.benv = as_batch_env(env, native=batched)
         # callers see the transformed spec; act_spec never changes
         self.spec = self.pipeline.out_spec
 

@@ -88,19 +88,28 @@ def list_envs() -> list[str]:
 
 
 def make(task_id: str, num_envs: int, batch_size: int | None = None,
-         engine: str = "device", seed: int = 0, schedule: str = "fifo",
+         engine: str = "device", num_threads: int | None = None,
+         num_shards: int | None = None, mesh: Any = None, seed: int = 0,
+         batched: bool | None = None, schedule: str = "fifo",
+         sched_patience: float = 1.0, cost_ema_alpha: float = 1.0,
          transforms: Any = None, obs: bool = False,
          device: torch.device | str | None = None,
          **env_kwargs: Any) -> DeviceEnvPool:
     """Create a device env pool on ``device`` (default ``cuda``, which
     must be present: there is no quiet fallback to the CPU).
 
-    ``batch_size`` None or ``num_envs`` is sync mode, smaller is async
-    under ``schedule`` (``fifo`` or ``sjf``).  ``transforms=None`` takes
-    the task's registered pipeline, an explicit list replaces it.
-    ``seed`` seeds the host engines of the JAX package; the device
-    engine takes its key at ``reset``, so it is unused here.
-    ``obs=True`` (engine telemetry) is not ported yet."""
+    The keywords are ``repro.make``'s, by the same names and defaults,
+    bar ``obs`` (engine telemetry, not ported yet: ROADMAP A6) and the
+    added ``device``.  ``batch_size`` None or ``num_envs`` is sync mode,
+    smaller is async under ``schedule`` (``fifo`` or ``sjf``).
+    ``batched`` None (or True) takes the env's native batched view,
+    False the generic adapter.  ``transforms=None`` takes the task's
+    registered pipeline, an explicit list replaces it.  ``seed`` seeds
+    the host engines of the JAX package and ``cost_ema_alpha`` their
+    cost estimator, ``sched_patience`` the hierarchical schedule; the
+    device engine under fifo or sjf uses none of them.  ``num_threads``
+    (host engines, A9), ``num_shards`` and ``mesh`` (the sharded
+    engine, A12) are not ported yet and raise when given."""
     tasks = _registry()
     if task_id not in tasks:
         raise KeyError(f"unknown env {task_id!r}; known: {sorted(tasks)}")
@@ -110,13 +119,20 @@ def make(task_id: str, num_envs: int, batch_size: int | None = None,
             f"{_LATER_ENGINES[engine]})")
     if engine != "device":
         raise ValueError(f"unknown engine {engine!r}")
+    for name, value, item in (("num_threads", num_threads, "A9"),
+                              ("num_shards", num_shards, "A12"),
+                              ("mesh", mesh, "A12")):
+        if value is not None:
+            raise NotImplementedError(
+                f"{name}={value!r}: its engine is not ported yet (ROADMAP "
+                f"{item})")
     if obs:
         raise NotImplementedError(
             "obs=True (engine telemetry, pool.stats()) is not ported yet "
             "(ROADMAP A6)")
     factory, default = tasks[task_id]
     return DeviceEnvPool(factory(**env_kwargs), num_envs, batch_size,
-                         schedule=schedule,
+                         batched=batched, schedule=schedule,
                          transforms=resolve_transforms(transforms, default),
                          device=resolve_device(device))
 

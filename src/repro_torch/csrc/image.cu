@@ -13,59 +13,158 @@ namespace {
 // pong_render_batch (_render_kernel).
 //
 // Bound: it reads 16 bytes per lane and writes 100,800 (210 x 160 x 3
-// uint8), so it is bound by its writes: 103.2 MB at N = 1024.  Design:
-// one thread per four output bytes, stored as one 32-bit word, so a warp
-// writes 128 contiguous bytes; the four game scalars of the lane are
-// read once per thread (every word lies within one screen, as
-// 100,800 % 4 == 0).  The compares use explicitly rounded f32 products
-// and differences (__fmul_rn/__fsub_rn), as the plain version rounds.
+// uint8), so it is bound by its writes: 103.2 MB at N = 1024.
+//
+// Design: 16-byte row spans, the game tests split into row and column
+// tests.
+//   - The batch is n * 210 screen rows of 480 bytes, one after another
+//     (row g = lane * 210 + y), and a row is 30 16-byte words.  Each warp
+//     owns a run of `rows` consecutive rows (ops.py::render_plan: the
+//     fewest that let every warp of one resident wave of blocks take a
+//     share; 2 blocks of 8 warps an SM, whose ~60 registers a thread
+//     then never spill); thread l < 30 of the warp stores word l of each,
+//     so a warp writes 480 contiguous bytes a row as plain 16-byte
+//     stores (streaming stores and bulk stores from a shared row buffer
+//     measured no faster for render then grayscale: PERF.md).  No index
+//     is divided per byte or word: a row finds its lane by one 32-bit
+//     division by 210.
+//   - The row tests (ball, paddle, enemy) run once per row: thread l of
+//     the warp tests row base + l of the next 32 and the warp passes the
+//     three flags on by shuffle.  The column tests run once per column:
+//     each thread tests the (at most 6) pixels of its word, the paddles'
+//     once for the kernel, the ball's once per lane, into a 16-bit mask of
+//     the word's bytes.  A row with no flag, and every word whose masks
+//     its flags do not select, is the background, one 16-byte pattern per
+//     phase of the 48-byte period, in registers.
+//   - Every test is the compare the plain version makes, on explicitly
+//     rounded f32 products and differences (__fmul_rn/__fsub_rn) of the
+//     row's or column's own f32 index; no span edge is derived by
+//     arithmetic.  Priority stays ball > paddle > enemy > background; the
+//     palette is immediates, no table is indexed.
 // ------------------------------------------------------------------------
 constexpr int kH = 210, kW = 160;
-constexpr int kScreenBytes = kH * kW * 3;
-constexpr int kScreenWords = kScreenBytes / 4;
-static_assert(kScreenBytes % 4 == 0, "screens must be whole words");
+constexpr int kRowWords = kW * 3 / 16;   // 16-byte words a screen row
+static_assert(kW * 3 % 16 == 0, "screen rows must be whole 16-byte words");
+constexpr int kRenderWarps = 8;          // ops.py::RENDER_WARPS
+constexpr int kRenderBlocksPerSm = 2;    // ops.py::RENDER_BLOCKS_PER_SM
 
-__constant__ uint8_t kPalette[4][3] = {
-    {236, 236, 236},  // ball
-    {92, 186, 92},    // player paddle
-    {213, 130, 74},   // enemy paddle
-    {144, 72, 17},    // background
-};
+// colours as 0x00BBGGRR
+constexpr uint32_t kBall = 236u | 236u << 8 | 236u << 16;
+constexpr uint32_t kPlayer = 92u | 186u << 8 | 92u << 16;
+constexpr uint32_t kEnemy = 213u | 130u << 8 | 74u << 16;
+constexpr uint32_t kBackground = 144u | 72u << 8 | 17u << 16;
 
-__global__ void pong_render_kernel(const float* __restrict__ ball_x,
-                                   const float* __restrict__ ball_y,
-                                   const float* __restrict__ paddle_y,
-                                   const float* __restrict__ enemy_y,
-                                   uint32_t* __restrict__ out, long total) {
-  const long word = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (word >= total) return;
-  const int lane = (int)(word / kScreenWords);
-  const int first = (int)(word % kScreenWords) * 4;
+// 16 bytes of `rgb` pixels whose first byte is channel q of a pixel
+__device__ __forceinline__ uint4 fill(uint32_t rgb, int q) {
+  const uint32_t c = q == 0 ? rgb
+                     : q == 1 ? (rgb >> 8 | rgb << 16) & 0xffffffu
+                              : (rgb >> 16 | rgb << 8) & 0xffffffu;
+  const uint32_t w0 = c | c << 24;                 // c0 c1 c2 c0
+  const uint32_t w1 = c >> 8 | c << 16;            // c1 c2 c0 c1
+  const uint32_t w2 = c >> 16 | c << 8;            // c2 c0 c1 c2
+  return make_uint4(w0, w1, w2, w0);
+}
+
+// bit b set where byte b of a word of phase q shows a pixel whose bit
+// (q + b) / 3 is set in `pixels` (the word's pixels, first at bit 0)
+__device__ __forceinline__ uint32_t byte_bits(uint32_t pixels, int q) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int b = 0; b < 16; ++b) bits |= (pixels >> ((q + b) / 3) & 1u) << b;
+  return bits;
+}
+
+// 0xff in each byte whose bit is set in the low 4 bits of x
+__device__ __forceinline__ uint32_t spread(uint32_t x) {
+  return ((x & 0xfu) * 0x00204081u & 0x01010101u) * 0xffu;
+}
+
+// v with the bytes in `bits` painted `rgb`
+__device__ __forceinline__ uint4 paint(uint4 v, uint32_t rgb, uint32_t bits,
+                                       int q) {
+  if (bits == 0) return v;
+  const uint4 c = fill(rgb, q);
+  const uint32_t m0 = spread(bits), m1 = spread(bits >> 4),
+                 m2 = spread(bits >> 8), m3 = spread(bits >> 12);
+  return make_uint4((v.x & ~m0) | (c.x & m0), (v.y & ~m1) | (c.y & m1),
+                    (v.z & ~m2) | (c.z & m2), (v.w & ~m3) | (c.w & m3));
+}
+
+__global__ void __launch_bounds__(kRenderWarps * 32, kRenderBlocksPerSm)
+pong_render_kernel(const float* __restrict__ ball_x,
+                   const float* __restrict__ ball_y,
+                   const float* __restrict__ paddle_y,
+                   const float* __restrict__ enemy_y,
+                   uint4* __restrict__ out, int total_rows, int rows) {
+  const int l = threadIdx.x & 31;
+  const long long warp = (long long)blockIdx.x * kRenderWarps +
+                         (threadIdx.x >> 5);
+  if (warp * rows >= total_rows) return;   // the whole warp
+  const int first = (int)(warp * rows);
+  const int last = min(total_rows - first, rows) + first;
 
   const float sy = 2.5f;                            // f32(210 / 84)
   const float sx = (float)(160.0 / 84.0);           // f32(160 / 84)
   const float reach = __fmul_rn(6.0f, sy);          // paddle half-length
   const float player_x = __fsub_rn(160.0f, __fmul_rn(3.0f, sx));
   const float enemy_x = __fmul_rn(2.0f, sx);
-  const float by = __fmul_rn(ball_y[lane], sy);
-  const float bx = __fmul_rn(ball_x[lane], sx);
-  const float py = __fmul_rn(paddle_y[lane], sy);
-  const float ey = __fmul_rn(enemy_y[lane], sy);
 
-  uint32_t packed = 0;
+  // this thread's word of a row: phase q, pixels x0 .. x0 + 5 (threads
+  // 30 and 31 follow word 29 and store nothing)
+  const int word = min(l, kRowWords - 1);
+  const int q = word % 3, x0 = 16 * word / 3;
+  uint32_t pad_px = 0, enemy_px = 0;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int byte = first + k;
-    const int pix = byte / 3, c = byte % 3;
-    const float y = (float)(pix / kW), x = (float)(pix % kW);
-    const bool ball = fabsf(__fsub_rn(y, by)) <= sy &&
-                      fabsf(__fsub_rn(x, bx)) <= sx;
-    const bool pad = fabsf(__fsub_rn(y, py)) <= reach && x >= player_x;
-    const bool enemy = fabsf(__fsub_rn(y, ey)) <= reach && x <= enemy_x;
-    const int which = ball ? 0 : pad ? 1 : enemy ? 2 : 3;
-    packed |= (uint32_t)kPalette[which][c] << (8 * k);
+  for (int j = 0; j < 6; ++j) {
+    const float x = (float)(x0 + j);
+    pad_px |= (uint32_t)(x >= player_x) << j;
+    enemy_px |= (uint32_t)(x <= enemy_x) << j;
   }
-  out[word] = packed;
+  const uint32_t pad_bits = byte_bits(pad_px, q);
+  const uint32_t enemy_bits = byte_bits(enemy_px, q);
+  const uint4 background = fill(kBackground, q);
+
+  int lane = -1;
+  uint32_t ball_bits = 0;
+  for (int base = first; base < last; base += 32) {
+    // row tests: thread l takes row base + l
+    uint32_t flags = 0;
+    if (base + l < last) {
+      const int g = base + l, n = g / kH;
+      const float y = (float)(g - n * kH);
+      flags = (uint32_t)(fabsf(__fsub_rn(y, __fmul_rn(ball_y[n], sy))) <=
+                         sy) |
+              (uint32_t)(fabsf(__fsub_rn(y, __fmul_rn(paddle_y[n], sy))) <=
+                         reach) << 1 |
+              (uint32_t)(fabsf(__fsub_rn(y, __fmul_rn(enemy_y[n], sy))) <=
+                         reach) << 2;
+    }
+    const int count = min(32, last - base);
+    for (int j = 0; j < count; ++j) {
+      const uint32_t f = __shfl_sync(0xffffffffu, flags, j);
+      const int g = base + j;
+      if (g / kH != lane) {   // the ball's column tests, once per lane
+        lane = g / kH;
+        const float bx = __fmul_rn(ball_x[lane], sx);
+        uint32_t ball_px = 0;
+#pragma unroll
+        for (int i = 0; i < 6; ++i)
+          ball_px |= (uint32_t)(fabsf(__fsub_rn((float)(x0 + i), bx)) <= sx)
+                     << i;
+        ball_bits = byte_bits(ball_px, q);
+      }
+      uint4 v = background;
+      const uint32_t ball = f & 1u ? ball_bits : 0u;
+      const uint32_t pad = f & 2u ? pad_bits : 0u;
+      const uint32_t enemy = f & 4u ? enemy_bits : 0u;
+      if (ball | pad | enemy) {   // lowest priority first
+        v = paint(v, kEnemy, enemy, q);
+        v = paint(v, kPlayer, pad, q);
+        v = paint(v, kBall, ball, q);
+      }
+      if (l < kRowWords) out[(long long)g * kRowWords + l] = v;
+    }
+  }
 }
 
 // ------------------------------------------------------------------------
@@ -73,15 +172,64 @@ __global__ void pong_render_kernel(const float* __restrict__ ball_x,
 // (_grayscale_kernel).
 //
 // Bound: it reads 3 bytes and writes 1 per pixel (103.2 MB in, 34.4 MB
-// out at N = 1024), so it is bound by bytes.  Design: one thread per
-// pixel, neighbouring threads on neighbouring pixels, the luma in int32.
+// out at N = 1024), so it is bound by bytes.
+//
+// Design: 16 pixels a thread from three 16-byte loads (48 bytes, aligned
+// as 48 k is a multiple of 16), the luma in int32 per pixel, one 16-byte
+// store; two such groups a thread per turn of a grid-stride loop over
+// persistent blocks (ops.py::gray_plan), their six loads issued before
+// any arithmetic.  `vec` (ops.py::vector_pixels: both pointers 16-byte
+// aligned and a pixel count that 16 divides) picks that path; any other
+// batch takes a byte path, one pixel a thread per turn, in the same
+// kernel.
 // ------------------------------------------------------------------------
-__global__ void grayscale_kernel(const uint8_t* __restrict__ rgb,
-                                 uint8_t* __restrict__ out, long n) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int r = rgb[3 * i], g = rgb[3 * i + 1], b = rgb[3 * i + 2];
-  out[i] = (uint8_t)((9798 * r + 19235 * g + 3735 * b + (1 << 14)) >> 15);
+constexpr int kGrayThreads = 256;      // ops.py::GRAY_THREADS
+constexpr int kGrayBlocksPerSm = 4;    // ops.py::GRAY_BLOCKS_PER_SM
+
+__device__ __forceinline__ uint32_t luma(uint32_t r, uint32_t g, uint32_t b) {
+  return (9798u * r + 19235u * g + 3735u * b + (1u << 14)) >> 15;
+}
+
+// the luma of the 16 pixels in w (48 bytes), as 16 bytes
+__device__ __forceinline__ uint4 luma16(const uint4& a, const uint4& b,
+                                        const uint4& c) {
+  const uint32_t w[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                          b.z, b.w, c.x, c.y, c.z, c.w};
+  uint32_t o[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int p = 0; p < 16; ++p) {
+    uint32_t ch[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int byte = 3 * p + k;
+      ch[k] = w[byte / 4] >> (8 * (byte % 4)) & 0xffu;
+    }
+    o[p / 4] |= luma(ch[0], ch[1], ch[2]) << (8 * (p % 4));
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+__global__ void __launch_bounds__(kGrayThreads, kGrayBlocksPerSm)
+grayscale_kernel(const uint8_t* __restrict__ rgb, uint8_t* __restrict__ out,
+                 long long n, bool vec) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (vec) {
+    const uint4* src = reinterpret_cast<const uint4*>(rgb);
+    uint4* dst = reinterpret_cast<uint4*>(out);
+    const long long groups = n / 16;
+    for (; i + stride < groups; i += 2 * stride) {
+      const long long j = i + stride;
+      const uint4 a0 = src[3 * i], a1 = src[3 * i + 1], a2 = src[3 * i + 2];
+      const uint4 b0 = src[3 * j], b1 = src[3 * j + 1], b2 = src[3 * j + 2];
+      dst[i] = luma16(a0, a1, a2);
+      dst[j] = luma16(b0, b1, b2);
+    }
+    if (i < groups) dst[i] = luma16(src[3 * i], src[3 * i + 1], src[3 * i + 2]);
+  } else {
+    for (; i < n; i += stride)
+      out[i] = (uint8_t)luma(rgb[3 * i], rgb[3 * i + 1], rgb[3 * i + 2]);
+  }
 }
 
 // ------------------------------------------------------------------------
@@ -354,28 +502,38 @@ __global__ void crop_kernel(const U* __restrict__ in, U* __restrict__ out,
 
 }  // namespace
 
+// out (n, 210, 160, 3) uint8, 16-byte aligned; each warp of the `blocks`
+// blocks of kRenderWarps warps renders `rows` consecutive screen rows
+// (ops.py::render_plan), which must cover all n * 210.
 extern "C" int pong_render_launch(const void* ball_x, const void* ball_y,
                                   const void* paddle_y, const void* enemy_y,
-                                  void* out, int n, void* stream) {
-  const long total = (long)n * kScreenWords;
-  if (total > 0) {
-    const int threads = 256;
-    const long blocks = (total + threads - 1) / threads;
-    pong_render_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)ball_x, (const float*)ball_y, (const float*)paddle_y,
-        (const float*)enemy_y, (uint32_t*)out, total);
-  }
+                                  void* out, int n, int rows, int blocks,
+                                  void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (n > INT32_MAX / kH || rows < 1 || blocks < 1 ||
+      (long long)blocks * kRenderWarps * rows < (long long)n * kH ||
+      (uintptr_t)out % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  pong_render_kernel<<<blocks, kRenderWarps * 32, 0, (cudaStream_t)stream>>>(
+      (const float*)ball_x, (const float*)ball_y, (const float*)paddle_y,
+      (const float*)enemy_y, (uint4*)out, n * kH, rows);
   return (int)cudaGetLastError();
 }
 
+// rgb (n_pixels, 3), out (n_pixels) uint8 dense.  vec: 16 pixels a thread
+// by 16-byte loads and stores (both pointers 16-byte aligned and n_pixels
+// % 16 == 0, ops.py::vector_pixels), else a byte path; `blocks` persistent
+// blocks of kGrayThreads threads (ops.py::gray_plan).
 extern "C" int grayscale_launch(const void* rgb, void* out,
-                                long long n_pixels, void* stream) {
-  if (n_pixels > 0) {
-    const int threads = 256;
-    const long long blocks = (n_pixels + threads - 1) / threads;
-    grayscale_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)rgb, (uint8_t*)out, (long)n_pixels);
-  }
+                                long long n_pixels, int vec, int blocks,
+                                void* stream) {
+  if (n_pixels <= 0) return (int)cudaGetLastError();
+  if (blocks < 1 ||
+      (vec && ((uintptr_t)rgb % 16 != 0 || (uintptr_t)out % 16 != 0 ||
+               n_pixels % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  grayscale_kernel<<<blocks, kGrayThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)rgb, (uint8_t*)out, n_pixels, vec != 0);
   return (int)cudaGetLastError();
 }
 

@@ -103,11 +103,21 @@ class VmapBatchEnv(BatchEnvironment):
         return self.env.finalize_step(states, costs)
 
 
-def as_batch_env(env: Environment | BatchEnvironment) -> BatchEnvironment:
-    """The env's batched view (its own kernel-backed one if it has)."""
+def as_batch_env(env: Environment | BatchEnvironment,
+                 native: bool | None = None) -> BatchEnvironment:
+    """The env's batched view.  ``native=None`` takes its own (the
+    kernel-backed one, where it has one); ``False`` the generic
+    ``VmapBatchEnv``; ``True`` requires a non-generic view and raises if
+    the env has none."""
     if isinstance(env, BatchEnvironment):
         return env
-    return env.as_batch()
+    if native is False:
+        return VmapBatchEnv(env)
+    benv = env.as_batch()
+    if native is True and type(benv) is VmapBatchEnv:
+        raise ValueError(
+            f"{type(env).__name__} has no natively batched implementation")
+    return benv
 
 
 __all__ = ["BatchEnvironment", "VmapBatchEnv", "as_batch_env"]

@@ -45,10 +45,10 @@ SIGNATURES = {
     # state, action, cost|NULL, reward0|NULL, out_state, out_reward,
     # n, n_sub, stream
     "env_step_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
-    # ball_x, ball_y, paddle_y, enemy_y, out, n, stream
-    "pong_render_launch": (_P, _P, _P, _P, _P, _I, _P),
-    # rgb, out, n_pixels, stream
-    "grayscale_launch": (_P, _P, _L, _P),
+    # ball_x, ball_y, paddle_y, enemy_y, out, n, rows, blocks, stream
+    "pong_render_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # rgb, out, n_pixels, vec, blocks, stream
+    "grayscale_launch": (_P, _P, _L, _I, _I, _P),
     # img, taps, out, n, h, w, out_h, out_w, ka, kb, bulk, stream
     "resize_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # img, out, n, in_h, in_w, top, left, height, width, stream

@@ -30,6 +30,31 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def _device_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# csrc/image.cu's kRenderWarps, kRenderBlocksPerSm: the render's blocks
+# are 8 warps, launched 2 to an SM (its __launch_bounds__)
+RENDER_WARPS = 8
+RENDER_BLOCKS_PER_SM = 2
+
+
+def render_plan(n: int, sms: int) -> tuple[int, int]:
+    """``(blocks, rows)`` of the render's launch: each warp renders
+    ``rows`` consecutive screen rows of the batch's ``n * 210``, as few
+    as let every warp of ``RENDER_BLOCKS_PER_SM`` blocks an SM take a
+    share; ``blocks`` blocks of ``RENDER_WARPS`` warps cover them all."""
+    total = n * RGB_H
+    rows = max(1, _cdiv(total, sms * RENDER_BLOCKS_PER_SM * RENDER_WARPS))
+    return _cdiv(total, RENDER_WARPS * rows), rows
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
@@ -53,12 +78,38 @@ def pong_render(ball_x: torch.Tensor, ball_y: torch.Tensor,
 
     out = torch.empty((n, RGB_H, RGB_W, 3), dtype=torch.uint8,
                       device=ball_x.device)
+    blocks, rows = render_plan(n, _device_sms(ball_x.device))
     err = library().pong_render_launch(
         ball_x.data_ptr(), ball_y.data_ptr(), paddle_y.data_ptr(),
-        enemy_y.data_ptr(), out.data_ptr(), n, _stream(ball_x))
+        enemy_y.data_ptr(), out.data_ptr(), n, rows, blocks,
+        _stream(ball_x))
     check_launch("pong_render", err)
     pong_render.launches += 1
     return out
+
+
+# csrc/image.cu's kGrayThreads, kGrayBlocksPerSm
+GRAY_THREADS = 256
+GRAY_BLOCKS_PER_SM = 4
+# pixels a thread takes per turn of the loop on the 16-byte path: two
+# groups of 16
+GRAY_VECTOR_PIXELS = 32
+
+
+def vector_pixels(rgb_ptr: int, out_ptr: int, n_pixels: int) -> bool:
+    """Whether the grayscale kernel takes 16 pixels a thread by 16-byte
+    loads and stores, which needs both pointers 16-byte aligned and a
+    pixel count that 16 divides; else it takes a pixel a thread by
+    bytes."""
+    return rgb_ptr % 16 == 0 and out_ptr % 16 == 0 and n_pixels % 16 == 0
+
+
+def gray_plan(n_pixels: int, vec: bool, sms: int) -> int:
+    """Persistent blocks of the grayscale launch: enough for one turn of
+    every thread's loop, at most as many as the card holds at once."""
+    per_thread = GRAY_VECTOR_PIXELS if vec else 1
+    return max(1, min(_cdiv(n_pixels, GRAY_THREADS * per_thread),
+                      sms * GRAY_BLOCKS_PER_SM))
 
 
 def grayscale(rgb: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
@@ -72,8 +123,11 @@ def grayscale(rgb: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
     from repro_torch.kernels.build import library
 
     out = torch.empty(rgb.shape[:-1], dtype=torch.uint8, device=rgb.device)
-    err = library().grayscale_launch(rgb.data_ptr(), out.data_ptr(),
-                                     out.numel(), _stream(rgb))
+    n = out.numel()
+    vec = vector_pixels(rgb.data_ptr(), out.data_ptr(), n)
+    err = library().grayscale_launch(
+        rgb.data_ptr(), out.data_ptr(), n, int(vec),
+        gray_plan(n, vec, _device_sms(rgb.device)), _stream(rgb))
     check_launch("grayscale", err)
     grayscale.launches += 1
     return out
@@ -178,5 +232,5 @@ grayscale.launches = 0
 crop.launches = 0
 resize.launches = 0
 
-__all__ = ["bulk_copies", "compact_taps", "crop", "grayscale",
-           "pong_render", "resize"]
+__all__ = ["bulk_copies", "compact_taps", "crop", "gray_plan", "grayscale",
+           "pong_render", "render_plan", "resize", "vector_pixels"]

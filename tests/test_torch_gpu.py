@@ -83,6 +83,78 @@ def test_image_kernels_are_bitwise(cuda):
                                       backend="reference"))
 
 
+# (ball_x, ball_y, paddle_y, enemy_y) on the 84-grid: the ball at the
+# edges and beyond them, on each paddle (priority), the paddles at the
+# top and bottom edges, whole and half grid values
+RENDER_CASES = [
+    (0.0, 0.0, 42.0, 42.0), (84.0, 84.0, 42.0, 42.0),
+    (-3.0, 90.0, 0.0, 84.0), (90.0, -3.0, 84.0, 0.0),
+    (82.5, 40.0, 40.0, 10.0),     # on the player's paddle
+    (83.0, 6.0, 6.5, 70.0),
+    (1.0, 20.0, 60.0, 20.0),      # on the enemy's paddle
+    (1.5, 77.5, 12.0, 77.0),
+    (40.5, 41.0, 0.5, 83.5), (20.0, 62.5, 83.5, 0.5),
+    (42.0, 42.0, -6.0, 90.0),
+]
+
+
+def render_inputs(n, seed):
+    """``n`` lanes: the edge cases first, then random positions, a
+    half of them on the half grid."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, 84, (4, n)).astype(np.float32)
+    pos[:, ::2] = np.round(pos[:, ::2] * 2) / 2
+    k = min(n, len(RENDER_CASES))
+    pos[:, :k] = np.array(RENDER_CASES[:k], np.float32).T
+    return pos
+
+
+@pytest.mark.parametrize("n", [1, 5, 33, 1024])
+def test_pong_render_kernel_is_bitwise(cuda, n):
+    pos = [torch.from_numpy(p).to(cuda) for p in render_inputs(n, n)]
+    before = ops.pong_render.launches
+    got = ops.pong_render(*pos)
+    assert ops.pong_render.launches == before + 1
+    assert got.shape == (n, 210, 160, 3)
+    assert torch.equal(got, ops.pong_render(*pos, backend="reference"))
+    assert torch.equal(got, ops.pong_render(*pos))      # repeated
+
+
+@pytest.mark.parametrize("case", RENDER_CASES)
+def test_pong_render_edge_cases_alone(cuda, case):
+    pos = [torch.tensor([v], dtype=torch.float32, device=cuda) for v in case]
+    assert torch.equal(ops.pong_render(*pos),
+                       ops.pong_render(*pos, backend="reference"))
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 210, 160, 3), (1024, 210, 160, 3),
+    (2, 3, 210, 160, 3),          # leading batch dims
+    (3, 7, 5, 3),                 # 105 pixels: the byte path
+])
+def test_grayscale_kernel_is_bitwise(cuda, shape):
+    rgb = torch.from_numpy(np.random.default_rng(len(shape)).integers(
+        0, 256, shape, np.uint8)).to(cuda)
+    if rgb.numel() >= 256 * 3:
+        assert len(torch.unique(rgb)) == 256
+    before = ops.grayscale.launches
+    got = ops.grayscale(rgb)
+    assert ops.grayscale.launches == before + 1
+    assert got.shape == shape[:-1]
+    assert torch.equal(got, ops.grayscale(rgb, backend="reference"))
+    assert torch.equal(got, ops.grayscale(rgb))          # repeated
+
+
+def test_grayscale_kernel_unaligned_batch(cuda):
+    """A batch one byte into its buffer takes the byte path."""
+    flat = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, 1 + 3 * 210 * 160 * 3, np.uint8)).to(cuda)
+    rgb = flat[1:].view(3, 210, 160, 3)
+    assert not ops.vector_pixels(rgb.data_ptr(), 0, 3 * 210 * 160)
+    assert torch.equal(ops.grayscale(rgb),
+                       ops.grayscale(rgb, backend="reference"))
+
+
 def test_pong_pool_on_the_card_matches_the_cpu(cuda):
     out = {}
     for dev in (cuda, "cpu"):

@@ -216,3 +216,61 @@ def test_device_taps_table():
 ])
 def test_bulk_copies_predicate(ptr, h, w, bulk):
     assert ops.bulk_copies(ptr, h, w) is bulk
+
+
+@pytest.mark.parametrize("rgb_ptr,out_ptr,n,vec", [
+    (0, 0, 1024 * 210 * 160, True),      # the PongClassic sync block
+    (4096, 512, 210 * 160, True),        # one screen
+    (1, 0, 1024 * 210 * 160, False),     # a batch one byte into its buffer
+    (0, 1, 1024 * 210 * 160, False),     # an output one byte in
+    (8, 0, 210 * 160, False),            # 8-byte aligned is not enough
+    (0, 0, 3 * 7 * 5, False),            # 105 pixels: not a multiple of 16
+    (0, 0, 16, True),
+    (0, 0, 24, False),
+])
+def test_grayscale_vector_path_predicate(rgb_ptr, out_ptr, n, vec):
+    assert ops.vector_pixels(rgb_ptr, out_ptr, n) is vec
+
+
+@pytest.mark.parametrize("n,vec,sms,blocks", [
+    (1024 * 210 * 160, True, 132, 132 * ops.GRAY_BLOCKS_PER_SM),
+    (210 * 160, True, 132, 5),           # 33,600 pixels, 8,192 a block
+    (105, False, 132, 1),
+    (1 << 20, False, 132, 132 * ops.GRAY_BLOCKS_PER_SM),
+    (0, True, 132, 1),
+])
+def test_grayscale_plan(n, vec, sms, blocks):
+    """Persistent blocks: one turn of every thread's loop, at most what
+    the card holds at once."""
+    assert ops.gray_plan(n, vec, sms) == blocks
+
+
+@pytest.mark.parametrize("n,sms", [
+    (1, 132), (5, 132), (33, 132), (1024, 132), (4096, 132), (1024, 2),
+    (7, 1), (100, 114),
+])
+def test_render_plan_covers_every_row_once(n, sms):
+    """Warp w of the launch renders rows [w * rows, (w + 1) * rows) of
+    the n * 210, cut at the end: every row once, no block without a row,
+    and no more warps than one wave of ``RENDER_BLOCKS_PER_SM`` blocks an
+    SM unless each already takes a single row."""
+    blocks, rows = ops.render_plan(n, sms)
+    total = n * ref.RGB_H
+    warps = blocks * ops.RENDER_WARPS
+    owner = np.full(total, -1)
+    for w in range(warps):
+        span = slice(w * rows, min((w + 1) * rows, total))
+        assert np.all(owner[span] == -1)
+        owner[span] = w
+    assert np.all(owner >= 0)
+    assert (blocks - 1) * ops.RENDER_WARPS * rows < total
+    resident = sms * ops.RENDER_BLOCKS_PER_SM * ops.RENDER_WARPS
+    assert warps <= resident + ops.RENDER_WARPS or rows == 1
+    assert rows == 1 or (rows - 1) * resident < total
+
+
+def test_render_plan_at_the_main_path():
+    """PongClassic N=1024 on a 132-SM H100: 102 rows a warp, 264 blocks,
+    one wave of 2 blocks of 8 warps an SM."""
+    assert ops.render_plan(1024, 132) == (264, 102)
+    assert 264 <= 132 * ops.RENDER_BLOCKS_PER_SM

@@ -240,6 +240,70 @@ def test_registered_tasks_and_stats():
         pool.stats(ps)
 
 
+@pytest.mark.parametrize("kwargs,item", [
+    ({"num_threads": 4}, "A9"),
+    ({"num_shards": 2}, "A12"),
+    ({"mesh": 2}, "A12"),
+])
+def test_make_names_the_item_of_each_unported_option(kwargs, item):
+    with pytest.raises(NotImplementedError, match=item):
+        repro_torch.make("Ant-v3", num_envs=4, device="cpu", **kwargs)
+
+
+def test_make_takes_the_options_of_repro_make():
+    """``repro.make``'s keywords reach ``make``, not the env factory;
+    fifo and sjf use neither ``sched_patience`` nor ``cost_ema_alpha``;
+    ``batched=True`` wants a native view, which the token envs have not
+    in either package.  The port's Pong renders its block through the
+    kernel in ``observe`` itself, so its view is the generic adapter and
+    ``batched=True`` refuses it too (``repro`` has a separate native
+    view for its render: ROADMAP C.3)."""
+    for batched, view in ((None, "MujocoLikeBatch"), (True, "MujocoLikeBatch"),
+                          (False, "VmapBatchEnv")):
+        pool = repro_torch.make("Ant-v3", 4, device="cpu", batched=batched,
+                                seed=3, sched_patience=0.5,
+                                cost_ema_alpha=0.25, num_threads=None,
+                                num_shards=None, mesh=None)
+        assert type(pool.benv).__name__ == view
+    for task in ("TokenCopy-v0", "PongClassic-v5"):
+        with pytest.raises(ValueError, match="natively batched"):
+            repro_torch.make(task, 4, device="cpu", batched=True)
+    with pytest.raises(ValueError, match="natively batched"):
+        jax_registry.make("TokenCopy-v0", 4, batched=True, obs=False)
+
+
+@pytest.mark.parametrize("task,n,m", [
+    ("Ant-v3", 8, None),
+    ("Ant-v3", 8, 4),
+    ("PongClassic-v5", 4, 2),
+])
+def test_unbatched_streams_match_the_default_and_repro(task, n, m):
+    """``batched=False`` (the generic adapter) gives the port's default
+    stream and ``repro``'s ``batched=False`` stream: ids, done and the
+    other discrete fields exact, Pong obs and reward bitwise, Ant's
+    within 1e-4."""
+    continuous = task.startswith("Ant")
+    atol = 1e-4 if continuous else 0.0
+    jp = jax_registry.make(task, num_envs=n, batch_size=m, obs=False,
+                           batched=False, max_episode_steps=5)
+    tp = repro_torch.make(task, num_envs=n, batch_size=m, device="cpu",
+                          batched=False, max_episode_steps=5)
+    dp = repro_torch.make(task, num_envs=n, batch_size=m, device="cpu",
+                          max_episode_steps=5)
+    assert type(tp.benv).__name__ == "VmapBatchEnv"
+    jps, jts = jp.reset(jax.random.PRNGKey(2))
+    tps, tts = tp.reset(repro_torch.random.PRNGKey(2))
+    dps, dts = dp.reset(repro_torch.random.PRNGKey(2))
+    jstep = jax.jit(jp.step)
+    for t in range(STEPS):
+        compare(f"{task} step {t} vs repro", jts, tts, atol)
+        compare(f"{task} step {t} vs default", dts, tts, atol)
+        a = policy(np.asarray(jts.env_id), t, continuous)
+        jps, jts = jstep(jps, jnp.asarray(a), jts.env_id)
+        tps, tts = tp.step(tps, torch.from_numpy(a), tts.env_id)
+        dps, dts = dp.step(dps, torch.from_numpy(a), dts.env_id)
+
+
 @pytest.mark.parametrize("schedule", ["fifo", "sjf"])
 def test_select_keeps_lax_top_k_tie_order(schedule):
     """Ties are the common case (fifo's READY band is -1e9 + send_tick
