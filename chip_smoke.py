@@ -26,15 +26,19 @@ Phases, in order; any failure exits non-zero:
    calls queued behind a sleep on the card so that host launch gaps
    stay out; each flash row also gives ``tflops``, the rate of the
    function's 4 * D operations per visible pair, and ``of_bound``,
-   bound_ms / ms, as do the pong_render and grayscale rows (grayscale
-   is also checked, not timed, on a batch one byte into its buffer and
-   an odd shape).  The decode attention and resize rows are also timed
-   cold (``ms_cold``: the same call rotated over inputs that exceed the
-   50 MB L2, the 28 layer views of the cache and four grayscale
-   batches, as their callers find them) with ``of_bound`` = bound_ms /
-   ms_cold; their ``cases``: decode at the LM collect's shape (128
-   lanes, cache 64) with its SDPA time, resize of the cropped 160x160
-   playfield;
+   bound_ms / ms, as do the env_step, pong_render, grayscale and crop
+   rows (grayscale is also checked, not timed, on a batch one byte into
+   its buffer and an odd shape; crop on a window for each path of
+   ``crop_plan`` and a batch one byte into its buffer).  env_step runs
+   the sync Ant cell's 4096 lanes and, as a case, the async cell's
+   2048; its row also carries ``launch_floor_ms``, a one-element
+   ``add_`` timed alike, what one launch costs.  The decode attention
+   and resize rows are also timed cold (``ms_cold``: the same call
+   rotated over inputs that exceed the 50 MB L2, the 28 layer views of
+   the cache and four grayscale batches, as their callers find them)
+   with ``of_bound`` = bound_ms / ms_cold; their ``cases``: decode at
+   the LM collect's shape (128 lanes, cache 64) with its SDPA time,
+   resize of the cropped 160x160 playfield;
 3. the main paths on the card, each warmed up, its kernels' launch
    counts set to 0 just before it and read just after; every kernel of
    the path must have launched:
@@ -205,6 +209,23 @@ def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def env_inputs(n: int, rng, dev) -> list:
+    """Ant physics inputs of ``n`` lanes on ``dev``: state, action, costs
+    5..9 and reward0, as the pool gathers them."""
+    import torch
+
+    state = np.zeros((n, 28), np.float32)
+    state[:, 0:2] = rng.normal(0, 1, (n, 2))
+    state[:, 2] = rng.uniform(0.15, 0.9, n)
+    state[:, 3:12] = rng.normal(0, 0.3, (n, 9))
+    state[:, 12:20] = rng.uniform(-1.2, 1.2, (n, 8))
+    state[:, 20:28] = rng.normal(0, 1.0, (n, 8))
+    return [torch.from_numpy(x).to(dev) for x in (
+        state, rng.uniform(-1.3, 1.3, (n, 8)).astype(np.float32),
+        rng.integers(5, 10, n).astype(np.int32),
+        rng.normal(0, 1, n).astype(np.float32))]
+
+
 # ---------------------------------------------------------------------- #
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------- #
@@ -288,31 +309,29 @@ def check_kernels() -> dict[str, dict]:
         return res[name] if case is None else res[name]["cases"][-1]
 
     # env_step: Ant N = 4096, costs 5..9 (main path: state gathered from
-    # the pool, n_sub = max_cost = 9)
-    n = 4096
-    state = np.zeros((n, 28), np.float32)
-    state[:, 0:2] = rng.normal(0, 1, (n, 2))
-    state[:, 2] = rng.uniform(0.15, 0.9, n)
-    state[:, 3:12] = rng.normal(0, 0.3, (n, 9))
-    state[:, 12:20] = rng.uniform(-1.2, 1.2, (n, 8))
-    state[:, 20:28] = rng.normal(0, 1.0, (n, 8))
-    s = torch.from_numpy(state).to(dev)
-    a = torch.from_numpy(rng.uniform(-1.3, 1.3, (n, 8)).astype(
-        np.float32)).to(dev)
-    c = torch.from_numpy(rng.integers(5, 10, n).astype(np.int32)).to(dev)
-    r0 = torch.from_numpy(rng.normal(0, 1, n).astype(np.float32)).to(dev)
+    # the pool, n_sub = max_cost = 9); the async cell's 2048 lanes as a
+    # case, from their own seed; beside them what one launch costs
+    for case, n, gen in ((None, 4096, rng),
+                         ("async-2048", 2048,
+                          np.random.default_rng(SEED + 1))):
+        s, a, c, r0 = env_inputs(n, gen, dev)
 
-    def run():
-        return env_ops.env_multi_step(s, a, c, r0, n_sub=9)
+        def run(s=s, a=a, c=c, r0=r0):
+            return env_ops.env_multi_step(s, a, c, r0, n_sub=9)
 
-    def run_plain():
-        return env_ops.env_multi_step(s, a, c, r0, n_sub=9,
-                                      backend="reference")
+        def run_plain(s=s, a=a, c=c, r0=r0):
+            return env_ops.env_multi_step(s, a, c, r0, n_sub=9,
+                                          backend="reference")
 
-    row("env_step", "src/repro_torch/csrc/env_step.cu",
-        "src/repro/kernels/env_step/kernel.py:103", run(), run_plain(),
-        nbytes=n * (28 * 4 * 2 + 8 * 4 + 4 + 4 + 4),
-        ops=ENV_STEP_OPS * float(c.sum()), run=run, run_plain=run_plain)
+        row("env_step", "src/repro_torch/csrc/env_step.cu",
+            "src/repro/kernels/env_step/kernel.py:103", run(), run_plain(),
+            nbytes=n * (28 * 4 * 2 + 8 * 4 + 4 + 4 + 4),
+            ops=ENV_STEP_OPS * float(c.sum()), run=run, run_plain=run_plain,
+            case=case, of_bound=True)
+    one = torch.zeros(1, device=dev)
+    res["env_step"]["launch_floor_ms"] = time_ms(lambda: one.add_(1.0))
+    log(f"  launch floor (a one-element add_): "
+        f"{res['env_step']['launch_floor_ms']:.4f} ms")
 
     # pong_render: PongClassic N = 1024 (sync block); ball positions
     # include whole and half grid values, where compares sit on an edge,
@@ -403,12 +422,28 @@ def check_kernels() -> dict[str, dict]:
             cold=[lambda b=b: img_ops.resize(b, 84, 84) for b in batches])
     del grays, batches
 
-    # crop: the Pong playfield of the grayscale screens (main path), plus
-    # a window that is not word aligned, checked but not timed
+    # crop: the Pong playfield of the grayscale screens (main path, path
+    # (a) of img_ops.crop_plan), plus a window for each other path and a
+    # batch one byte into its buffer (the byte path), checked, not timed
     x = gray[:64].contiguous()
-    if not torch.equal(img_ops.crop(x, 3, 5, 101, 37),
-                       img_ops.crop(x, 3, 5, 101, 37, backend="reference")):
-        raise AssertionError("crop (3, 5, 101, 37): kernel != plain version")
+    flat = torch.empty(1 + x.numel(), dtype=torch.uint8, device=dev)
+    flat[1:] = x.view(-1)
+    for case, img, window, path in (
+            ("runs", x, PONG_CROP, img_ops.CROP_RUNS),
+            ("spans", x, (3, 16, 101, 32), img_ops.CROP_SPANS),
+            ("words", x, (3, 4, 101, 36), img_ops.CROP_WORDS),
+            ("bytes", x, (3, 5, 101, 37), img_ops.CROP_BYTES),
+            ("unaligned", flat[1:].view(x.shape), PONG_CROP,
+             img_ops.CROP_BYTES)):
+        got = img_ops.crop(img, *window)
+        planned = img_ops.crop_plan(img.data_ptr(), got.data_ptr(),
+                                    *img.shape[-2:], *window)
+        if planned != path or not torch.equal(
+                got, img_ops.crop(img, *window, backend="reference")):
+            raise AssertionError(f"crop {case} {window}: path {planned} "
+                                 f"(want {path}), or kernel != plain "
+                                 "version")
+    del flat
 
     def run():
         return img_ops.crop(gray, *PONG_CROP)
@@ -422,7 +457,7 @@ def check_kernels() -> dict[str, dict]:
     row("crop", "src/repro_torch/csrc/image.cu",
         "src/repro/kernels/image/kernel.py:129", [run()], [run_plain()],
         nbytes=2 * n * ch * cw, ops=0.0, run=run, run_plain=run_plain,
-        library=library)
+        library=library, of_bound=True)
     res.update(check_decode_attention(rng, row))
     check_flash_attention(row)
     return res

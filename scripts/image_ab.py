@@ -32,19 +32,16 @@ of the render's 103.2 MB, the write rate the card reaches.
 PongClassic-v5 N=1024 sync from ``DIR/parent_tree`` and from this
 checkout, each in its own process, in turns parent, current, current,
 parent.  Both print JSON lines and the card's name and power limit.
+What is not particular to these kernels lives in ``ab_common.py``.
 """
 
 from __future__ import annotations
 
-import ctypes
 import json
-import os
-import re
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(ROOT, "src", "repro_torch", "csrc", "image.cu")
+from ab_common import I, L, P, ROOT, build, const, main, patch, source
+
 RENDER_BPS = "constexpr int kRenderBlocksPerSm = {};"
 GRAY_BPS = "constexpr int kGrayBlocksPerSm = {};"
 STORE = ("      if (l < kRowWords) out[(long long)g * kRowWords + l] = v;\n"
@@ -117,34 +114,24 @@ GRAY_U4 = """    for (; i + 3 * stride < groups; i += 4 * stride) {
 """
 
 
-def _blocks_per_sm(text: str, pattern: str) -> int:
-    return int(re.search(pattern.format(r"(\d+)"), text).group(1))
-
-
-def _patch(text: str, old: str, new: str) -> str:
-    if old not in text:
-        raise SystemExit(f"image_ab: the source no longer holds {old!r}")
-    return text.replace(old, new, 1)
-
-
 def variants(cur: str) -> dict[str, str]:
-    bps = _blocks_per_sm(cur, RENDER_BPS)
+    bps = const(cur, RENDER_BPS)
 
     def blocks(text: str, k: int) -> str:
-        return _patch(text, RENDER_BPS.format(bps), RENDER_BPS.format(k))
+        return patch(text, RENDER_BPS.format(bps), RENDER_BPS.format(k))
 
-    cs = _patch(cur, STORE, CS_STORE)
-    bulk = _patch(_patch(cur, STORE, BULK_STORE),
+    cs = patch(cur, STORE, CS_STORE)
+    bulk = patch(patch(cur, STORE, BULK_STORE),
                   "  const int l = threadIdx.x & 31;\n",
                   BULK_SMEM + "  const int l = threadIdx.x & 31;\n")
     start = cur.index(GRAY_LOOP[0])
     end = cur.index(GRAY_LOOP[1]) + len(GRAY_LOOP[1])
-    gray_bps = _blocks_per_sm(cur, GRAY_BPS)
+    gray_bps = const(cur, GRAY_BPS)
     out = {"current": cur, "cs": cs, "bulk": bulk,
-           "gray_b8": _patch(cur, GRAY_BPS.format(gray_bps),
+           "gray_b8": patch(cur, GRAY_BPS.format(gray_bps),
                              GRAY_BPS.format(8)),
            "gray_u4": cur[:start] + GRAY_U4 + cur[end:],
-           "gray_ldcs": _patch(cur, GRAY_LOADS, GRAY_LDCS)}
+           "gray_ldcs": patch(cur, GRAY_LOADS, GRAY_LDCS)}
     for k in (2, 4, 6, 8):
         if k != bps:
             out[f"b{k}"] = blocks(cur, k)
@@ -153,67 +140,18 @@ def variants(cur: str) -> dict[str, str]:
     return out
 
 
-def make(out: str, ref: str) -> None:
-    os.makedirs(out, exist_ok=True)
-    parent = subprocess.run(
-        ["git", "show", f"{ref}:src/repro_torch/csrc/image.cu"], cwd=ROOT,
-        capture_output=True, text=True, check=True).stdout
-    texts = {"parent": parent, **variants(open(SRC).read())}
-    for name, text in texts.items():
-        with open(os.path.join(out, name + ".cu"), "w") as f:
-            f.write(text)
-    tree = os.path.join(out, "parent_tree")
-    os.makedirs(tree, exist_ok=True)
-    archive = subprocess.run(["git", "archive", ref], cwd=ROOT,
-                             capture_output=True, check=True).stdout
-    subprocess.run(["tar", "-x", "-C", tree], input=archive, check=True)
+def texts(ref: str) -> dict[str, str]:
+    return {"parent": source("image.cu", ref), **variants(source("image.cu"))}
 
 
-def _ptxas(log: str) -> dict[str, str]:
-    """Kernel name -> its ptxas line of registers, for the two kernels."""
-    out, kernel = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(pong_render|grayscale)",
-                      line)
-        if m:
-            kernel = m.group(1)
-        elif kernel and ("spill" in line or "registers" in line):
-            out[kernel] = "; ".join(filter(None, (
-                out.get(kernel), line.split(":", 1)[-1].strip())))
-            if "registers" in line:
-                kernel = None
-    return out
-
-
-def build(out: str) -> dict:
-    sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.kernels.build import NVCC_FLAGS, _nvcc
-
-    names = sorted(f[:-3] for f in os.listdir(out) if f.endswith(".cu"))
-    procs = {n: subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-shared",
-         os.path.join(out, n + ".cu"), "-o", os.path.join(out, n + ".so")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for n in names}
-    libs = {}
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for n, p in procs.items():
-        log = p.communicate()[0]
-        if p.returncode:
-            raise SystemExit(f"image_ab: nvcc failed on {n}:\n{log}")
-        print(json.dumps({"variant": n, "ptxas": _ptxas(log)}), flush=True)
-        text = open(os.path.join(out, n + ".cu")).read()
-        lib = ctypes.CDLL(os.path.join(out, n + ".so"))
-        planned = "int rows, int blocks" in text
-        lib.pong_render_launch.argtypes = (
-            (P, P, P, P, P, I, I, I, P) if planned else (P, P, P, P, P, I, P))
-        lib.grayscale_launch.argtypes = (
-            (P, P, L, I, I, P) if planned else (P, P, L, P))
-        lib.render_bps = (_blocks_per_sm(text, RENDER_BPS) if planned
-                          else None)
-        lib.gray_bps = _blocks_per_sm(text, GRAY_BPS) if planned else None
-        libs[n] = lib
-    return libs
+def bind(name: str, text: str, lib) -> None:
+    planned = "int rows, int blocks" in text
+    lib.pong_render_launch.argtypes = (
+        (P, P, P, P, P, I, I, I, P) if planned else (P, P, P, P, P, I, P))
+    lib.grayscale_launch.argtypes = (
+        (P, P, L, I, I, P) if planned else (P, P, L, P))
+    lib.render_bps = const(text, RENDER_BPS) if planned else None
+    lib.gray_bps = const(text, GRAY_BPS) if planned else None
 
 
 def run(out: str) -> None:
@@ -228,7 +166,7 @@ def run(out: str) -> None:
         pong_render_reference,
     )
 
-    libs = build(out)
+    libs = build(out, "pong_render|grayscale", bind)
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(chip_smoke.SEED)
@@ -297,53 +235,12 @@ def run(out: str) -> None:
     print(chip_smoke.card_line())
 
 
-POOLS = [("Ant-v3", 4096, None, "fifo", ("env_step",)),
-         ("Ant-v3", 4096, 2048, "fifo", ("env_step",)),
-         ("PongClassic-v5", 1024, None, "fifo",
-          ("pong_render", "grayscale", "resize"))]
-
-
-def pools_one(root: str, label: str) -> None:
-    """Device busy ms per recv of POOLS, twice each, from ``root``."""
-    sys.path.insert(0, root)
-    import chip_smoke
-    import torch
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    for task, n, m, schedule, path in POOLS:
-        busy = [chip_smoke.drive_pool(task, n, m, schedule, path,
-                                      recvs=40)["device_busy_ms_per_recv"]
-                for _ in range(2)]
-        print(json.dumps({"tree": label, "task": task, "num_envs": n,
-                          "batch_size": m or n,
-                          "device_busy_ms_per_recv": busy}), flush=True)
-
-
-def pools(out: str) -> None:
-    trees = {"parent": os.path.join(os.path.abspath(out), "parent_tree"),
-             "current": ROOT}
-    for label in ("parent", "current", "current", "parent"):
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "pools-one",
-             trees[label], label], capture_output=True, text=True)
-        print("\n".join(line for line in proc.stdout.splitlines()
-                        if line.startswith("{\"tree\"")), flush=True)
-        if proc.returncode:
-            raise SystemExit(f"image_ab: {label} failed:\n{proc.stderr}")
-    sys.path.insert(0, ROOT)
-    import chip_smoke
-    print(chip_smoke.card_line())
+def pool_runs() -> list:
+    return [("Ant-v3", 4096, None, "fifo", ("env_step",), None),
+            ("Ant-v3", 4096, 2048, "fifo", ("env_step",), None),
+            ("PongClassic-v5", 1024, None, "fifo",
+             ("pong_render", "grayscale", "resize"), None)]
 
 
 if __name__ == "__main__":
-    cmd = sys.argv[1] if len(sys.argv) > 1 else ""
-    if cmd == "make" and len(sys.argv) in (3, 4):
-        make(sys.argv[2], sys.argv[3] if len(sys.argv) == 4 else "HEAD")
-    elif cmd == "run" and len(sys.argv) == 3:
-        run(sys.argv[2])
-    elif cmd == "pools" and len(sys.argv) == 3:
-        pools(sys.argv[2])
-    elif cmd == "pools-one" and len(sys.argv) == 4:
-        pools_one(sys.argv[2], sys.argv[3])
-    else:
-        raise SystemExit(__doc__)
+    main(__doc__, texts, run, pool_runs)

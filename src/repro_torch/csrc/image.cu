@@ -482,22 +482,74 @@ resize_kernel(const uint8_t* __restrict__ img, const int* __restrict__ taps,
 //
 // Bound: a copy, it reads and writes height*width bytes per image
 // (26.2 MB each way at N = 1024, 210x160 -> 160x160), so it is bound by
-// bytes.  Design: one thread per output unit, neighbouring threads on
-// neighbouring units of an output row.  The unit is a 32-bit word when
-// the window's left edge and width, the input width and both base
-// pointers are multiples of 4 bytes (the Pong window is), else a byte.
+// bytes.
+//
+// Design: a 2-D grid, x over an image's output units in chunks of
+// kCropThreads * kCropUnroll, y over the images (a block walks images
+// gridDim.y apart past the grid's 65535 limit).  Each thread issues its
+// kCropUnroll loads before its stores (two: four measured 1-2% slower,
+// PERF.md), neighbouring threads on neighbouring units; indices inside
+// an image are 32-bit, and no unit divides a 64-bit index.  A unit finds
+// its row by one 32-bit division by the window's width.
+// ops.py::crop_plan picks the unit:
+//   (a) kCropRuns, 16 bytes: a window of whole rows (left 0, the full
+//       width; the Pong playfield) is one contiguous run of
+//       height * width bytes an image, copied as a window of one row;
+//   (b) kCropSpans, 16 bytes: left, width and the input width multiples
+//       of 16, each output row a span of 16-byte units;
+//   (c) kCropWords, 4 bytes, the same on multiples of 4;
+//   (d) kCropBytes, a byte.
+// Every path but (d) needs both base pointers aligned to its unit, and
+// (a) every image's run too; crop_launch checks the plan's claim again.
 // ------------------------------------------------------------------------
+constexpr int kCropRuns = 0, kCropSpans = 1, kCropWords = 2, kCropBytes = 3;
+constexpr int kCropThreads = 128;
+constexpr int kCropUnroll = 2;
+constexpr int kMaxGridY = 65535;
+
+// in: images of `image_units` units, the window `offset` units in, its
+// rows `in_w` units apart; out: images of per_image units, rows of
+// `width` units.
 template <typename U>
-__global__ void crop_kernel(const U* __restrict__ in, U* __restrict__ out,
-                            long total, int in_h, int in_w, int top, int left,
-                            int height, int width) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int x = (int)(i % width);
-  const long row = i / width;
-  const int y = (int)(row % height);
-  const long image = row / height;
-  out[i] = in[(image * in_h + top + y) * in_w + left + x];
+__global__ void __launch_bounds__(kCropThreads)
+    crop_kernel(const U* __restrict__ in, U* __restrict__ out, int n,
+                long long image_units, int offset, int in_w, int width,
+                int per_image) {
+  const int first = blockIdx.x * (kCropThreads * kCropUnroll) + threadIdx.x;
+  for (int image = blockIdx.y; image < n; image += gridDim.y) {
+    const U* src = in + image * image_units + offset;
+    U* dst = out + (long long)image * per_image;
+    U v[kCropUnroll];
+#pragma unroll
+    for (int k = 0; k < kCropUnroll; ++k) {
+      const int u = first + k * kCropThreads;
+      if (u < per_image) {
+        const int y = (int)((unsigned)u / (unsigned)width);
+        v[k] = src[y * in_w + (u - y * width)];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kCropUnroll; ++k) {
+      const int u = first + k * kCropThreads;
+      if (u < per_image) dst[u] = v[k];
+    }
+  }
+}
+
+// sizes in bytes, each a multiple of sizeof(U) (crop_launch's checks)
+template <typename U>
+void launch_crop(const void* img, void* out, int n, int in_h, int in_w,
+                 int top, int left, int height, int width,
+                 cudaStream_t stream) {
+  constexpr int unit = (int)sizeof(U);
+  const int per_image = (int)((long long)height * width / unit);
+  const dim3 grid((per_image + kCropThreads * kCropUnroll - 1) /
+                      (kCropThreads * kCropUnroll),
+                  n < kMaxGridY ? n : kMaxGridY);
+  crop_kernel<U><<<grid, kCropThreads, 0, stream>>>(
+      (const U*)img, (U*)out, n, (long long)in_h * in_w / unit,
+      (int)(((long long)top * in_w + left) / unit), in_w / unit,
+      width / unit, per_image);
 }
 
 }  // namespace
@@ -592,26 +644,49 @@ extern "C" int resize_launch(const void* img, const void* taps, void* out,
   return (int)cudaGetLastError();
 }
 
+// img (n, in_h, in_w), out (n, height, width) uint8 dense; `path` is
+// ops.py::crop_plan's unit, whose alignment is checked here again.
 extern "C" int crop_launch(const void* img, void* out, int n, int in_h,
                            int in_w, int top, int left, int height,
-                           int width, void* stream) {
-  const bool words = ((left | width | in_w) % 4 == 0) &&
-                     ((uintptr_t)img % 4 == 0) && ((uintptr_t)out % 4 == 0);
-  const int unit = words ? 4 : 1;
-  const long total = (long)n * height * (width / unit);
-  if (total > 0) {
-    const int threads = 256;
-    const long blocks = (total + threads - 1) / threads;
-    if (words)
-      crop_kernel<uint32_t><<<(unsigned)blocks, threads, 0,
-                              (cudaStream_t)stream>>>(
-          (const uint32_t*)img, (uint32_t*)out, total, in_h, in_w / 4, top,
-          left / 4, height, width / 4);
-    else
-      crop_kernel<uint8_t><<<(unsigned)blocks, threads, 0,
-                             (cudaStream_t)stream>>>(
-          (const uint8_t*)img, (uint8_t*)out, total, in_h, in_w, top, left,
-          height, width);
+                           int width, int path, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  const long long run = (long long)height * width;
+  const bool aligned16 = ((uintptr_t)img | (uintptr_t)out) % 16 == 0;
+  bool ok;
+  switch (path) {
+    case kCropRuns:
+      ok = left == 0 && width == in_w && aligned16 && run % 16 == 0 &&
+           (long long)top * in_w % 16 == 0 &&
+           (long long)in_h * in_w % 16 == 0 &&
+           (long long)in_h * in_w <= INT32_MAX;
+      break;
+    case kCropSpans:
+      ok = (left | width | in_w) % 16 == 0 && aligned16;
+      break;
+    case kCropWords:
+      ok = (left | width | in_w) % 4 == 0 &&
+           ((uintptr_t)img | (uintptr_t)out) % 4 == 0;
+      break;
+    case kCropBytes:
+      ok = true;
+      break;
+    default:
+      ok = false;
   }
+  if (!ok || height < 1 || width < 1 || top < 0 || left < 0 ||
+      top + height > in_h || left + width > in_w || run > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (path == kCropRuns)   // one row of height * width bytes an image
+    launch_crop<uint4>(img, out, n, 1, in_h * in_w, 0, top * in_w, 1,
+                       (int)run, s);
+  else if (path == kCropSpans)
+    launch_crop<uint4>(img, out, n, in_h, in_w, top, left, height, width, s);
+  else if (path == kCropWords)
+    launch_crop<uint32_t>(img, out, n, in_h, in_w, top, left, height, width,
+                          s);
+  else
+    launch_crop<uint8_t>(img, out, n, in_h, in_w, top, left, height, width,
+                         s);
   return (int)cudaGetLastError();
 }

@@ -43,16 +43,16 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # a count that can pass 2^31, and strides, as c_longlong)
 SIGNATURES = {
     # state, action, cost|NULL, reward0|NULL, out_state, out_reward,
-    # n, n_sub, stream
-    "env_step_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # n, n_sub, blocks, stream
+    "env_step_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # ball_x, ball_y, paddle_y, enemy_y, out, n, rows, blocks, stream
     "pong_render_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # rgb, out, n_pixels, vec, blocks, stream
     "grayscale_launch": (_P, _P, _L, _I, _I, _P),
     # img, taps, out, n, h, w, out_h, out_w, ka, kb, bulk, stream
     "resize_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # img, out, n, in_h, in_w, top, left, height, width, stream
-    "crop_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # img, out, n, in_h, in_w, top, left, height, width, path, stream
+    "crop_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, lengths, out, B, H, Hkv, T, D, q/k/v strides (8), scale,
     # dtype, warps, rows, width, stream
     "decode_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -18,6 +18,19 @@ from repro_torch.kernels.env_step.ref import (
 )
 
 
+# csrc/env_step.cu's kGroup and kThreads: a lane's threads (thread j
+# owns joint j) and a block's
+ENV_GROUP = 8
+ENV_THREADS = 128
+
+
+def env_step_plan(n: int) -> int:
+    """Blocks of the physics launch: lane ``l`` on threads
+    ``[l * ENV_GROUP, (l + 1) * ENV_GROUP)`` of the grid, the fewest
+    blocks of ``ENV_THREADS`` that cover all ``n`` lanes."""
+    return -(-n * ENV_GROUP // ENV_THREADS)
+
+
 def _check(name: str, x: torch.Tensor, shape: tuple[int, ...],
            dtype: torch.dtype, device: torch.device) -> None:
     if x.shape != shape or x.dtype != dtype or x.device != device:
@@ -63,7 +76,7 @@ def env_multi_step(
         None if cost is None else cost.data_ptr(),
         None if reward0 is None else reward0.data_ptr(),
         out.data_ptr(), reward.data_ptr(), n, int(n_sub),
-        torch.cuda.current_stream(dev).cuda_stream,
+        env_step_plan(n), torch.cuda.current_stream(dev).cuda_stream,
     )
     check_launch("env_step", err)
     env_multi_step.launches += 1
@@ -72,4 +85,4 @@ def env_multi_step(
 
 env_multi_step.launches = 0
 
-__all__ = ["env_multi_step"]
+__all__ = ["env_multi_step", "env_step_plan"]

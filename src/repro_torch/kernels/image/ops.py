@@ -133,6 +133,31 @@ def grayscale(rgb: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
     return out
 
 
+# csrc/image.cu's crop units: (a) whole-row runs and (b) row spans of 16
+# bytes, (c) 4-byte words, (d) bytes
+CROP_RUNS, CROP_SPANS, CROP_WORDS, CROP_BYTES = range(4)
+
+
+def crop_plan(img_ptr: int, out_ptr: int, h: int, w: int, top: int,
+              left: int, height: int, width: int) -> int:
+    """The crop kernel's unit for the window (top, left, height, width)
+    of (h, w) images: ``CROP_RUNS`` when the window is whole rows, so
+    each image's window is one run of ``height * width`` bytes at
+    ``(image * h + top) * w``, every run and both pointers are 16-byte
+    aligned and an image's ``h * w`` bytes fit a 32-bit index; else ``CROP_SPANS`` when ``left``, ``width``, ``w``
+    and both pointers are multiples of 16, ``CROP_WORDS`` of 4, and
+    ``CROP_BYTES`` otherwise."""
+    ptrs = img_ptr | out_ptr
+    if (left == 0 and width == w and ptrs % 16 == 0
+            and (height * width) % 16 == 0 and (top * w) % 16 == 0
+            and (h * w) % 16 == 0 and h * w < 2**31):
+        return CROP_RUNS
+    for path, unit in ((CROP_SPANS, 16), (CROP_WORDS, 4)):
+        if (left | width | w | ptrs) % unit == 0:
+            return path
+    return CROP_BYTES
+
+
 def crop(img: torch.Tensor, top: int, left: int, height: int, width: int,
          *, backend: str = "auto") -> torch.Tensor:
     """(..., H, W) uint8 -> (..., height, width) uint8, the static window
@@ -150,8 +175,11 @@ def crop(img: torch.Tensor, top: int, left: int, height: int, width: int,
     n = img.numel() // (h * w)
     out = torch.empty(lead + (height, width), dtype=torch.uint8,
                       device=img.device)
+    path = crop_plan(img.data_ptr(), out.data_ptr(), h, w, top, left,
+                     height, width)
     err = library().crop_launch(img.data_ptr(), out.data_ptr(), n, h, w,
-                                top, left, height, width, _stream(img))
+                                top, left, height, width, path,
+                                _stream(img))
     check_launch("crop", err)
     crop.launches += 1
     return out
@@ -232,5 +260,7 @@ grayscale.launches = 0
 crop.launches = 0
 resize.launches = 0
 
-__all__ = ["bulk_copies", "compact_taps", "crop", "gray_plan", "grayscale",
-           "pong_render", "render_plan", "resize", "vector_pixels"]
+__all__ = ["CROP_BYTES", "CROP_RUNS", "CROP_SPANS", "CROP_WORDS",
+           "bulk_copies", "compact_taps", "crop", "crop_plan", "gray_plan",
+           "grayscale", "pong_render", "render_plan", "resize",
+           "vector_pixels"]

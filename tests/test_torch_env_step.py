@@ -88,3 +88,40 @@ def test_backend_rule_takes_the_plain_version_only_for_cpu_tensors():
     with pytest.raises(ValueError):
         env_multi_step(t(state), t(action), t(cost), t(reward0), n_sub=9,
                        backend="cuda")
+
+
+def test_env_step_plan_covers_every_lane_once():
+    """For N in 1..5000 the launch has threads for every lane's group
+    and no block without a lane; a group lies inside one warp."""
+    from repro_torch.kernels.env_step.ops import (
+        ENV_GROUP,
+        ENV_THREADS,
+        env_step_plan,
+    )
+
+    assert ENV_THREADS % 32 == 0 and 32 % ENV_GROUP == 0
+    for n in range(1, 5001):
+        blocks = env_step_plan(n)
+        threads = blocks * ENV_THREADS
+        assert threads >= n * ENV_GROUP > threads - ENV_THREADS
+
+
+@pytest.mark.parametrize("n", [1, 3, 1000, 2048, 4096])
+def test_env_step_plan_lanes_at_main_path_sizes(n):
+    """Thread ``i`` of the grid serves lane ``i // ENV_GROUP`` as member
+    ``i % ENV_GROUP``: each lane gets exactly ``ENV_GROUP`` threads, all
+    in one warp, and threads past the last lane form whole groups."""
+    from repro_torch.kernels.env_step.ops import (
+        ENV_GROUP,
+        ENV_THREADS,
+        env_step_plan,
+    )
+
+    tid = np.arange(env_step_plan(n) * ENV_THREADS)
+    lane, member = tid // ENV_GROUP, tid % ENV_GROUP
+    live = lane < n
+    counts = np.bincount(lane[live], minlength=n)
+    np.testing.assert_array_equal(counts, ENV_GROUP)
+    first = tid[member == 0]
+    assert np.all(first // 32 == (first + ENV_GROUP - 1) // 32)
+    assert np.all(lane[~live] >= n)

@@ -53,20 +53,68 @@ def cuda():
     return torch.device("cuda")
 
 
-def test_env_step_kernel_is_bitwise(cuda):
-    rng = np.random.default_rng(0)
-    n = 1000                       # not a multiple of the block size
+def env_inputs(n, seed, max_cost=10):
+    rng = np.random.default_rng(seed)
     state = rng.normal(0, 0.5, (n, 28)).astype(np.float32)
     state[:, 2] = rng.uniform(0.15, 0.9, n)
-    args = [torch.from_numpy(x).to(cuda) for x in (
+    return [torch.from_numpy(x).to("cuda") for x in (
         state, rng.uniform(-1.3, 1.3, (n, 8)).astype(np.float32),
-        rng.integers(0, 10, n).astype(np.int32),
+        rng.integers(0, max_cost, n).astype(np.int32),
         rng.normal(0, 1, n).astype(np.float32))]
+
+
+# 1 and 3: a group alone in its warp and block; 1000: a partial block;
+# 2048 and 4096: the async and sync Ant cells
+@pytest.mark.parametrize("n", [1, 3, 1000, 2048, 4096])
+def test_env_step_kernel_is_bitwise(cuda, n):
+    args = env_inputs(n, n)
+    before = env_multi_step.launches
     for backend_args in (args, args[:2]):
         got = env_multi_step(*backend_args, n_sub=9)
         want = env_multi_step(*backend_args, n_sub=9, backend="reference")
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+    assert env_multi_step.launches == before + 2
+
+
+@pytest.mark.parametrize("with_cost,with_reward0", [
+    (True, True), (True, False), (False, True), (False, False)])
+def test_env_step_kernel_costs_and_defaults(cuda, with_cost,
+                                            with_reward0):
+    """Costs 0..12 at n_sub = 9 (clamped to 9; a 0 leaves the lane bit
+    for bit as it was), ``cost=None`` (all lanes n_sub substeps) and
+    ``reward0=None`` (from a zero reward)."""
+    state, action, cost, reward0 = env_inputs(517, 7, max_cost=13)
+    c = cost if with_cost else None
+    r0 = reward0 if with_reward0 else None
+    got = env_multi_step(state, action, c, r0, n_sub=9)
+    want = env_multi_step(state, action, c, r0, n_sub=9,
+                          backend="reference")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if with_cost:
+        idle = cost == 0
+        assert bool(idle.any()) and bool((cost > 9).any())
+        assert torch.equal(got[0][idle], state[idle])
+        if with_reward0:
+            assert torch.equal(got[1][idle], reward0[idle])
+
+
+def test_env_step_kernel_refuses_a_short_plan(cuda):
+    """A launch whose blocks do not cover every lane's group is
+    refused."""
+    from repro_torch.kernels.build import library
+    from repro_torch.kernels.env_step.ops import env_step_plan
+
+    state, action, cost, reward0 = env_inputs(1000, 1)
+    out, reward = torch.empty_like(state), torch.empty_like(reward0)
+    blocks = env_step_plan(1000)
+    ptrs = [x.data_ptr() for x in (state, action, cost, reward0, out,
+                                   reward)]
+    stream = torch.cuda.current_stream().cuda_stream
+    for short in (blocks - 1, 0):
+        assert library().env_step_launch(*ptrs, 1000, 9, short,
+                                         stream) != 0
 
 
 def test_image_kernels_are_bitwise(cuda):
@@ -172,13 +220,54 @@ def test_pong_pool_on_the_card_matches_the_cpu(cuda):
             assert torch.equal(x, y)
 
 
-def test_crop_kernel_is_bitwise(cuda):
+# one window per path of ops.crop_plan on 210 x 160 images
+CROP_WINDOWS = [
+    ((34, 0, 160, 160), ops.CROP_RUNS),       # the Pong playfield
+    ((3, 16, 101, 32), ops.CROP_SPANS),
+    ((3, 4, 101, 36), ops.CROP_WORDS),
+    ((3, 5, 101, 37), ops.CROP_BYTES),
+]
+
+
+@pytest.mark.parametrize("window,path", CROP_WINDOWS)
+@pytest.mark.parametrize("n", [0, 1, 9, 1024])
+def test_crop_kernel_is_bitwise(cuda, n, window, path):
     img = torch.from_numpy(np.random.default_rng(2).integers(
-        0, 256, (9, 210, 160), np.uint8)).to(cuda)
-    # a word-aligned window (the Pong playfield) and a byte-aligned one
-    for window in ((34, 0, 160, 160), (3, 5, 101, 37)):
-        assert torch.equal(ops.crop(img, *window),
-                           ops.crop(img, *window, backend="reference"))
+        0, 256, (n, 210, 160), np.uint8)).to(cuda)
+    before = ops.crop.launches
+    got = ops.crop(img, *window)
+    assert ops.crop.launches == before + 1
+    assert ops.crop_plan(img.data_ptr(), got.data_ptr(), 210, 160,
+                         *window) == path
+    assert torch.equal(got, ops.crop(img, *window, backend="reference"))
+
+
+@pytest.mark.parametrize("window,path", CROP_WINDOWS)
+def test_crop_kernel_unaligned_batch(cuda, window, path):
+    """A batch one byte into its buffer takes the byte path on every
+    window; odd n, with leading dims."""
+    flat = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, 1 + 15 * 210 * 160, np.uint8)).to(cuda)
+    img = flat[1:].view(3, 5, 210, 160)
+    assert img.storage_offset() == 1
+    assert ops.crop_plan(img.data_ptr(), 0, 210, 160,
+                         *window) == ops.CROP_BYTES
+    assert torch.equal(ops.crop(img, *window),
+                       ops.crop(img, *window, backend="reference"))
+
+
+def test_crop_kernel_refuses_a_false_plan(cuda):
+    """The C entry point checks the plan's alignment claim again: a
+    claim that a pointer lacks is an error, not a quiet fallback."""
+    from repro_torch.kernels.build import library
+
+    flat = torch.zeros(1 + 2 * 210 * 160, dtype=torch.uint8, device=cuda)
+    out = torch.empty((2, 160, 160), dtype=torch.uint8, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for path in (ops.CROP_RUNS, ops.CROP_SPANS, ops.CROP_WORDS):
+        assert library().crop_launch(flat.data_ptr() + 1, out.data_ptr(),
+                                     2, 210, 160, 34, 0, 160, 160, path,
+                                     stream) != 0
 
 
 @pytest.mark.parametrize("H,Hkv,D", [(16, 8, 128), (8, 8, 64), (16, 1, 16),

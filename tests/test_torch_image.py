@@ -274,3 +274,63 @@ def test_render_plan_at_the_main_path():
     one wave of 2 blocks of 8 warps an SM."""
     assert ops.render_plan(1024, 132) == (264, 102)
     assert 264 <= 132 * ops.RENDER_BLOCKS_PER_SM
+
+
+def crop_claims_hold(path, img_ptr, out_ptr, h, w, top, left, height,
+                     width):
+    """What ``csrc/image.cu::crop_launch`` needs of each unit, stated
+    on the byte addresses every image's window reads and writes."""
+    if path == ops.CROP_BYTES:
+        return True
+    unit = 4 if path == ops.CROP_WORDS else 16
+    for image in range(3):
+        src = img_ptr + image * h * w + top * w + left
+        dst = out_ptr + image * height * width
+        if path == ops.CROP_RUNS:
+            if left != 0 or width != w or (height * width) % unit:
+                return False
+            starts = [(src, dst)]
+        else:
+            if width % unit:
+                return False
+            starts = [(src + y * w, dst + y * width) for y in range(height)]
+        if any(s % unit or d % unit for s, d in starts):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("img_ptr,out_ptr,window,path", [
+    (0, 0, (34, 0, 160, 160), ops.CROP_RUNS),     # the Pong playfield
+    (4096, 512, (0, 0, 210, 160), ops.CROP_RUNS),  # the whole screen
+    (0, 0, (3, 16, 101, 32), ops.CROP_SPANS),
+    (0, 0, (34, 0, 160, 144), ops.CROP_SPANS),    # not the full width
+    (8, 0, (34, 0, 160, 160), ops.CROP_WORDS),    # 8-byte aligned input
+    (0, 0, (3, 4, 101, 36), ops.CROP_WORDS),
+    (0, 0, (3, 5, 101, 37), ops.CROP_BYTES),
+    (1, 0, (34, 0, 160, 160), ops.CROP_BYTES),    # one byte into a buffer
+    (0, 2, (3, 16, 101, 32), ops.CROP_BYTES),
+])
+def test_crop_plan_paths(img_ptr, out_ptr, window, path):
+    assert ops.crop_plan(img_ptr, out_ptr, 210, 160, *window) == path
+
+
+@pytest.mark.parametrize("h,w,window", [
+    (210, 160, (34, 0, 160, 160)), (210, 160, (3, 16, 101, 32)),
+    (210, 160, (3, 4, 101, 36)), (210, 160, (3, 5, 101, 37)),
+    (7, 84, (1, 0, 4, 84)),       # whole rows, a 336-byte run ...
+    (7, 84, (2, 0, 4, 84)),       # ... 168 bytes past 16-byte alignment
+    (5, 84, (0, 0, 4, 84)),       # 420-byte images: runs drift
+    (9, 48, (0, 0, 9, 48)), (37, 29, (5, 3, 11, 17)),
+])
+def test_crop_plan_never_claims_a_missing_alignment(h, w, window):
+    """Over pointers 0..31 bytes into a buffer, the plan's unit holds for
+    every image's window, and it is the widest that does."""
+    for img_ptr in range(32):
+        for out_ptr in (0, 4, 16, 17):
+            path = ops.crop_plan(img_ptr, out_ptr, h, w, *window)
+            assert crop_claims_hold(path, img_ptr, out_ptr, h, w, *window)
+            wider = [p for p in (ops.CROP_RUNS, ops.CROP_SPANS,
+                                 ops.CROP_WORDS) if p < path]
+            for p in wider:
+                assert not crop_claims_hold(p, img_ptr, out_ptr, h, w,
+                                            *window)
