@@ -49,6 +49,14 @@ Phases, in order; any failure exits non-zero:
      FrameStack, RewardClip), 100 recvs; actions from a numpy seed
      routed by ``env_id``, every async block of distinct ids, five more
      recvs under ``torch.profiler`` for the device time per recv;
+   - training, through ``repro_torch.rl.ppo.train_device``: Ant-v3
+     N=4096 sync (MLP 256-128-64) and PongClassic-v5 N=1024 sync (the
+     Nature-CNN, fc 512), ``PPOConfig``'s defaults (128 steps, 4 epochs
+     of 4 minibatches), f32 without TF32, three iterations each: one to
+     warm up, one timed (env steps/s, frames/s, ms per iteration and
+     the host ms of it spent in the recvs), one under ``torch.profiler``
+     (device busy, idle share, the top three kernel families); losses
+     and params finite, params on the card;
    - the decode server: ``DecodePool.serve`` on qwen3-0.6b at full width
      (28 layers, weights from a seeded generator), 32 lanes, 64
      requests, fifo with continuous admission; then five decode steps
@@ -71,6 +79,11 @@ Phases, in order; any failure exits non-zero:
    N=16 (async M=8) from one key on ``cuda`` and on ``cpu``: ids, done,
    costs equal; Pong obs and reward bitwise, Ant's within 1e-4 (CUDA's
    ``cosf`` and torch's CPU ``cos`` differ by an ulp on some inputs).
+   ``train_device`` at the CPU tests' size (PongClassic-v5 N=4 and
+   Ant-v3 N=8, 8 steps, 2 iterations of 1 epoch of 2 minibatches,
+   hidden (32, 32)): the actions sent equal (Ant's within 1e-4), the
+   same episodes, losses within 1e-4 relative (``pg`` 1e-5 absolute),
+   params within 1e-5.
    ``DecodePool.serve`` on the f32 ``lm-policy`` config (4 lanes, 8
    requests) gives identical token lists, and 16 recvs of the sampled
    LM collect on ``TokenRagged-v0`` N=16/M=8 identical actions, ids and
@@ -715,13 +728,36 @@ def kernel_family(name: str) -> str:
     return f"{base}[{ops[-1]}]" if ops else base
 
 
-def profile_device(fn, count: int, unit: str = "recv") -> dict:
-    """Device time of ``count`` calls of ``fn`` under ``torch.profiler``:
-    the sum of CUDA kernel durations per call, kernels per call, and the
-    six kernel families with the most time.  All None when the profiler
-    sees no device activity."""
-    import torch
+def device_summary(prof, count: int, unit: str) -> dict:
+    """What ``prof`` (a stopped ``torch.profiler.profile``) saw on the
+    card, per ``unit`` over ``count`` units: the sum of CUDA kernel
+    durations, kernels, and the six kernel families with the most time.
+    All None when the profiler saw no device activity.  It reads the raw
+    kineto events: building ``prof.events()`` for a training
+    iteration's half a million kernels took 154 s."""
     from torch.autograd import DeviceType
+
+    kernels = [(e.name(), e.duration_ns() / 1e3)
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    keys = (f"device_busy_ms_per_{unit}", f"kernels_per_{unit}",
+            f"top_kernels_ms_per_{unit}")
+    if not kernels:
+        return dict.fromkeys(keys)
+    by_family: dict[str, float] = {}
+    for name, us in kernels:
+        fam = kernel_family(name)
+        by_family[fam] = by_family.get(fam, 0.0) + us
+    top = sorted(by_family.items(), key=lambda kv: -kv[1])[:6]
+    return dict(zip(keys, (sum(by_family.values()) / 1e3 / count,
+                           len(kernels) / count,
+                           {k: v / 1e3 / count for k, v in top})))
+
+
+def profile_device(fn, count: int, unit: str = "recv") -> dict:
+    """``device_summary`` of ``count`` calls of ``fn`` under
+    ``torch.profiler``."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -730,19 +766,7 @@ def profile_device(fn, count: int, unit: str = "recv") -> dict:
         for _ in range(count):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    keys = (f"device_busy_ms_per_{unit}", f"kernels_per_{unit}",
-            f"top_kernels_ms_per_{unit}")
-    if not kernels:
-        return dict.fromkeys(keys)
-    by_family: dict[str, float] = {}
-    for e in kernels:
-        fam = kernel_family(e.name)
-        by_family[fam] = by_family.get(fam, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_family.items(), key=lambda kv: -kv[1])[:6]
-    return dict(zip(keys, (sum(by_family.values()) / 1e3 / count,
-                           len(kernels) / count,
-                           {k: v / 1e3 / count for k, v in top})))
+    return device_summary(prof, count, unit)
 
 
 def profile_recvs(pool, ps, ts, tables, recvs: int = 5) -> dict:
@@ -811,6 +835,109 @@ def drive_pool(task: str, n: int, m: int | None, schedule: str,
         f"{out['frames_per_s']:.0f} frames/s, "
         f"{out['ms_per_recv']:.2f} ms/recv, device busy {busy} ms/recv, "
         f"launches {launches}")
+    return out
+
+
+def drive_train(task: str, n: int, num_steps: int, path: tuple[str, ...]
+                ) -> dict:
+    """``train_device`` on ``task`` N=n sync with ``PPOConfig``'s defaults
+    (4 epochs of 4 minibatches) at ``num_steps``, the nets at their
+    published widths (Ant: MLP 256-128-64; Pong: the Nature-CNN, fc 512),
+    f32 without TF32, for three iterations: the first warms up, the
+    second is timed, the third runs under ``torch.profiler``.  The
+    launch counts cover the whole call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch
+    from repro_torch.core.xla_loop import frames_per_batch
+    from repro_torch.rl.ppo import PPOConfig, train_device
+    from repro_torch.utils.tree import tree_leaves
+
+    pool = repro_torch.make(task, num_envs=n)
+    iters = 3
+    cfg = PPOConfig(total_steps=iters * num_steps * n, num_steps=num_steps)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    ends = []
+    # host seconds spent inside pool.step (the recvs) in each iteration
+    recv_s = [0.0]
+    step = pool.step
+
+    def timed_step(ps, actions, env_ids):
+        t = time.perf_counter()
+        out = step(ps, actions, env_ids)
+        recv_s[-1] += time.perf_counter() - t
+        return out
+
+    pool.step = timed_step
+
+    def log_fn(rec):
+        # train_device has just read the iteration's metrics, so the card
+        # has finished the iteration
+        ends.append(time.perf_counter())
+        recv_s.append(0.0)
+        if rec["iter"] == 1:
+            prof.start()
+        elif rec["iter"] == 2:
+            torch.cuda.synchronize()
+            prof.stop()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, net, history = train_device(pool, cfg, seed=SEED, log_fn=log_fn)
+    torch.cuda.synchronize()
+    launches = read_counts(f"train {task}", path)
+    updates = iters * cfg.epochs * cfg.minibatches
+    if len(history) != iters or int(state.step) != updates:
+        raise AssertionError(f"train {task}: {len(history)} iterations, "
+                             f"{int(state.step)} updates")
+    for rec in history:
+        bad = [k for k in ("loss", "pg", "vf", "ent", "ratio")
+               if not np.isfinite(rec[k])]
+        if bad:
+            raise AssertionError(f"train {task} iter {rec['iter']}: "
+                                 f"non-finite {bad}")
+    for leaf in tree_leaves(state.params):
+        if leaf.device.type != torch.device(DEV).type \
+                or not bool(torch.isfinite(leaf).all()):
+            raise AssertionError(f"train {task}: params not finite on "
+                                 f"{DEV}")
+    t_prof = time.perf_counter()
+    summary = device_summary(prof, 1, "iter")
+    dt = ends[1] - ends[0]
+    busy = summary["device_busy_ms_per_iter"]
+    out = {"task": task, "num_envs": n, "batch_size": pool.batch_size,
+           "num_steps": num_steps, "epochs": cfg.epochs,
+           "minibatches": cfg.minibatches, "iterations": iters,
+           "net": "nature-cnn" if net.pixel else list(net.hidden),
+           "env_steps_per_s": num_steps * n / dt,
+           "frames_per_s": num_steps * frames_per_batch(pool) / dt,
+           "ms_per_iter": dt * 1e3,
+           "recv_host_ms_per_iter": recv_s[1] * 1e3,
+           "warmup_ms": (ends[0] - t0) * 1e3,
+           "profiled_ms": (ends[2] - ends[1]) * 1e3,
+           "profile_read_s": time.perf_counter() - t_prof,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches,
+           "history": [{k: r[k] for k in ("iter", "loss", "pg", "vf", "ent",
+                                          "ratio", "episodes",
+                                          "mean_return")}
+                       for r in history]}
+    out.update(summary)
+    out["top3_ms_per_iter"] = top3(summary, "iter")
+    out["device_idle_share"] = (None if busy is None
+                                else 1.0 - busy / out["ms_per_iter"])
+    log(f"  train_device {task} N={n} T={num_steps}: "
+        f"{out['env_steps_per_s']:.0f} env steps/s, "
+        f"{out['frames_per_s']:.0f} frames/s, {out['ms_per_iter']:.1f} "
+        f"ms/iter ({out['recv_host_ms_per_iter']:.1f} in the recvs), "
+        f"device busy {busy} ms/iter, idle share "
+        f"{out['device_idle_share']}, top3 {out['top3_ms_per_iter']}, "
+        f"launches {launches}")
+    del state, net, pool
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1244,6 +1371,75 @@ def cross_check_collect(recvs: int = 16) -> None:
         "recvs (actions, ids, dones)")
 
 
+def cross_check_train(task: str, n: int, atol: float | None) -> None:
+    """``train_device`` at the CPU tests' size (N=n sync, 8 steps, hidden
+    (32, 32), 5-step episodes) for 2 iterations of 1 epoch of 2
+    minibatches on the card and on the CPU: the actions each step sent,
+    equal (``atol`` None) or within ``atol``, the same episodes, losses
+    within 1e-4 relative (``pg`` 1e-5 absolute), the final params within
+    1e-5.  TF32 is off, so
+    the card's convs and matmuls are f32 too.
+
+    Four updates, not ``PPOConfig``'s 32: over 32 a ReLU whose input
+    sits at zero can open under one summation order and not another,
+    and from then on Adam moves the weights apart by up to the learning
+    rate a step (scripts/train_sensitivity.py: the CPU's oneDNN and
+    plain convs end 4.65e-4 apart at seed 0, Pong N=4); over four they
+    agree to 1.2e-7 at N = 4 and 8, seeds 0 to 5."""
+    import torch
+
+    import repro_torch
+    from repro_torch.rl.ppo import PPOConfig, train_device
+    from repro_torch.utils.tree import tree_leaves_with_path
+
+    runs = {}
+    for dev in (DEV, "cpu"):
+        pool = repro_torch.make(task, num_envs=n, device=dev,
+                                max_episode_steps=5)
+        acts = []
+        step = pool.step
+
+        def recording_step(ps, actions, env_ids, step=step, acts=acts):
+            acts.append(actions.cpu())
+            return step(ps, actions, env_ids)
+
+        pool.step = recording_step
+        cfg = PPOConfig(total_steps=2 * 8 * n, num_steps=8, epochs=1,
+                        minibatches=2)
+        state, _, history = train_device(pool, cfg, seed=SEED,
+                                         hidden=(32, 32))
+        runs[dev] = (torch.stack(acts), history,
+                     {p: x.cpu() for p, x in
+                      tree_leaves_with_path(state.params)})
+    (g_acts, g_hist, g_par), (c_acts, c_hist, c_par) = runs[DEV], runs["cpu"]
+    if atol is None:
+        ok = torch.equal(g_acts, c_acts)
+    else:
+        ok = torch.allclose(g_acts, c_acts, rtol=0, atol=atol)
+    if not ok:
+        raise AssertionError(f"train {task}: actions differ between cuda "
+                             "and cpu")
+    eps = [r["episodes"] for r in c_hist]
+    if [r["episodes"] for r in g_hist] != eps or sum(eps) == 0:
+        raise AssertionError(f"train {task}: episodes differ between cuda "
+                             "and cpu, or none ended")
+    for g, c in zip(g_hist, c_hist):
+        for k in ("loss", "pg", "vf", "ent", "ratio"):
+            # pg is a mean of terms of size 1 that cancel to 1e-4
+            tol = 1e-5 if k == "pg" else 1e-4 * abs(c[k]) + 1e-6
+            if abs(g[k] - c[k]) > tol:
+                raise AssertionError(f"train {task} iter {c['iter']}: {k} "
+                                     f"{g[k]} on cuda, {c[k]} on cpu")
+    err = max(float((g_par[p] - c_par[p]).abs().max()) for p in c_par)
+    if err > 1e-5:
+        raise AssertionError(f"train {task}: params differ by {err} > 1e-5")
+    log(f"  train_device {task} N={n}, 2 iterations of 1 x 2 minibatches: "
+        "cuda == cpu actions"
+        + (" (bitwise)" if atol is None else f" (within {atol})")
+        + f", episodes {eps}, losses within 1e-4, params within 1e-5 "
+        f"(max abs err {err})")
+
+
 def cross_check_model(arch: str, **overrides) -> None:
     """The f32 smoke config of ``arch``: ``Model.prefill`` with the
     blocked branch (a 100-token prompt filling the cache) and 8 greedy
@@ -1303,8 +1499,10 @@ def main() -> int:
     from repro_torch.kernels.build import library
 
     # the resize plain version and the card-vs-CPU f32 checks need true
-    # f32 matmuls
+    # f32 matmuls, and the train runs f32 convs (cuDNN allows TF32 by
+    # default)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     start = time.perf_counter()
 
@@ -1335,6 +1533,9 @@ def main() -> int:
                    recvs=100, transforms=cropped),
     ]
     log(json.dumps({"pool_runs": runs}))
+    train_runs = [drive_train("Ant-v3", 4096, 128, ant),
+                  drive_train("PongClassic-v5", 1024, 128, pong)]
+    log(json.dumps({"train_runs": train_runs}))
     cfg, pol, params = qwen3_params()
     lm_runs = [drive_serve(cfg, pol, params), drive_collect(cfg, params)]
     del pol, params
@@ -1350,13 +1551,15 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
     log(json.dumps({"model_runs": model_runs}))
-    for r in runs + lm_runs + model_runs:
+    for r in runs + train_runs + lm_runs + model_runs:
         for k, v in r["launches"].items():
             kernels[k]["launches"] += v
 
     log(f"phase 4: the card against the CPU {at()}")
     cross_check("PongClassic-v5", None)
     cross_check("Ant-v3", 1e-4)
+    cross_check_train("PongClassic-v5", 4, None)
+    cross_check_train("Ant-v3", 8, 1e-4)
     cross_check_serve()
     cross_check_collect()
     cross_check_model("qwen3-0.6b")

@@ -11,6 +11,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import random
 from repro_torch.utils.tree import tree_dataclass
 
 
@@ -28,6 +29,21 @@ class ArraySpec:
               device: torch.device | str | None = None) -> torch.Tensor:
         return torch.zeros(leading + self.shape, dtype=self.dtype,
                            device=device)
+
+    def sample(self, key: torch.Tensor, leading: tuple[int, ...] = ()
+               ) -> torch.Tensor:
+        """A uniform draw from the spec on ``key``'s device, bitwise the
+        JAX package's ``sample_jax``: integers in ``[minimum, maximum]``
+        (default ``[0, 1]``), floats in ``[minimum, maximum)`` (default
+        ``[-1, 1)``)."""
+        shape = tuple(leading) + self.shape
+        if not self.dtype.is_floating_point:
+            lo = int(self.minimum) if self.minimum is not None else 0
+            hi = int(self.maximum) if self.maximum is not None else 1
+            return random.randint(key, shape, lo, hi + 1).to(self.dtype)
+        lo = self.minimum if self.minimum is not None else -1.0
+        hi = self.maximum if self.maximum is not None else 1.0
+        return random.uniform(key, shape, lo, hi).to(self.dtype)
 
 
 @dataclasses.dataclass(frozen=True)

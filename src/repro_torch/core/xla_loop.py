@@ -1,0 +1,132 @@
+"""Rollout collection over the device engine (``repro/core/xla_loop.py``).
+
+The JAX package lowers the whole collect loop into one donated-buffer
+``lax.scan``, so the ``PoolState`` stays on the device for the whole
+rollout.  Here the loop is eager: one ``pool.step`` and one policy call
+a step, the state never leaving the card, and the trajectory written
+step by step into tensors allocated once at ``(num_steps, M, ...)``
+(PongClassic-v5's obs at N = 1024 and 128 steps are 3.70 GB of uint8,
+too much to keep as a list and stack afterwards).  ``DeviceEnvPool``'s
+methods return a new ``PoolState`` and never write into the one they
+were given, which stands in for donation, so ``build_collect_fn`` has
+no ``donate`` option.  Capturing a step in a CUDA graph is left to a
+later slice (ROADMAP B, "outside the kernels").
+
+Step ``t`` of a collect draws with ``random.split(key, num_steps)[t]``,
+the key the scan hands its step ``t``.  Only ``DeviceEnvPool`` is
+ported: a host engine (ROADMAP A9) raises, and so does the pipelined
+collect (A10).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from repro_torch import random
+from repro_torch.core.engine import DeviceEnvPool, PoolState
+from repro_torch.core.specs import TimeStep
+from repro_torch.utils.tree import tree_leaves, tree_map
+
+PolicyFn = Callable[[Any, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def check_device_pool(pool: Any) -> DeviceEnvPool:
+    if not isinstance(pool, DeviceEnvPool):
+        raise NotImplementedError(
+            f"{type(pool).__name__}: only the device engine is ported; the "
+            "host engines are not ported yet (ROADMAP A9)")
+    return pool
+
+
+def alloc_steps(num_steps: int, tree: Any) -> Any:
+    """Empty ``(num_steps, *leaf.shape)`` buffers, one a leaf of ``tree``,
+    on the leaf's device and in its dtype."""
+    return tree_map(lambda x: x.new_empty((num_steps,) + tuple(x.shape)),
+                    tree)
+
+
+def write_step(buffers: Any, t: int, tree: Any) -> None:
+    """Copy every leaf of ``tree`` into row ``t`` of its buffer."""
+    for buf, leaf in zip(tree_leaves(buffers), tree_leaves(tree)):
+        buf[t].copy_(leaf)
+
+
+def collect_init(pool: DeviceEnvPool, key: torch.Tensor
+                 ) -> tuple[PoolState, TimeStep]:
+    """``(PoolState, first TimeStep)``: the pool reset from ``key``."""
+    return check_device_pool(pool).reset(key)
+
+
+def build_collect_fn(pool: DeviceEnvPool, policy_fn: PolicyFn,
+                     num_steps: int) -> Callable:
+    """Returns ``collect(ps, policy_params, last_ts, key) -> (ps, last_ts,
+    trajectory, actions)``: ``trajectory`` stacks the ``num_steps``
+    TimeStep blocks the policy acted on (leaves ``(num_steps, M,
+    ...)``), ``actions`` what it returned.  ``policy_fn(params, obs,
+    key) -> actions``."""
+    check_device_pool(pool)
+
+    def collect(ps: PoolState, params: Any, last_ts: TimeStep,
+                key: torch.Tensor):
+        keys = random.split(key, num_steps)
+        traj = alloc_steps(num_steps, last_ts)
+        acts = None
+        ts = last_ts
+        for t in range(num_steps):
+            actions = policy_fn(params, ts.obs, keys[t])
+            if acts is None:
+                acts = alloc_steps(num_steps, actions)
+            write_step(traj, t, ts)
+            acts[t] = actions
+            ps, ts = pool.step(ps, actions, ts.env_id)
+        return ps, ts, traj, acts
+
+    return collect
+
+
+def build_stepwise_collect_fn(pool: DeviceEnvPool, policy_fn: PolicyFn,
+                              num_steps: int) -> Callable:
+    """``build_collect_fn``'s signature and layout, with the served obs
+    copied to the host and back before the policy runs each step: what a
+    driver that keeps the batch on the host pays, the baseline the
+    device-resident loop is measured against."""
+
+    def host_policy(params, obs, key):
+        return policy_fn(params, obs.cpu().to(obs.device), key)
+
+    return build_collect_fn(pool, host_policy, num_steps)
+
+
+def build_pipelined_collect_fn(*args: Any, **kwargs: Any):
+    """The pipelined driver's collect: not ported yet (ROADMAP A10)."""
+    raise NotImplementedError(
+        "build_pipelined_collect_fn (the pipelined driver's collect) is not "
+        "ported yet (ROADMAP A10)")
+
+
+def build_random_collect_fn(pool: DeviceEnvPool, num_steps: int) -> Callable:
+    """Random-action collect loop, the paper's pure-simulation benchmark
+    (§4.1: "randomly sampled actions as inputs"): step ``t`` acts with
+    ``act_spec.sample(keys[t], (M,))``."""
+    spec = pool.spec
+
+    def policy(params, obs, key):
+        del params, obs
+        return spec.act_spec.sample(key, (pool.batch_size,))
+
+    return build_collect_fn(pool, policy, num_steps)
+
+
+def frames_per_batch(pool: DeviceEnvPool) -> int:
+    """Frames produced by one recv: batch_size steps x frameskip (the
+    paper counts Atari FPS with frameskip 4, MuJoCo with 5 substeps)."""
+    return pool.batch_size * pool.spec.min_cost
+
+
+__all__ = [
+    "alloc_steps", "build_collect_fn", "build_pipelined_collect_fn",
+    "build_random_collect_fn", "build_stepwise_collect_fn",
+    "check_device_pool", "collect_init", "frames_per_batch", "write_step",
+]

@@ -3,8 +3,9 @@ histograms with labeled series, JSON snapshot/export
 (``repro/obs/metrics.py``).
 
 One process-local sink the reporting surfaces feed: so far
-``DecodePool``'s ``ServeStats`` (``publish_serve_stats``).  The
-engines' ``stats()`` and PPO adapters come with their slices.
+``DecodePool``'s ``ServeStats`` (``publish_serve_stats``) and the PPO
+history records (``publish_history``).  The engines' ``stats()`` come
+with their slice.
 
 Design notes:
 
@@ -210,10 +211,21 @@ def publish_serve_stats(registry: MetricsRegistry, stats: Any,
     registry.gauge("decode_tokens_per_s").set(stats.tokens_per_s, **labels)
 
 
+def publish_history(registry: MetricsRegistry, rec: dict,
+                    **labels: Any) -> None:
+    """Publish one PPO history record (``rl/ppo.py::_record``): scalar
+    fields as ``ppo_<key>`` gauges plus an iteration counter."""
+    registry.counter("ppo_iterations").inc(1, **labels)
+    for k, v in rec.items():
+        if isinstance(v, (int, float, np.integer, np.floating)):
+            registry.gauge(f"ppo_{k}").set(float(v), **labels)
+
+
 __all__ = [
     "Counter",
     "Gauge",
     "Histogram",
     "MetricsRegistry",
+    "publish_history",
     "publish_serve_stats",
 ]

@@ -6,8 +6,8 @@ lane's key, every Atari emulator frame splits and draws a uniform), so
 the port can only be held against ``repro`` if its draws are the same
 bits as ``jax.random``'s.  This module reproduces the subset the envs
 and the engine and the LM policy call — ``PRNGKey``, ``split``, ``fold_in``,
-``bits``, ``uniform``, ``bernoulli``, ``normal``, ``randint``, ``gumbel``
-and ``categorical`` — for jax's default
+``bits``, ``uniform``, ``bernoulli``, ``normal``, ``randint``, ``gumbel``,
+``categorical`` and the PPO epochs' ``permutation`` — for jax's default
 ``threefry2x32`` implementation with ``jax_threefry_partitionable``
 on (the counter of element ``i`` of a draw of shape ``s`` is the 64-bit
 flat index ``i`` split into (hi, lo) words).
@@ -18,12 +18,12 @@ is masked back to 32 bits.  Leading dims are batch dims: a ``(N, 2)``
 key tensor acts like ``jax.vmap`` over N keys, so ``split(keys, 3)`` is
 ``(N, 3, 2)`` and ``uniform(keys, (8,))`` is ``(N, 8)``.
 
-``split``, ``fold_in``, ``bits``, ``uniform``, ``bernoulli`` and
-``randint`` are bitwise equal to ``jax.random``.  ``normal`` follows
-XLA's f32 ``erf_inv`` polynomial op for op, but its ``log1p`` is
-torch's, and ``gumbel`` rounds a float64 ``log``, so both are held to
-a tolerance (tests/test_torch_random.py); ``categorical``'s samples are
-bitwise on the inputs tested there.
+``split``, ``fold_in``, ``bits``, ``uniform``, ``bernoulli``,
+``randint`` and ``permutation`` are bitwise equal to ``jax.random``.
+``normal`` follows XLA's f32 ``erf_inv`` polynomial op for op, but its
+``log1p`` is torch's, and ``gumbel`` rounds a float64 ``log``, so both
+are held to a tolerance (tests/test_torch_random.py); ``categorical``'s
+samples are bitwise on the inputs tested there.
 
 This is plain tensor code: one draw is some 150 small elementwise ops.
 """
@@ -209,6 +209,26 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(noise + logits, dim=-1)
 
 
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` for one key, as int64 indices.
+
+    jax shuffles ``arange(n)`` by ``ceil(3 ln(max(1, n)) / ln(2^32 - 1))``
+    rounds (0 at n = 1, 1 up to n = 1625, 2 from 1626 to past 2^21); each
+    round splits the key, draws 32 bits an element under the second half
+    and sorts by them.  Equal 32-bit keys keep their order (the sort is
+    stable), which decides the result wherever two of them collide:
+    about 32 pairs at n = 524288."""
+    if key.shape != (2,):
+        raise ValueError(f"permutation takes one key; got {tuple(key.shape)}")
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(MASK32)))
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(bits(sub, (n,)), stable=True).indices
+        x = x.index_select(0, order)
+    return x
+
+
 # XLA's f32 erf_inv (Giles' single-precision approximation), coefficients
 # highest degree first
 _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
@@ -242,5 +262,5 @@ def normal(key: torch.Tensor, shape: tuple[int, ...] = ()) -> torch.Tensor:
 
 __all__ = [
     "PRNGKey", "bernoulli", "bits", "categorical", "fold_in", "gumbel",
-    "normal", "randint", "split", "threefry2x32", "uniform",
+    "normal", "permutation", "randint", "split", "threefry2x32", "uniform",
 ]

@@ -77,6 +77,11 @@ def tree_leaves_with_path(tree: Any, prefix: str = ""
                                          else name)
 
 
+def tree_leaves(tree: Any) -> list[torch.Tensor]:
+    """The tensor leaves of ``tree``, in ``tree_map``'s order."""
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
 def tree_map_with_path(fn: Callable[[str, torch.Tensor], Any], tree: Any,
                        prefix: str = "") -> Any:
     kids = _children(tree)
@@ -112,6 +117,7 @@ def tree_where(mask: torch.Tensor, new: Any, old: Any) -> Any:
 
 
 __all__ = [
-    "lane_mask", "tree_dataclass", "tree_gather", "tree_leaves_with_path",
-    "tree_map", "tree_map_with_path", "tree_scatter", "tree_where",
+    "lane_mask", "tree_dataclass", "tree_gather", "tree_leaves",
+    "tree_leaves_with_path", "tree_map", "tree_map_with_path",
+    "tree_scatter", "tree_where",
 ]

@@ -4,9 +4,10 @@ bf16, and flash attention: within 3e-5 in f32 and 2e-2 in bf16, the
 tolerances of tests/test_kernels.py, since their sums run in another
 order; in bf16 also within ``BF16_EXCESS_TOL`` of the rounding of the
 exact value, ``kernels/flash_attention/ref.py::rounding_excess``), and
-a pool and a decode server on the card against the same on the CPU.
-These need a CUDA device: each test is marked ``gpu`` and skips without
-one.  Run them on the card with
+a pool and a decode server on the card against the same on the CPU,
+and one ``train_device`` iteration on the card through the path's
+kernels.  These need a CUDA device: each test is marked ``gpu`` and
+skips without one.  Run them on the card with
 
     PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
@@ -37,11 +38,13 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     rounding_excess,
 )
 from repro_torch.kernels.image import ops  # noqa: E402
+from repro_torch.rl.ppo import PPOConfig, train_device  # noqa: E402
 from repro_torch.rl.policy_lm import (  # noqa: E402
     LMPolicy,
     default_policy_config,
 )
 from repro_torch.serving import DecodePool  # noqa: E402
+from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -520,3 +523,24 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+@pytest.mark.parametrize("task,kernels", [
+    ("Ant-v3", (env_multi_step,)),
+    ("PongClassic-v5", (ops.pong_render, ops.grayscale, ops.resize)),
+])
+def test_train_device_runs_on_the_card_through_the_kernels(cuda, task,
+                                                           kernels):
+    """One small ``train_device`` iteration on a pool made without a
+    device: it runs on the card, and the path's kernels launch."""
+    before = [k.launches for k in kernels]
+    pool = repro_torch.make(task, num_envs=8, max_episode_steps=5)
+    state, _, history = train_device(
+        pool, PPOConfig(total_steps=8 * 8, num_steps=8), seed=0,
+        hidden=(32, 32))
+    assert len(history) == 1 and history[0]["episodes"] > 0
+    assert all(np.isfinite(history[0][k]) for k in ("loss", "pg", "vf"))
+    for leaf in tree_leaves(state.params):
+        assert leaf.device.type == "cuda" and bool(torch.isfinite(leaf).all())
+    for k, n in zip(kernels, before):
+        assert k.launches > n, k.__name__

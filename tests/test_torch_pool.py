@@ -171,6 +171,15 @@ def test_running_the_port_imports_neither_jax_nor_repro():
         "                    torch.Generator().manual_seed(1))\n"
         "nxt, cache = make_prefill_step(model, 8)(params, batch)\n"
         "make_serve_step(model)(params, cache, {'tokens': nxt[:, None]})\n"
+        "from repro_torch.core.xla_loop import build_random_collect_fn\n"
+        "from repro_torch.rl import PPOConfig, train_device\n"
+        "for task in ('Ant-v3', 'PongClassic-v5'):\n"
+        "    pool = repro_torch.make(task, num_envs=2, device='cpu')\n"
+        "    ps, ts = pool.reset(repro_torch.random.PRNGKey(0))\n"
+        "    build_random_collect_fn(pool, 2)(ps, None, ts,\n"
+        "                                     repro_torch.random.PRNGKey(1))\n"
+        "    train_device(pool, PPOConfig(total_steps=4, num_steps=2,\n"
+        "                                 minibatches=1), hidden=(8,))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
@@ -194,7 +203,9 @@ def test_port_sources_import_neither_jax_nor_repro():
     assert len(files) > 10
     for part in (("models", "api.py"), ("models", "blocked_attention.py"),
                  ("launch", "steps.py"),
-                 ("kernels", "flash_attention", "ops.py")):
+                 ("kernels", "flash_attention", "ops.py"),
+                 ("core", "xla_loop.py"), ("rl", "ppo.py"),
+                 ("rl", "nets.py"), ("optim", "adamw.py")):
         assert os.path.join(ROOT, "src", "repro_torch", *part) in files
     offenders = []
     for path in files:
