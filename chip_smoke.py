@@ -32,7 +32,9 @@ Phases, in order; any failure exits non-zero:
    ``crop_plan`` and a batch one byte into its buffer).  env_step runs
    the sync Ant cell's 4096 lanes and, as a case, the async cell's
    2048; its row also carries ``launch_floor_ms``, a one-element
-   ``add_`` timed alike, what one launch costs.  The decode attention
+   ``add_`` timed alike, what one launch costs; as cases, masked mode's
+   tick (4096 lanes, ``n_sub = 1``, no costs) and AntSkew-v3's depth
+   (4096 lanes, ``n_sub = 21``, costs 5..21).  The decode attention
    and resize rows are also timed cold (``ms_cold``: the same call
    rotated over inputs that exceed the 50 MB L2, the 28 layer views of
    the cache and four grayscale batches, as their callers find them)
@@ -46,9 +48,17 @@ Phases, in order; any failure exits non-zero:
      N=4096/M=2048 async (fifo), PongClassic-v5 N=1024 sync and
      N=1024/M=512 async (sjf), 200 recvs each, and PongClassic-v5
      N=1024 sync with the playfield cropped (Grayscale, Crop, Resize,
-     FrameStack, RewardClip), 100 recvs; actions from a numpy seed
-     routed by ``env_id``, every async block of distinct ids, five more
-     recvs under ``torch.profiler`` for the device time per recv;
+     FrameStack, RewardClip), 100 recvs; the two sync pools again with
+     ``obs=False`` (no counters: the uninstrumented recv, the baseline
+     of the telemetry's cost); ``engine="device-masked"`` Ant-v3
+     N=4096/M=2048 (the tick ablation, 50 recvs, with its ticks per
+     recv), AntSkew-v3 N=4096/M=2048 sjf and AntNorm-v3 N=4096 sync;
+     actions from a numpy seed routed by ``env_id``, every async block
+     of distinct ids, five more recvs under ``torch.profiler`` for the
+     device time per recv; each ``obs=True`` run prints its ``stats()``
+     (occupancy, ``wait_hist``, ``overdue_admits``, ...) and must keep
+     the conservation laws (``served = recvs * M``, ``sum(serves) =
+     served``, ``sum(wait_hist) = served``, ``stepped <= served``);
    - training, through ``repro_torch.rl.ppo.train_device``: Ant-v3
      N=4096 sync (MLP 256-128-64) and PongClassic-v5 N=1024 sync (the
      Nature-CNN, fc 512), ``PPOConfig``'s defaults (128 steps, 4 epochs
@@ -76,9 +86,12 @@ Phases, in order; any failure exits non-zero:
      flash input (``flash_attention.copies``, nor phase 4's model
      checks);
 4. the card against the CPU: 20 recvs of PongClassic-v5 and Ant-v3 at
-   N=16 (async M=8) from one key on ``cuda`` and on ``cpu``: ids, done,
-   costs equal; Pong obs and reward bitwise, Ant's within 1e-4 (CUDA's
-   ``cosf`` and torch's CPU ``cos`` differ by an ulp on some inputs).
+   N=16 (async M=8), masked Ant-v3 (M=8), AntSkew-v3 (M=8, sjf) and
+   AntNorm-v3 (sync) from one key on ``cuda`` and on ``cpu``: ids,
+   done, costs and ``stats()`` equal; Pong obs and reward bitwise,
+   the Ant tasks' within 1e-4 (CUDA's ``cosf`` and torch's CPU ``cos``
+   differ by an ulp on some inputs), AntNorm's normalized obs within
+   1e-3 (its block sums run in another order).
    ``train_device`` at the CPU tests' size (PongClassic-v5 N=4 and
    Ant-v3 N=8, 8 steps, 2 iterations of 1 epoch of 2 minibatches,
    hidden (32, 32)): the actions sent equal (Ant's within 1e-4), the
@@ -341,10 +354,34 @@ def check_kernels() -> dict[str, dict]:
             nbytes=n * (28 * 4 * 2 + 8 * 4 + 4 + 4 + 4),
             ops=ENV_STEP_OPS * float(c.sum()), run=run, run_plain=run_plain,
             case=case, of_bound=True)
+    # the masked tick (n_sub = 1, no costs: every lane one substep) and
+    # AntSkew-v3's depth (n_sub = 21, costs 5..21), 4096 lanes each
+    for case, n_sub, lo in (("tick-4096", 1, None), ("skew-4096", 21, 5)):
+        gen = np.random.default_rng(SEED + 1 + n_sub)
+        s, a, _, r0 = env_inputs(4096, gen, dev)
+        c = None if lo is None else torch.from_numpy(gen.integers(
+            lo, n_sub + 1, 4096).astype(np.int32)).to(dev)
+
+        def run(s=s, a=a, c=c, r0=r0, n_sub=n_sub):
+            return env_ops.env_multi_step(s, a, c, r0, n_sub=n_sub)
+
+        def run_plain(s=s, a=a, c=c, r0=r0, n_sub=n_sub):
+            return env_ops.env_multi_step(s, a, c, r0, n_sub=n_sub,
+                                          backend="reference")
+
+        substeps = 4096 * n_sub if c is None else float(c.sum())
+        row("env_step", "src/repro_torch/csrc/env_step.cu",
+            "src/repro/kernels/env_step/kernel.py:103", run(), run_plain(),
+            nbytes=4096 * (28 * 4 * 2 + 8 * 4 + 4 + 4)
+            + (0 if c is None else 4096 * 4),
+            ops=ENV_STEP_OPS * substeps, run=run, run_plain=run_plain,
+            case=case, of_bound=True)
     one = torch.zeros(1, device=dev)
-    res["env_step"]["launch_floor_ms"] = time_ms(lambda: one.add_(1.0))
-    log(f"  launch floor (a one-element add_): "
-        f"{res['env_step']['launch_floor_ms']:.4f} ms")
+    floor = time_ms(lambda: one.add_(1.0))
+    res["env_step"]["launch_floor_ms"] = floor
+    for c in res["env_step"]["cases"]:
+        c["launch_floor_ms"] = floor
+    log(f"  launch floor (a one-element add_): {floor:.4f} ms")
 
     # pong_render: PongClassic N = 1024 (sync block); ball positions
     # include whole and half grid values, where compares sit on an edge,
@@ -781,15 +818,31 @@ def profile_recvs(pool, ps, ts, tables, recvs: int = 5) -> dict:
     return profile_device(recv, recvs)
 
 
+def check_stats(tag: str, stats: dict, m: int) -> None:
+    """The conservation laws of ``pool.stats()``."""
+    laws = {
+        "served = recvs * M": stats["served"] == stats["recvs"] * m,
+        "sum(serves) = served": int(stats["serves"].sum()) == stats["served"],
+        "sum(wait_hist) = served":
+            int(stats["wait_hist"].sum()) == stats["served"],
+        "0 <= stepped <= served": 0 <= stats["stepped"] <= stats["served"],
+    }
+    broken = [k for k, ok in laws.items() if not ok]
+    if broken:
+        raise AssertionError(f"{tag}: stats() breaks {broken}")
+
+
 def drive_pool(task: str, n: int, m: int | None, schedule: str,
                path: tuple[str, ...], recvs: int = 200,
-               transforms=None) -> dict:
+               transforms=None, obs: bool = True,
+               engine: str = "device") -> dict:
     import torch
 
     import repro_torch
 
     pool = repro_torch.make(task, num_envs=n, batch_size=m,
-                            schedule=schedule, transforms=transforms)
+                            schedule=schedule, transforms=transforms,
+                            obs=obs, engine=engine)
     tables = action_tables(pool, 8, np.random.default_rng(SEED))
     ps, ts = pool.reset(repro_torch.random.PRNGKey(SEED))
     for t in range(10):
@@ -797,6 +850,7 @@ def drive_pool(task: str, n: int, m: int | None, schedule: str,
     torch.cuda.synchronize()
 
     reset_counts()
+    ticks0 = pool.masked_ticks
     ids, costs = [], []
     t0 = time.perf_counter()
     for t in range(recvs):
@@ -806,35 +860,50 @@ def drive_pool(task: str, n: int, m: int | None, schedule: str,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts(task, path)
+    ticks = pool.masked_ticks - ticks0
     ids = torch.stack(ids)
     block = pool.batch_size
     srt = ids.sort(dim=1).values
     if bool((srt[:, 1:] == srt[:, :-1]).any()):
         raise AssertionError(f"{task}: a block holds a repeated env_id")
-    obs = ts.obs
+    last = ts.obs
     want = (block,) + pool.spec.obs_spec.shape
-    if tuple(obs.shape) != want or obs.dtype != pool.spec.obs_spec.dtype:
-        raise AssertionError(f"{task}: obs {tuple(obs.shape)} {obs.dtype}, "
-                             f"want {want}")
-    if obs.dtype.is_floating_point and not bool(torch.isfinite(obs).all()):
+    if tuple(last.shape) != want or last.dtype != pool.spec.obs_spec.dtype:
+        raise AssertionError(f"{task}: obs {tuple(last.shape)} "
+                             f"{last.dtype}, want {want}")
+    if last.dtype.is_floating_point and not bool(
+            torch.isfinite(last).all()):
         raise AssertionError(f"{task}: non-finite obs")
     steps = recvs * block
     frames = int(torch.stack(costs).sum())
     out = {"task": task, "num_envs": n, "batch_size": block,
+           "engine": engine, "obs": obs,
            "transforms": [t.name for t in pool.pipeline.transforms],
            "schedule": schedule, "recvs": recvs, "seconds": dt,
            "env_steps_per_s": steps / dt, "frames_per_s": frames / dt,
            "ms_per_recv": dt / recvs * 1e3, "launches": launches}
+    if engine == "device-masked":
+        out["ticks_per_recv"] = ticks / recvs
+    if obs:
+        stats = pool.stats(ps)
+        check_stats(task, stats, block)
+        out["stats"] = {k: stats[k] for k in (
+            "recvs", "served", "stepped", "occupancy", "cost_sum",
+            "overdue_admits", "wait_ticks_total")}
+        out["stats"]["wait_hist"] = stats["wait_hist"].tolist()
     out.update(profile_recvs(pool, ps, ts, tables))
     busy = out["device_busy_ms_per_recv"]
     out["device_idle_share"] = (None if busy is None
                                 else 1.0 - busy / out["ms_per_recv"])
-    log(f"  {task} N={n} M={block} {schedule} "
+    log(f"  {task} N={n} M={block} {engine} {schedule} obs={obs} "
         f"{out['transforms']}: "
         f"{out['env_steps_per_s']:.0f} env steps/s, "
         f"{out['frames_per_s']:.0f} frames/s, "
         f"{out['ms_per_recv']:.2f} ms/recv, device busy {busy} ms/recv, "
-        f"launches {launches}")
+        f"launches {launches}"
+        + (f", {out['ticks_per_recv']:.2f} ticks/recv"
+           if "ticks_per_recv" in out else "")
+        + (f"; stats {out['stats']}" if obs else ""))
     return out
 
 
@@ -1266,14 +1335,19 @@ def drive_model_serve(model, params, batch: int, prompt: int,
 # ---------------------------------------------------------------------- #
 # phase 4: the card against the CPU
 # ---------------------------------------------------------------------- #
-def cross_check(task: str, atol: float | None) -> None:
+def cross_check(task: str, atol: float | None, batch_size: int | None = 8,
+                engine: str = "device", schedule: str = "fifo") -> None:
+    """20 recvs of ``task`` N=16 on the card and on the CPU from one key:
+    ids, done and costs equal, obs and reward bitwise (``atol`` None) or
+    within ``atol``, and ``stats()`` bitwise."""
     import torch
 
     import repro_torch
 
-    runs = {}
+    runs, stats = {}, {}
     for dev in ("cuda", "cpu"):
-        pool = repro_torch.make(task, num_envs=16, batch_size=8,
+        pool = repro_torch.make(task, num_envs=16, batch_size=batch_size,
+                                engine=engine, schedule=schedule,
                                 device=dev, max_episode_steps=7)
         tables = [t.cpu() for t in action_tables(
             pool, 20, np.random.default_rng(SEED + 1))]
@@ -1285,10 +1359,16 @@ def cross_check(task: str, atol: float | None) -> None:
             rec.append({k: getattr(ts, k).cpu() for k in
                         ("env_id", "done", "step_cost", "reward", "obs")})
         runs[dev] = rec
+        stats[dev] = pool.stats(ps)
+    tag = f"{task} {engine} M={batch_size} {schedule}"
+    check_stats(tag, stats["cuda"], runs["cpu"][0]["env_id"].numel())
+    for k, v in stats["cpu"].items():
+        if not np.array_equal(stats["cuda"][k], v):
+            raise AssertionError(f"{tag}: stats()[{k!r}] differs")
     for t, (g, c) in enumerate(zip(runs["cuda"], runs["cpu"])):
         for k in ("env_id", "done", "step_cost"):
             if not torch.equal(g[k], c[k]):
-                raise AssertionError(f"{task} recv {t}: {k} differs")
+                raise AssertionError(f"{tag} recv {t}: {k} differs")
         for k in ("reward", "obs"):
             if atol is None:
                 ok = torch.equal(g[k], c[k])
@@ -1296,9 +1376,9 @@ def cross_check(task: str, atol: float | None) -> None:
                 ok = torch.allclose(g[k], c[k], rtol=0, atol=atol)
             if not ok:
                 err = float((g[k].float() - c[k].float()).abs().max())
-                raise AssertionError(f"{task} recv {t}: {k} differs, max "
+                raise AssertionError(f"{tag} recv {t}: {k} differs, max "
                                      f"abs err {err}")
-    log(f"  {task}: cuda == cpu over 20 recvs"
+    log(f"  {tag}: cuda == cpu over 20 recvs, stats() bitwise"
         + (" (bitwise)" if atol is None else f" (obs, reward within {atol})"))
 
 
@@ -1526,11 +1606,17 @@ def main() -> int:
                repro_torch.RewardClip()]
     runs = [
         drive_pool("Ant-v3", 4096, None, "fifo", ant),
+        drive_pool("Ant-v3", 4096, None, "fifo", ant, obs=False),
         drive_pool("Ant-v3", 4096, 2048, "fifo", ant),
         drive_pool("PongClassic-v5", 1024, None, "fifo", pong),
+        drive_pool("PongClassic-v5", 1024, None, "fifo", pong, obs=False),
         drive_pool("PongClassic-v5", 1024, 512, "sjf", pong),
         drive_pool("PongClassic-v5", 1024, None, "fifo", pong + ("crop",),
                    recvs=100, transforms=cropped),
+        drive_pool("Ant-v3", 4096, 2048, "fifo", ant, recvs=50,
+                   engine="device-masked"),
+        drive_pool("AntSkew-v3", 4096, 2048, "sjf", ant),
+        drive_pool("AntNorm-v3", 4096, None, "fifo", ant),
     ]
     log(json.dumps({"pool_runs": runs}))
     train_runs = [drive_train("Ant-v3", 4096, 128, ant),
@@ -1558,6 +1644,9 @@ def main() -> int:
     log(f"phase 4: the card against the CPU {at()}")
     cross_check("PongClassic-v5", None)
     cross_check("Ant-v3", 1e-4)
+    cross_check("Ant-v3", 1e-4, engine="device-masked")
+    cross_check("AntSkew-v3", 1e-4, schedule="sjf")
+    cross_check("AntNorm-v3", 1e-3, batch_size=None)
     cross_check_train("PongClassic-v5", 4, None)
     cross_check_train("Ant-v3", 8, 1e-4)
     cross_check_serve()

@@ -14,8 +14,11 @@ from repro_torch import random
 from repro_torch.core.registry import list_envs, make
 from repro_torch.core.transforms import (
     Crop,
+    EpisodicLife,
     FrameStack,
     Grayscale,
+    NormalizeObs,
+    ObsCast,
     Resize,
     RewardClip,
     Transform,
@@ -24,6 +27,7 @@ from repro_torch.core.transforms import (
 __version__ = "0.1.0"
 
 __all__ = [
-    "Crop", "FrameStack", "Grayscale", "Resize", "RewardClip", "Transform",
-    "list_envs", "make", "random",
+    "Crop", "EpisodicLife", "FrameStack", "Grayscale", "NormalizeObs",
+    "ObsCast", "Resize", "RewardClip", "Transform", "list_envs", "make",
+    "random",
 ]

@@ -1,0 +1,145 @@
+"""Atomic, asynchronous checkpoints (``repro/checkpoint/store.py``), in
+the JAX package's file layout so that a checkpoint crosses between the
+two packages in either direction:
+
+  * a checkpoint is a directory ``step_<n>/`` holding one ``.npy`` per
+    tensor leaf and ``meta.json``;
+  * a leaf's file is named by its path joined with ``__``, each part as
+    ``jax.tree_util`` prints it: a dict key or a sequence index as is, a
+    dataclass field as ``.name`` (``0__mean`` for NormalizeObs's running
+    mean in a transform-state tuple);
+  * a write goes to ``step_<n>.tmp/`` and is renamed when complete, so a
+    crash mid-write never leaves a partial ``step_<n>``; the oldest
+    steps beyond ``keep`` are then removed;
+  * ``save_async`` copies the leaves to host memory at once and writes
+    them on a daemon thread.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import re
+import shutil
+import threading
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+_SEP = "__"
+
+
+def _map_with_key(fn: Callable[[str, torch.Tensor], Any], tree: Any,
+                  key: str | None = None) -> Any:
+    """``tree`` with each tensor leaf replaced by ``fn(file key, leaf)``."""
+    def sub(part: str, v: Any) -> Any:
+        return _map_with_key(fn, v, part if key is None
+                             else key + _SEP + part)
+
+    if isinstance(tree, torch.Tensor):
+        return fn(key, tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: sub("." + f.name, getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, (tuple, list)):
+        return type(tree)([sub(str(i), v) for i, v in enumerate(tree)])
+    if isinstance(tree, dict):
+        return {k: sub(str(k), v) for k, v in tree.items()}
+    return tree
+
+
+def _flatten(tree: Any) -> dict[str, np.ndarray]:
+    flat: dict[str, np.ndarray] = {}
+
+    def put(key: str, leaf: torch.Tensor) -> torch.Tensor:
+        flat[key] = leaf.detach().cpu().numpy()
+        return leaf
+
+    _map_with_key(put, tree)
+    return flat
+
+
+class CheckpointStore:
+    """Checkpoints under ``directory``, the newest ``keep`` kept."""
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.dir = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._thread: threading.Thread | None = None
+
+    def steps(self) -> list[int]:
+        return sorted(int(m.group(1)) for m in (
+            re.fullmatch(r"step_(\d+)", name) for name in os.listdir(self.dir))
+            if m)
+
+    def latest_step(self) -> int | None:
+        s = self.steps()
+        return s[-1] if s else None
+
+    def save(self, step: int, tree: Any, meta: dict | None = None) -> str:
+        """Write ``tree`` at ``step`` now; a step already on disk stays."""
+        self.wait()  # never race a pending write
+        if step in self.steps():
+            return os.path.join(self.dir, f"step_{step}")
+        return self._write(step, _flatten(tree), meta or {})
+
+    def save_async(self, step: int, tree: Any, meta: dict | None = None
+                   ) -> None:
+        """Copy ``tree`` to the host now, write it on a thread."""
+        self.wait()
+        flat = _flatten(tree)
+        self._thread = threading.Thread(
+            target=self._write, args=(step, flat, meta or {}), daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _write(self, step: int, flat: dict[str, np.ndarray], meta: dict
+               ) -> str:
+        final = os.path.join(self.dir, f"step_{step}")
+        tmp = final + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        for key, arr in flat.items():
+            np.save(os.path.join(tmp, key + ".npy"), arr)
+        meta = dict(meta, step=step, time=time.time(), n_leaves=len(flat))
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)              # the atomic commit
+        steps = self.steps()
+        for s in steps[: max(0, len(steps) - self.keep)]:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s}"),
+                          ignore_errors=True)
+        return final
+
+    def restore(self, step: int, like: Any) -> Any:
+        """The tree saved at ``step``, in the structure of ``like``, each
+        leaf in its ``like`` leaf's dtype and on its device."""
+        d = os.path.join(self.dir, f"step_{step}")
+
+        def load(key: str, leaf: torch.Tensor) -> torch.Tensor:
+            arr = np.load(os.path.join(d, key + ".npy"))
+            if arr.dtype == np.uint32:   # JAX keys; torch keeps them int64
+                arr = arr.astype(np.int64)
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(
+                dtype=leaf.dtype, device=leaf.device)
+
+        return _map_with_key(load, like)
+
+    def meta(self, step: int) -> dict:
+        with open(os.path.join(self.dir, f"step_{step}", "meta.json")) as f:
+            return json.load(f)
+
+
+__all__ = ["CheckpointStore"]

@@ -5,8 +5,15 @@ EnvPool's send/recv over N env lanes that live on one device.
 ``MeshEnvPool``: no mesh and no shard dim, the same per-recv program.
 ``batch_size == num_envs`` is sync mode (every recv steps all N, the
 block in priority order); smaller is async (top-M under the pool's
-``schedule``).  All methods are functions of ``PoolState``: they return
-a new state and never write into the one they were given.
+``schedule``).  ``mode="masked"`` is the event-driven tick ablation:
+every busy lane advances one substep a tick until M results are READY.
+All methods are functions of ``PoolState``: they return a new state and
+never write into the one they were given.
+
+``obs=True`` (the default, as in the JAX package) carries the engine's
+counters (``obs/telemetry.py``) on ``PoolState.telemetry``, updated on
+the card inside recv and read on the host only by ``stats(ps)``;
+``obs=False`` leaves them out, and the recv is the uninstrumented one.
 
 Per-env init keys come from ``derive_env_keys``, the formula every
 engine of the JAX package shares, so the same key gives the same
@@ -31,12 +38,20 @@ from repro_torch.core.specs import TimeStep
 from repro_torch.core.transforms import TransformPipeline
 from repro_torch.envs.base import Environment
 from repro_torch.envs.batch import as_batch_env
+from repro_torch.obs.telemetry import (
+    PER_SHARD_FIELDS,
+    init_telemetry,
+    record_finished,
+    record_serve,
+    snapshot_device,
+)
 from repro_torch.utils.tree import (
     tree_dataclass,
     tree_gather,
     tree_leaves_with_path,
     tree_map_with_path,
     tree_scatter,
+    tree_where,
 )
 
 
@@ -70,9 +85,7 @@ class PoolState:
     tick: torch.Tensor         # () int32 recv counter
     rng: torch.Tensor          # (2,) key
     tf_state: Any = ()         # one entry per transform
-
-
-_NOT_PORTED = "not ported yet (ROADMAP {}): engine='device' only"
+    telemetry: Any = ()        # Telemetry when the pool has obs=True
 
 
 class DeviceEnvPool:
@@ -82,15 +95,13 @@ class DeviceEnvPool:
     def __init__(self, env: Environment, num_envs: int,
                  batch_size: int | None = None, mode: str | None = None,
                  batched: bool | None = None, schedule: str = "fifo",
-                 transforms: Any = (), device: torch.device | str = "cuda"):
+                 transforms: Any = (), obs: bool = True,
+                 device: torch.device | str = "cuda"):
         if batch_size is None:
             batch_size = num_envs
         if mode is None:
             mode = "sync" if batch_size == num_envs else "async"
-        if mode == "masked":
-            raise NotImplementedError(
-                "mode='masked' is " + _NOT_PORTED.format("A8"))
-        if mode not in ("sync", "async"):
+        if mode not in ("sync", "async", "masked"):
             raise ValueError(f"unknown mode {mode!r}")
         if batch_size > num_envs:
             raise ValueError("batch_size cannot exceed num_envs")
@@ -101,6 +112,10 @@ class DeviceEnvPool:
         self.num_envs = int(num_envs)
         self.batch_size = int(batch_size)
         self.mode = mode
+        self.obs = bool(obs)
+        # masked mode: ticks run so far, counted on the host (the tick
+        # loop's condition is read there anyway)
+        self.masked_ticks = 0
         self.scheduler = get_scheduler(schedule)
         self.pipeline = TransformPipeline(transforms, env.spec)
         # batched=False: the generic adapter (the A/B baseline), as in the
@@ -141,6 +156,7 @@ class DeviceEnvPool:
             # the JAX package gives each of its D shards split(rng, D)[d]
             rng=random.split(rng.to(dev), 1)[0],
             tf_state=self.pipeline.init(n, dev),
+            telemetry=init_telemetry(n, dev) if self.obs else (),
         )
 
     def init(self, key: torch.Tensor) -> PoolState:
@@ -174,10 +190,32 @@ class DeviceEnvPool:
             progress=ps.progress.index_fill(0, ids, 0),
         )
 
-    def recv(self, ps: PoolState) -> tuple[PoolState, TimeStep]:
-        """The next block of M results."""
-        idx = self.scheduler.select(self._sched_view(ps), self.batch_size)
+    def _serve(self, ps: PoolState, ids: torch.Tensor, out: TimeStep
+               ) -> tuple[PoolState, TimeStep]:
+        """The transform pipeline over one served raw block, lanes ``ids``
+        (stored r_* results stay raw, so both recv flavours serve the
+        same stream)."""
+        if not self.pipeline:
+            return ps, out
+        blk, out = self.pipeline.apply(
+            self.pipeline.gather(ps.tf_state, ids), out)
+        return ps.replace(tf_state=self.pipeline.scatter(
+            ps.tf_state, ids, blk)), out
+
+    def _recv_topm(self, ps: PoolState) -> tuple[PoolState, TimeStep]:
+        full_block = self.batch_size == self.num_envs
+        if self.obs:
+            idx, overdue = self.scheduler.select_info(self._sched_view(ps),
+                                                      self.batch_size)
+        else:
+            idx = self.scheduler.select(self._sched_view(ps),
+                                        self.batch_size)
         ids = idx.long()
+        if self.obs:
+            # ticks waited, read before ``complete`` advances the tick; a
+            # full block keeps it in lane order (record_serve's fast path)
+            wait = ps.tick - (ps.send_tick if full_block
+                              else ps.send_tick.index_select(0, ids))
         sel_states = tree_gather(ps.env_states, ids)
         need_step = ps.phase.index_select(0, ids) == HAS_ACTION
 
@@ -218,13 +256,102 @@ class DeviceEnvPool:
             r_cost=ps.r_cost.index_copy(0, ids, out.step_cost),
             tick=ss.tick,
         )
-        # stored r_* results stay raw; the pipeline runs at serve time
-        if not self.pipeline:
-            return ps, out
-        blk, out = self.pipeline.apply(
-            self.pipeline.gather(ps.tf_state, ids), out)
-        return ps.replace(tf_state=self.pipeline.scatter(
-            ps.tf_state, ids, blk)), out
+        if self.obs:
+            ps = ps.replace(telemetry=record_serve(
+                ps.telemetry, idx, wait, need_step, out.step_cost, overdue,
+                full_block=full_block))
+        return self._serve(ps, ids, out)
+
+    # ------------------------------------------------------------------ #
+    # masked (event-driven tick) mode
+    # ------------------------------------------------------------------ #
+    def _tick(self, ps: PoolState) -> PoolState:
+        """Advance every HAS_ACTION lane one substep; idle lanes are
+        masked.  Pre-step, the substep and finalize (auto-reset draws
+        included) run over all N lanes, as in the JAX package, so the
+        streams stay the same."""
+        busy = ps.phase == HAS_ACTION
+        starting = busy & (ps.progress == 0)
+        # clear the step's accumulators as it starts
+        states = tree_where(starting, self.benv.v_pre_step(ps.env_states),
+                            ps.env_states)
+        stepped = self.benv.v_substep(states, ps.actions)
+        running = busy & (ps.progress < ps.cost)
+        states = tree_where(running, stepped, states)
+        progress = torch.where(running, ps.progress + 1, ps.progress)
+        finished = busy & (progress >= ps.cost)
+
+        fin_states, fin_ts = self.benv.v_finalize(states, ps.cost)
+        new = ps.replace(
+            env_states=tree_where(finished, fin_states, states),
+            progress=progress,
+            phase=torch.where(finished, READY, ps.phase),
+            send_tick=torch.where(finished, ps.tick, ps.send_tick),
+            r_reward=torch.where(finished, fin_ts.reward, ps.r_reward),
+            r_done=torch.where(finished, fin_ts.done, ps.r_done),
+            r_term=torch.where(finished, fin_ts.terminated, ps.r_term),
+            r_trunc=torch.where(finished, fin_ts.truncated, ps.r_trunc),
+            r_ep_return=torch.where(finished, fin_ts.episode_return,
+                                    ps.r_ep_return),
+            r_ep_length=torch.where(finished, fin_ts.episode_length,
+                                    ps.r_ep_length),
+            r_cost=torch.where(finished, ps.cost, ps.r_cost),
+        )
+        if self.obs:
+            # the substeps belong to the tick that finished the work; the
+            # serve is recorded at recv with no stepped lanes
+            new = new.replace(telemetry=record_finished(ps.telemetry,
+                                                        finished, ps.cost))
+        return new
+
+    def _recv_masked(self, ps: PoolState) -> tuple[PoolState, TimeStep]:
+        """Tick until M results are READY, then serve them in completion
+        order.  The JAX package runs the loop on the device
+        (``lax.while_loop``); here it is a host loop whose condition is
+        one device-to-host read a tick."""
+        m = self.batch_size
+        while True:
+            ready, busy = torch.stack([(ps.phase == READY).sum(),
+                                       (ps.phase == HAS_ACTION).sum()
+                                       ]).tolist()
+            if ready >= m:
+                break
+            if busy == 0:
+                raise RuntimeError(
+                    f"masked recv: {ready} results READY and no lane has an "
+                    f"action, so {m} can never be served; send actions "
+                    "for the ids of the last block first")
+            ps = self._tick(ps)
+            self.masked_ticks += 1
+        idx = self.scheduler.select_ready(self._sched_view(ps), m)
+        ids = idx.long()
+        out = TimeStep(
+            obs=self.benv.v_observe(tree_gather(ps.env_states, ids)),
+            reward=ps.r_reward.index_select(0, ids),
+            done=ps.r_done.index_select(0, ids),
+            terminated=ps.r_term.index_select(0, ids),
+            truncated=ps.r_trunc.index_select(0, ids),
+            env_id=idx,
+            episode_return=ps.r_ep_return.index_select(0, ids),
+            episode_length=ps.r_ep_length.index_select(0, ids),
+            step_cost=ps.r_cost.index_select(0, ids),
+        )
+        ss = self.scheduler.complete(self._sched_view(ps), idx)
+        if self.obs:
+            # waited since the step completed (``_tick`` stamps send_tick)
+            wait = ps.tick - ps.send_tick.index_select(0, ids)
+            no = torch.zeros_like(idx)
+            tele = record_serve(ps.telemetry, idx, wait, no.bool(), no,
+                                no.new_zeros(()))
+            ps = ps.replace(telemetry=tele)
+        ps = ps.replace(phase=ss.phase, tick=ss.tick)
+        return self._serve(ps, ids, out)
+
+    def recv(self, ps: PoolState) -> tuple[PoolState, TimeStep]:
+        """The next block of M results."""
+        if self.mode == "masked":
+            return self._recv_masked(ps)
+        return self._recv_topm(ps)
 
     def step(self, ps: PoolState, actions: Any, env_ids: Any
              ) -> tuple[PoolState, TimeStep]:
@@ -232,33 +359,75 @@ class DeviceEnvPool:
         return self.recv(self.send(ps, actions, env_ids))
 
     def stats(self, ps: PoolState) -> dict:
-        raise NotImplementedError(
-            "pool.stats() (engine telemetry) is " + _NOT_PORTED.format("A6"))
+        """The host snapshot of the engine's counters (``obs/telemetry.
+        py::format_stats``): the only point where they leave the card."""
+        if not self.obs:
+            raise RuntimeError(
+                "telemetry disabled: pool was constructed with obs=False")
+        return snapshot_device(ps.telemetry, ps.tick)
+
+    def xla(self, seed: int = 0, key: torch.Tensor | None = None):
+        """``(handle, recv, send, step)``, EnvPool's ``env.xla()``: the
+        handle is the state initialised from ``key``, else from
+        ``PRNGKey(seed)``; the others are the pool's own functions of it
+        (eager; the JAX package returns them jitted)."""
+        handle = self.init(random.PRNGKey(seed) if key is None else key)
+        return handle, self.recv, self.send, self.step
+
+    # ------------------------------------------------------------------ #
+    # transform-state checkpoints
+    # ------------------------------------------------------------------ #
+    def save_transform_state(self, store, step: int, ps: PoolState,
+                             meta: dict | None = None) -> str:
+        """Save ``ps.tf_state`` (e.g. ``NormalizeObs``'s running moments)
+        through ``checkpoint/store.py``, in the JAX package's canonical
+        form: per-lane entries with their N rows, global entries without
+        a shard dim (the port has none)."""
+        return store.save(step, ps.tf_state, meta or {})
+
+    def restore_transform_state(self, store, step: int, ps: PoolState
+                                ) -> PoolState:
+        """``ps`` with the transform state saved at ``step``, e.g. by the
+        JAX package's pool at any mesh size."""
+        return ps.replace(tf_state=store.restore(step, ps.tf_state))
 
 
 # ---------------------------------------------------------------------- #
 # carrying a PoolState across packages
 # ---------------------------------------------------------------------- #
-_SHARD_DIM_FIELDS = ("tick", "rng")
+def _shard_dim_paths(pool: DeviceEnvPool) -> tuple[str, ...]:
+    """Path prefixes of the leaves the JAX package carries with a leading
+    shard dim of 1: the recv tick, the rng, the counters that are not per
+    lane and the global (not per-lane) transform entries."""
+    return ("tick", "rng",
+            *(f"telemetry.{f}" for f in PER_SHARD_FIELDS),
+            *(f"tf_state.{i}" for i, t in enumerate(pool.pipeline.transforms)
+              if not t.per_lane))
+
+
+def _has_shard_dim(path: str, prefixes: tuple[str, ...]) -> bool:
+    return any(path == p or path.startswith(p + ".") for p in prefixes)
 
 
 def pool_state_from_numpy(pool: DeviceEnvPool, arrays: dict[str, Any]
                           ) -> PoolState:
     """A ``PoolState`` on the pool's device from numpy arrays keyed by
-    field path (``env_states.pos``, ``tf_state.0.buf``, ...), e.g. the
-    leaves of the JAX package's ``PoolState`` through ``np.asarray``.
-    ``tick``/``rng`` may carry the JAX package's leading shard dim of 1;
-    uint32 keys become int64."""
+    field path (``env_states.pos``, ``tf_state.0.buf``,
+    ``telemetry.serves``, ...), e.g. the leaves of the JAX package's
+    ``PoolState`` through ``np.asarray``.  The leaves of
+    ``_shard_dim_paths`` may carry the JAX package's leading shard dim of
+    1; uint32 keys become int64."""
     template = pool.init(random.PRNGKey(0))
     want = {p for p, _ in tree_leaves_with_path(template)}
     have = set(arrays)
     if have != want:
         raise KeyError(f"field paths differ: missing {sorted(want - have)}, "
                        f"unexpected {sorted(have - want)}")
+    sharded = _shard_dim_paths(pool)
 
     def load(path: str, like: torch.Tensor) -> torch.Tensor:
         arr = np.asarray(arrays[path])
-        if path in _SHARD_DIM_FIELDS and arr.ndim == like.ndim + 1:
+        if _has_shard_dim(path, sharded) and arr.ndim == like.ndim + 1:
             arr = arr[0]
         if arr.shape != tuple(like.shape):
             raise ValueError(f"{path}: shape {arr.shape}, want "
@@ -270,15 +439,17 @@ def pool_state_from_numpy(pool: DeviceEnvPool, arrays: dict[str, Any]
     return tree_map_with_path(load, template)
 
 
-def pool_state_to_numpy(ps: PoolState) -> dict[str, np.ndarray]:
+def pool_state_to_numpy(pool: DeviceEnvPool, ps: PoolState
+                        ) -> dict[str, np.ndarray]:
     """The inverse of ``pool_state_from_numpy``, in the JAX package's
-    layout: keys as uint32, ``tick``/``rng`` with a shard dim of 1."""
+    layout: keys as uint32, ``_shard_dim_paths`` with a shard dim of 1."""
+    sharded = _shard_dim_paths(pool)
     out = {}
     for path, leaf in tree_leaves_with_path(ps):
         arr = leaf.detach().cpu().numpy()
         if leaf.dtype == torch.int64:
             arr = arr.astype(np.uint32)
-        if path in _SHARD_DIM_FIELDS:
+        if _has_shard_dim(path, sharded):
             arr = arr[None]
         out[path] = arr
     return out

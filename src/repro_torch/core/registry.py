@@ -8,8 +8,12 @@
     pool = make("TokenRagged-v0", num_envs=256, batch_size=128,
                 vocab=151936)                            # env_kwargs
 
-Only the device engine is ported; the other engines, the masked mode
-and telemetry raise ``NotImplementedError`` naming their ROADMAP item.
+    pool = make("Ant-v3", num_envs=4096, batch_size=2048,
+                engine="device-masked")                  # tick ablation
+
+The device engine is ported, with its masked (tick) mode and its
+telemetry (``obs=True``, ``pool.stats()``); the host and sharded engines
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from repro_torch.core.engine import DeviceEnvPool
 from repro_torch.core.transforms import (
     FrameStack,
     Grayscale,
+    NormalizeObs,
     Resize,
     RewardClip,
     Transform,
@@ -29,12 +34,13 @@ from repro_torch.core.transforms import (
 )
 from repro_torch.envs.atari_like import AtariLike
 from repro_torch.envs.base import Environment
+from repro_torch.envs.classic import CartPole, MountainCar, Pendulum
 from repro_torch.envs.mujoco_like import MujocoLike
 from repro_torch.envs.token_env import TokenEnv
 
 # engine -> the ROADMAP item that ports it
 _LATER_ENGINES = {
-    "device-masked": "A8", "device-sharded": "A12",
+    "device-sharded": "A12",
     "thread": "A9", "forloop": "A9", "subprocess": "A9",
 }
 
@@ -53,10 +59,20 @@ def _token_ragged(**kw: Any) -> TokenEnv:
     return TokenEnv(**{"short_frac": 0.75, "len_scale": 4, **kw})
 
 
+def _ant_skew(**kw: Any) -> MujocoLike:
+    # long-tail solver cost: a quarter of episodes run 4x the iterations
+    return MujocoLike(**{"heavy_frac": 0.25, "heavy_iters": 4, **kw})
+
+
 def _registry() -> dict[str, tuple[Callable[..., Environment],
                                    tuple[Transform, ...]]]:
     """task -> (env factory, default transform pipeline)."""
     return {
+        "CartPole-v1": (CartPole, ()),
+        "MountainCar-v0": (MountainCar, ()),
+        "Pendulum-v1": (Pendulum, ()),
+        "AntNorm-v3": (MujocoLike, (NormalizeObs(),)),
+        "AntSkew-v3": (_ant_skew, ()),
         "Ant-v3": (MujocoLike, ()),
         "MujocoLike-Ant-v3": (MujocoLike, ()),
         "Pong-v5": (AtariLike, (FrameStack(4),)),
@@ -92,16 +108,18 @@ def make(task_id: str, num_envs: int, batch_size: int | None = None,
          num_shards: int | None = None, mesh: Any = None, seed: int = 0,
          batched: bool | None = None, schedule: str = "fifo",
          sched_patience: float = 1.0, cost_ema_alpha: float = 1.0,
-         transforms: Any = None, obs: bool = False,
+         transforms: Any = None, obs: bool = True,
          device: torch.device | str | None = None,
          **env_kwargs: Any) -> DeviceEnvPool:
     """Create a device env pool on ``device`` (default ``cuda``, which
     must be present: there is no quiet fallback to the CPU).
 
     The keywords are ``repro.make``'s, by the same names and defaults,
-    bar ``obs`` (engine telemetry, not ported yet: ROADMAP A6) and the
-    added ``device``.  ``batch_size`` None or ``num_envs`` is sync mode,
-    smaller is async under ``schedule`` (``fifo`` or ``sjf``).
+    and the added ``device``.  ``engine="device"``: ``batch_size`` None
+    or ``num_envs`` is sync mode, smaller is async under ``schedule``
+    (``fifo`` or ``sjf``); ``engine="device-masked"`` is the tick
+    ablation.  ``obs`` (default True) keeps the engine's counters for
+    ``pool.stats()``; False leaves them out.
     ``batched`` None (or True) takes the env's native batched view,
     False the generic adapter.  ``transforms=None`` takes the task's
     registered pipeline, an explicit list replaces it.  ``seed`` seeds
@@ -117,7 +135,7 @@ def make(task_id: str, num_envs: int, batch_size: int | None = None,
         raise NotImplementedError(
             f"engine={engine!r} is not ported yet (ROADMAP "
             f"{_LATER_ENGINES[engine]})")
-    if engine != "device":
+    if engine not in ("device", "device-masked"):
         raise ValueError(f"unknown engine {engine!r}")
     for name, value, item in (("num_threads", num_threads, "A9"),
                               ("num_shards", num_shards, "A12"),
@@ -126,15 +144,12 @@ def make(task_id: str, num_envs: int, batch_size: int | None = None,
             raise NotImplementedError(
                 f"{name}={value!r}: its engine is not ported yet (ROADMAP "
                 f"{item})")
-    if obs:
-        raise NotImplementedError(
-            "obs=True (engine telemetry, pool.stats()) is not ported yet "
-            "(ROADMAP A6)")
     factory, default = tasks[task_id]
     return DeviceEnvPool(factory(**env_kwargs), num_envs, batch_size,
+                         mode="masked" if engine == "device-masked" else None,
                          batched=batched, schedule=schedule,
                          transforms=resolve_transforms(transforms, default),
-                         device=resolve_device(device))
+                         obs=obs, device=resolve_device(device))
 
 
 __all__ = ["list_envs", "make", "resolve_device"]

@@ -59,6 +59,22 @@ class Scheduler:
         order = torch.sort(self.priority(ss), stable=True).indices
         return order[:m].to(torch.int32)
 
+    def select_info(self, ss: SchedState, m: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(idx, overdue_admits)``: ``select``'s lanes and the 0-dim
+        int32 count of lanes admitted through an overdue band this recv
+        (the telemetry signal), which fifo and sjf do not have."""
+        return self.select(ss, m), torch.zeros(
+            (), dtype=torch.int32, device=ss.phase.device)
+
+    def select_ready(self, ss: SchedState, m: int) -> torch.Tensor:
+        """Masked mode's pick: the READY lanes in ``send_tick`` order (the
+        tick their step completed), ties by lane index, every other lane
+        after them; the same for every policy."""
+        prio = torch.where(ss.phase == READY,
+                           ss.send_tick.to(torch.float32), _BIG)
+        return torch.sort(prio, stable=True).indices[:m].to(torch.int32)
+
     def complete(self, ss: SchedState, idx: torch.Tensor) -> SchedState:
         """Served lanes go back to WAITING; the tick advances."""
         return ss.replace(phase=ss.phase.index_fill(0, idx.long(),

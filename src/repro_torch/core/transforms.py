@@ -99,6 +99,104 @@ class RewardClip(Transform):
                                                     self.hi))
 
 
+class ObsCast(Transform):
+    """Cast observations to ``dtype``, then ``obs * scale + offset`` in
+    that dtype, two ops as in the JAX package (bitwise); the spec's
+    bounds follow, swapped for a negative scale."""
+
+    name = "obs_cast"
+
+    def __init__(self, dtype: torch.dtype = torch.float32,
+                 scale: float = 1.0, offset: float = 0.0):
+        self.dtype = dtype
+        self.scale = float(scale)
+        self.offset = float(offset)
+
+    def transform_spec(self, spec):
+        o = spec.obs_spec
+        lo = None if o.minimum is None else o.minimum * self.scale \
+            + self.offset
+        hi = None if o.maximum is None else o.maximum * self.scale \
+            + self.offset
+        if lo is not None and hi is not None and lo > hi:
+            lo, hi = hi, lo
+        return dataclasses.replace(spec, obs_spec=dataclasses.replace(
+            o, dtype=self.dtype, minimum=lo, maximum=hi))
+
+    def apply(self, state, ts, spec):
+        obs = ts.obs.to(self.dtype)
+        # 0-dim tensors of the target dtype, so that an integer dtype
+        # stays integer (jnp.asarray(scale, dtype) in the JAX package)
+        if self.scale != 1.0:
+            obs = obs * torch.tensor(self.scale, dtype=self.dtype)
+        if self.offset != 0.0:
+            obs = obs + torch.tensor(self.offset, dtype=self.dtype)
+        return state, ts.replace(obs=obs)
+
+
+class EpisodicLife(Transform):
+    """Serve a life loss as an episode end without resetting the env:
+    ``reward < threshold`` (a point conceded in Pong) is ORed into the
+    served ``done`` and ``terminated``.  Place it before ``FrameStack`` to
+    restart the stack on a life loss too."""
+
+    name = "episodic_life"
+
+    def __init__(self, threshold: float = 0.0):
+        self.threshold = float(threshold)
+
+    def apply(self, state, ts, spec):
+        lost = ts.reward < self.threshold
+        return state, ts.replace(done=ts.done | lost,
+                                 terminated=ts.terminated | lost)
+
+
+class NormalizeObs(Transform):
+    """Normalize observations by running moments: pool-global
+    ``(count, mean, m2)`` in f32, each served block merged in by Chan's
+    parallel formula and then normalized with the moments that include
+    it, ``(x - mean) / sqrt(max(m2 / count, 0) + eps)``, clipped to
+    ``[-clip, clip]``.  The block's sums run in torch's order, not XLA's,
+    so the values agree with the JAX package's to f32 reduction-order
+    tolerance."""
+
+    name = "normalize_obs"
+
+    def __init__(self, eps: float = 1e-8, clip: float | None = 10.0):
+        self.eps = float(eps)
+        self.clip = None if clip is None else float(clip)
+
+    def transform_spec(self, spec):
+        lim = self.clip
+        return dataclasses.replace(spec, obs_spec=dataclasses.replace(
+            spec.obs_spec, dtype=torch.float32,
+            minimum=None if lim is None else -lim, maximum=lim))
+
+    def init(self, spec, num_envs, device):
+        def zeros(shape):
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+
+        shape = spec.obs_spec.shape
+        return {"count": zeros(()), "mean": zeros(shape), "m2": zeros(shape)}
+
+    def apply(self, state, ts, spec):
+        x = ts.obs.to(torch.float32)
+        nb = float(x.shape[0])
+        bmean = x.sum(0) / nb
+        d2 = ((x - bmean) ** 2).sum(0)
+        count, mean0 = state["count"], state["mean"]
+        total = count + nb
+        delta = bmean - mean0
+        mean = mean0 + delta * (nb / total)
+        m2 = state["m2"] + d2 + delta * delta * (count * nb / total)
+        var = torch.clamp_min(m2 / total, 0.0)
+        norm = (x - mean) / torch.sqrt(var + self.eps)
+        if self.clip is not None:
+            norm = torch.clamp(norm, -self.clip, self.clip)
+        return ({"count": total, "mean": mean, "m2": m2},
+                ts.replace(obs=norm))
+
+
 class Grayscale(Transform):
     """RGB -> ALE luma: ``(..., H, W, 3) uint8 -> (..., H, W) uint8``
     through the ``grayscale`` kernel."""
@@ -243,6 +341,7 @@ def resolve_transforms(transforms: Sequence[Transform] | None,
 
 
 __all__ = [
-    "Crop", "FrameStack", "Grayscale", "Resize", "RewardClip", "Transform",
-    "TransformPipeline", "resolve_transforms",
+    "Crop", "EpisodicLife", "FrameStack", "Grayscale", "NormalizeObs",
+    "ObsCast", "Resize", "RewardClip", "Transform", "TransformPipeline",
+    "resolve_transforms",
 ]

@@ -36,8 +36,10 @@ class Environment:
         raise NotImplementedError
 
     def step_cost(self, state: Any, action: Any) -> torch.Tensor:
-        """(N,) int32 predicted work units of the next step."""
-        raise NotImplementedError
+        """(N,) int32 predicted work units of the next step; a constant
+        ``spec.min_cost`` unless the env says otherwise."""
+        return torch.full_like(state.t, self.spec.min_cost,
+                               dtype=torch.int32)
 
     def terminal(self, state: Any) -> torch.Tensor:
         """(N,) bool: the episode terminated (not truncation)."""

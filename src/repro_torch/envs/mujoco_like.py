@@ -45,18 +45,27 @@ class MujocoLikeState:
 
 
 class MujocoLike(Environment):
-    """Ant-lite; the name mirrors EnvPool's ``Ant-v3``.  The cost-skew
-    presets (``AntSkew-v3``) are not ported yet, so every episode's
-    ``cost_scale`` is 1."""
+    """Ant-lite; the name mirrors EnvPool's ``Ant-v3``.
 
-    def __init__(self, max_episode_steps: int = 1000):
+    ``heavy_frac``/``heavy_iters`` make the long-tail cost skew of
+    ``AntSkew-v3``: each episode draws a solver-iteration multiplier
+    ``cost_scale``, ``heavy_iters`` with probability ``heavy_frac`` and
+    else 1, from its init key folded with 7 (no extra randomness drawn,
+    so the default is unchanged and every engine agrees on which
+    episodes are heavy).  A step then costs up to ``5 + 4 * iters``."""
+
+    def __init__(self, max_episode_steps: int = 1000,
+                 heavy_frac: float = 0.0, heavy_iters: int = 4):
+        self.heavy_frac = float(heavy_frac)
+        self.heavy_iters = int(heavy_iters)
+        iters = self.heavy_iters if heavy_frac > 0 else 1
         self.spec = EnvSpec(
             name="MujocoLike-Ant-v3",
             obs_spec=ArraySpec((OBS_DIM,), torch.float32),
             act_spec=ArraySpec((N_JOINTS,), torch.float32, -1.0, 1.0),
             max_episode_steps=max_episode_steps,
-            min_cost=5,     # base physics substeps
-            max_cost=9,     # + one solver iteration per contact
+            min_cost=5,                # base physics substeps
+            max_cost=5 + 4 * iters,    # + contact-solver iterations
         )
 
     def init_state(self, keys: torch.Tensor) -> MujocoLikeState:
@@ -71,12 +80,18 @@ class MujocoLike(Environment):
 
         pos = full(0.0, 3)
         pos[:, 2] = 0.55
+        cost_scale = full(1, dtype=torch.int32)
+        # a uniform draw is never below 0, so without skew the draw (two
+        # threefry hashes over every lane of each auto-reset) is skipped
+        if self.heavy_frac > 0:
+            heavy = random.uniform(random.fold_in(keys, 7)) < self.heavy_frac
+            cost_scale = torch.where(heavy, self.heavy_iters, cost_scale)
         return MujocoLikeState(
             pos=pos, vel=full(0.0, 3), rot=full(0.0, 3),
             ang_vel=full(0.0, 3), q=q, qd=qd,
             t=full(0, dtype=torch.int32), rng=ks[:, 0],
             ep_return=full(0.0), reward_acc=full(0.0),
-            cost_scale=full(1, dtype=torch.int32),
+            cost_scale=cost_scale,
         )
 
     @staticmethod
@@ -123,20 +138,31 @@ class MujocoLikeBatch(VmapBatchEnv):
     """The engine's view of MujocoLike: the physics scalars packed into
     the kernel's (N, 28) layout and every data-dependent substep of a
     recv run in one ``env_multi_step`` call (the CUDA kernel for CUDA
-    tensors, its plain version on the CPU).  Bookkeeping stays in the
-    env class."""
+    tensors, its plain version on the CPU).  Masked mode's tick, one
+    substep of every lane, is the same call at ``n_sub = 1``.
+    Bookkeeping stays in the env class."""
 
-    def v_multi_substep(self, s: MujocoLikeState, actions: torch.Tensor,
-                        costs: torch.Tensor) -> MujocoLikeState:
+    @staticmethod
+    def _physics(s: MujocoLikeState, actions: torch.Tensor,
+                 costs: torch.Tensor | None, n_sub: int
+                 ) -> MujocoLikeState:
         flat = pack_state(s.pos, s.vel, s.rot, s.ang_vel, s.q, s.qd)
         flat, reward = env_multi_step(
             flat.contiguous(), actions.to(torch.float32).contiguous(),
-            costs.to(torch.int32).contiguous(), s.reward_acc.contiguous(),
-            n_sub=self.spec.max_cost,
+            None if costs is None else costs.to(torch.int32).contiguous(),
+            s.reward_acc.contiguous(), n_sub=n_sub,
         )
         pos, vel, rot, ang, q, qd = unpack_state(flat)
         return s.replace(pos=pos, vel=vel, rot=rot, ang_vel=ang, q=q, qd=qd,
                          reward_acc=reward)
+
+    def v_substep(self, s: MujocoLikeState, actions: torch.Tensor
+                  ) -> MujocoLikeState:
+        return self._physics(s, actions, None, 1)
+
+    def v_multi_substep(self, s: MujocoLikeState, actions: torch.Tensor,
+                        costs: torch.Tensor) -> MujocoLikeState:
+        return self._physics(s, actions, costs, self.spec.max_cost)
 
 
 __all__ = ["MujocoLike", "MujocoLikeBatch", "MujocoLikeState", "OBS_DIM"]

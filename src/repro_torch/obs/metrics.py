@@ -2,10 +2,10 @@
 histograms with labeled series, JSON snapshot/export
 (``repro/obs/metrics.py``).
 
-One process-local sink the reporting surfaces feed: so far
-``DecodePool``'s ``ServeStats`` (``publish_serve_stats``) and the PPO
-history records (``publish_history``).  The engines' ``stats()`` come
-with their slice.
+One process-local sink the reporting surfaces feed: the pool's
+``stats()`` (``publish_pool_stats``), ``DecodePool``'s ``ServeStats``
+(``publish_serve_stats``) and the PPO history records
+(``publish_history``).
 
 Design notes:
 
@@ -198,6 +198,22 @@ class MetricsRegistry:
 # --------------------------------------------------------------------- #
 # reporting adapters — the one vocabulary every surface publishes in
 # --------------------------------------------------------------------- #
+def publish_pool_stats(registry: MetricsRegistry, stats: dict,
+                       **labels: Any) -> None:
+    """Feed one ``pool.stats()`` snapshot (``obs/telemetry.py``) into the
+    registry.  A snapshot is cumulative already, so its counts land as
+    gauges: publishing again overwrites rather than double-counts."""
+    for k in ("recvs", "served", "stepped", "cost_sum",
+              "overdue_admits", "wait_ticks_total"):
+        registry.gauge(f"pool_{k}").set(int(stats[k]), **labels)
+    registry.gauge("pool_occupancy").set(float(stats["occupancy"]),
+                                         **labels)
+    registry.histogram(
+        "pool_wait_ticks", stats["wait_edges"],
+        help="recv-ticks served results waited (fixed WAIT_EDGES)",
+    ).observe_counts(np.asarray(stats["wait_hist"]).tolist(), **labels)
+
+
 def publish_serve_stats(registry: MetricsRegistry, stats: Any,
                         **labels: Any) -> None:
     """Publish a ``DecodePool.ServeStats`` (cumulative counters +
@@ -227,5 +243,6 @@ __all__ = [
     "Histogram",
     "MetricsRegistry",
     "publish_history",
+    "publish_pool_stats",
     "publish_serve_stats",
 ]

@@ -1,0 +1,174 @@
+"""In-engine counters (``repro/obs/telemetry.py``): the ``Telemetry``
+dataclass of int32 tensors on ``PoolState``.
+
+The pool counts itself on the card: the counters ride on ``PoolState``
+like ``tf_state``, are updated inside recv (and masked mode's tick) as
+fixed-size integer ops, and reach the host only through an explicit
+``pool.stats()`` snapshot, never on the hot path.  They never feed env
+math, scheduling or RNG, so the served streams are the same with them
+on or off.
+
+Counter semantics (the JAX package's):
+
+  * ``serves[i]``      — times lane ``i`` was served in a recv block;
+  * ``wait_ticks[i]``  — recv ticks lane ``i``'s results waited between
+    becoming available (action enqueued, or, in masked mode, step
+    completed) and being served, summed;
+  * ``wait_hist``      — fixed-edge histogram of those per-serve waits
+    (edges ``WAIT_EDGES``, the last bucket open-ended);
+  * ``served``         — served result slots (recvs x M);
+  * ``stepped``        — served results produced by an env step;
+  * ``cost_sum``       — substeps (``step_cost``) of stepped results;
+  * ``overdue_admits`` — lanes admitted through a scheduler's overdue
+    band (0 under fifo and sjf).
+
+Counts are integer adds, exact in any order, so the counters are
+bitwise the JAX package's; like JAX's int32 they wrap.  The JAX package
+avoids scatters (XLA:CPU serializes a scatter with duplicate indices)
+with an (M, N) one-hot per recv; here a block's lanes are distinct, so
+the per-lane counts are one ``index_add`` each.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.utils.tree import tree_dataclass
+
+# bucket b counts waits in [WAIT_EDGES[b], WAIT_EDGES[b+1]); the last
+# bucket is open-ended
+WAIT_EDGES: tuple[int, ...] = (0, 1, 2, 4, 8, 16, 32, 64)
+NUM_BUCKETS = len(WAIT_EDGES)
+
+# the counters that are not per lane: the JAX package carries them with a
+# leading shard dim of 1 on its PoolState
+PER_SHARD_FIELDS = (
+    "wait_hist", "served", "stepped", "cost_sum", "overdue_admits")
+
+
+@tree_dataclass
+class Telemetry:
+    """The counters, all int32."""
+
+    serves: torch.Tensor          # (N,) per-lane serve count
+    wait_ticks: torch.Tensor      # (N,) per-lane summed queue-wait ticks
+    wait_hist: torch.Tensor       # (NUM_BUCKETS,) wait histogram
+    served: torch.Tensor          # () served result slots
+    stepped: torch.Tensor         # () served results backed by a step
+    cost_sum: torch.Tensor        # () substeps of stepped results
+    overdue_admits: torch.Tensor  # () overdue-band admissions
+
+
+def init_telemetry(num_envs: int, device: torch.device | str
+                   ) -> Telemetry:
+    """Zeroed counters for ``num_envs`` lanes on ``device``."""
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+
+    n = int(num_envs)
+    return Telemetry(serves=zeros(n), wait_ticks=zeros(n),
+                     wait_hist=zeros(NUM_BUCKETS), served=zeros(),
+                     stepped=zeros(), cost_sum=zeros(),
+                     overdue_admits=zeros())
+
+
+@functools.lru_cache(maxsize=None)
+def _edges(device: torch.device) -> torch.Tensor:
+    return torch.tensor(WAIT_EDGES, dtype=torch.int32, device=device)
+
+
+def _hist_counts(wait: torch.Tensor) -> torch.Tensor:
+    """Per-bucket counts of one block's waits:
+    ``count[b] = #(wait >= edge[b]) - #(wait >= edge[b+1])``."""
+    cum = (wait[:, None] >= _edges(wait.device)).sum(0, dtype=torch.int32)
+    return cum - torch.cat([cum[1:], cum.new_zeros(1)])
+
+
+def record_serve(tele: Telemetry, idx: torch.Tensor, wait: torch.Tensor,
+                 stepped_mask: torch.Tensor, step_cost: torch.Tensor,
+                 overdue_admits: torch.Tensor, full_block: bool = False
+                 ) -> Telemetry:
+    """One recv block's update.  ``idx`` (M,) served lanes, distinct;
+    ``wait`` (M,) ticks each result waited; ``stepped_mask`` (M,) results
+    backed by an env step, whose ``step_cost`` is counted;
+    ``overdue_admits`` a 0-dim int32.  ``full_block``: the block serves
+    every lane and ``wait`` is in lane order (sync mode), so the
+    per-lane counts are whole-vector adds."""
+    wait = wait.to(torch.int32)
+    if full_block:
+        serves = tele.serves + 1
+        wait_ticks = tele.wait_ticks + wait
+    else:
+        ids = idx.long()
+        serves = tele.serves.index_add(0, ids, torch.ones_like(wait))
+        wait_ticks = tele.wait_ticks.index_add(0, ids, wait)
+    return tele.replace(
+        serves=serves,
+        wait_ticks=wait_ticks,
+        wait_hist=tele.wait_hist + _hist_counts(wait),
+        served=tele.served + idx.shape[0],
+        stepped=tele.stepped + stepped_mask.sum(dtype=torch.int32),
+        cost_sum=tele.cost_sum + torch.where(
+            stepped_mask, step_cost.to(torch.int32), 0).sum(
+                dtype=torch.int32),
+        overdue_admits=tele.overdue_admits + overdue_admits.to(torch.int32),
+    )
+
+
+def record_finished(tele: Telemetry, finished: torch.Tensor,
+                    cost: torch.Tensor) -> Telemetry:
+    """Masked mode's substep accounting for the lanes whose step
+    completed this tick; their serve is recorded later, by
+    ``record_serve`` with no stepped lanes."""
+    return tele.replace(
+        stepped=tele.stepped + finished.sum(dtype=torch.int32),
+        cost_sum=tele.cost_sum + torch.where(
+            finished, cost.to(torch.int32), 0).sum(dtype=torch.int32),
+    )
+
+
+def format_stats(recvs: int, serves: Any, wait_ticks: Any, wait_hist: Any,
+                 served: int, stepped: int, cost_sum: int,
+                 overdue_admits: int) -> dict:
+    """The ``pool.stats()`` dict, keys and derived values as the JAX
+    package's."""
+    served, stepped = int(served), int(stepped)
+    wait_ticks = np.asarray(wait_ticks, np.int64)
+    return {
+        "recvs": int(recvs),
+        "served": served,
+        "stepped": stepped,
+        "occupancy": (stepped / served) if served else 0.0,
+        "cost_sum": int(cost_sum),
+        "overdue_admits": int(overdue_admits),
+        "serves": np.asarray(serves, np.int64),
+        "wait_ticks": wait_ticks,
+        "wait_ticks_total": int(wait_ticks.sum()),
+        "wait_hist": np.asarray(wait_hist, np.int64),
+        "wait_edges": list(WAIT_EDGES),
+    }
+
+
+def snapshot_device(tele: Telemetry, tick: torch.Tensor) -> dict:
+    """The host snapshot of ``tele``; ``tick`` is the recv count.  This is
+    the only host transfer telemetry makes."""
+    host = {k: getattr(tele, k).cpu().numpy() for k in (
+        "serves", "wait_ticks", "wait_hist", *PER_SHARD_FIELDS[1:])}
+    return format_stats(recvs=int(tick), **host)
+
+
+def stats_to_jsonable(stats: dict) -> dict:
+    """A JSON-safe copy of a ``stats()`` dict (arrays as lists)."""
+    return {k: v.tolist() if isinstance(v, np.ndarray) else v
+            for k, v in stats.items()}
+
+
+__all__ = [
+    "NUM_BUCKETS", "PER_SHARD_FIELDS", "WAIT_EDGES", "Telemetry",
+    "format_stats", "init_telemetry", "record_finished", "record_serve",
+    "snapshot_device", "stats_to_jsonable",
+]

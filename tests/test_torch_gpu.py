@@ -120,6 +120,80 @@ def test_env_step_kernel_refuses_a_short_plan(cuda):
                                          stream) != 0
 
 
+@pytest.mark.parametrize("n_sub", [1, 21])
+def test_env_step_kernel_at_the_tick_and_skew_depths(cuda, n_sub):
+    """4096 lanes at ``n_sub = 1``, masked mode's tick (no costs: every
+    lane one substep), and at ``n_sub = 21``, AntSkew-v3's max_cost
+    (costs 5..21), bitwise."""
+    state, action, _, reward0 = env_inputs(4096, 40 + n_sub)
+    cost = None
+    if n_sub == 21:
+        cost = torch.from_numpy(np.random.default_rng(n_sub).integers(
+            5, 22, 4096).astype(np.int32)).to(cuda)
+    got = env_multi_step(state, action, cost, reward0, n_sub=n_sub)
+    want = env_multi_step(state, action, cost, reward0, n_sub=n_sub,
+                          backend="reference")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def run_pool(task, dev, m, engine="device", schedule="fifo", recvs=12):
+    """A pool's served (ids, done, cost, reward, obs) on ``dev``, its
+    ``stats()`` and the env_step launches it made, from seeded actions
+    routed by env_id."""
+    pool = repro_torch.make(task, num_envs=16, batch_size=m, engine=engine,
+                            schedule=schedule, device=dev,
+                            max_episode_steps=5)
+    table = torch.from_numpy(np.random.default_rng(3).uniform(
+        -1, 1, (recvs, 16, 8)).astype(np.float32))
+    ps, ts = pool.reset(repro_torch.random.PRNGKey(0))
+    before = env_multi_step.launches
+    rec = []
+    for t in range(recvs):
+        ps, ts = pool.step(ps, table[t][ts.env_id.long().cpu()].to(dev),
+                           ts.env_id)
+        rec.append([getattr(ts, k).cpu() for k in (
+            "env_id", "done", "step_cost", "reward", "obs")])
+    return rec, pool.stats(ps), env_multi_step.launches - before
+
+
+@pytest.mark.parametrize("task,m,engine,schedule,atol", [
+    ("Ant-v3", 8, "device-masked", "fifo", 1e-4),
+    ("AntSkew-v3", 8, "device", "sjf", 1e-4),
+    ("AntNorm-v3", None, "device", "fifo", 1e-3),
+])
+def test_ant_pools_on_the_card_match_the_cpu(cuda, task, m, engine,
+                                             schedule, atol):
+    """Discrete fields and ``stats()`` bitwise; floats within 1e-4 (CUDA's
+    ``cosf`` against torch's CPU ``cos``), AntNorm's normalized obs within
+    1e-3 (its block sums run in another order)."""
+    got, gstats, launches = run_pool(task, cuda, m, engine, schedule)
+    want, cstats, _ = run_pool(task, "cpu", m, engine, schedule)
+    assert launches > 0
+    for t, (g, c) in enumerate(zip(got, want)):
+        for x, y in zip(g[:3], c[:3]):
+            assert torch.equal(x, y), t
+        for x, y in zip(g[3:], c[3:]):
+            assert torch.allclose(x, y, rtol=0, atol=atol), t
+    assert gstats.keys() == cstats.keys()
+    for k, v in cstats.items():
+        assert np.array_equal(gstats[k], v), k
+
+
+def test_masked_recv_on_the_card_launches_env_step(cuda):
+    """No plain fallback hides the kernel: a masked recv that ticks
+    launches env_step, once a tick."""
+    pool = repro_torch.make("Ant-v3", 64, 32, engine="device-masked",
+                            device=cuda)
+    ps, ts = pool.reset(repro_torch.random.PRNGKey(1))
+    act = torch.zeros((32, 8), device=cuda)
+    ps, ts = pool.step(ps, act, ts.env_id)      # the reset's READY half
+    before, ticks = env_multi_step.launches, pool.masked_ticks
+    ps, ts = pool.step(ps, act, ts.env_id)
+    assert pool.masked_ticks > ticks
+    assert env_multi_step.launches - before == pool.masked_ticks - ticks
+
+
 def test_image_kernels_are_bitwise(cuda):
     rng = np.random.default_rng(1)
     pos = [torch.from_numpy(p).to(cuda) for p in

@@ -10,7 +10,8 @@ the last bit, and the physics carries that over 30 steps).
 
 Also: a ``PoolState`` carried across from the JAX package continues the
 same stream; importing and running the port pulls in neither ``jax`` nor
-``repro``; ``make`` refuses what this slice does not port.
+``repro``; ``make`` refuses what the port does not have yet (the host
+and sharded engines).
 """
 
 import os
@@ -37,10 +38,10 @@ from repro_torch.core.scheduler import (  # noqa: E402
     get_scheduler,
 )
 
+from _torch_pair import compare, jax_leaves  # noqa: E402
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 30
-EXACT = ("env_id", "done", "terminated", "truncated", "step_cost",
-         "episode_length")
 
 
 def policy(ids: np.ndarray, t: int, continuous: bool) -> np.ndarray:
@@ -52,37 +53,12 @@ def policy(ids: np.ndarray, t: int, continuous: bool) -> np.ndarray:
     return ((ids.astype(np.int64) * 7 + t) % 6).astype(np.int32)
 
 
-def compare(tag, jts, tts, atol):
-    for f in EXACT:
-        np.testing.assert_array_equal(getattr(tts, f).numpy(),
-                                      np.asarray(getattr(jts, f)),
-                                      err_msg=f"{tag} {f}")
-    for f in ("obs", "reward", "episode_return"):
-        got, want = getattr(tts, f).numpy(), np.asarray(getattr(jts, f))
-        if atol:
-            np.testing.assert_allclose(got, want, rtol=0, atol=atol,
-                                       err_msg=f"{tag} {f}")
-        else:
-            np.testing.assert_array_equal(got, want, err_msg=f"{tag} {f}")
-
-
-def pools(task, n, m, schedule):
+def pools(task, n, m, schedule, obs):
     jp = jax_registry.make(task, num_envs=n, batch_size=m, schedule=schedule,
-                           obs=False, max_episode_steps=5)
+                           obs=obs, max_episode_steps=5)
     tp = repro_torch.make(task, num_envs=n, batch_size=m, schedule=schedule,
-                          device="cpu", max_episode_steps=5)
+                          device="cpu", max_episode_steps=5, obs=obs)
     return jp, tp
-
-
-def jax_leaves(ps) -> dict:
-    """The JAX package's PoolState leaves keyed by the port's paths."""
-    out = {}
-    for path, leaf in jax.tree_util.tree_flatten_with_path(ps)[0]:
-        parts = [str(getattr(k, "name", getattr(k, "idx",
-                                                getattr(k, "key", k))))
-                 for k in path]
-        out[".".join(parts)] = np.asarray(leaf)
-    return out
 
 
 @pytest.mark.parametrize("task,n,m,schedule", [
@@ -95,7 +71,7 @@ def jax_leaves(ps) -> dict:
 def test_streams_match_repro(task, n, m, schedule):
     continuous = task.startswith("Ant")
     atol = 1e-4 if continuous else 0.0
-    jp, tp = pools(task, n, m, schedule)
+    jp, tp = pools(task, n, m, schedule, obs=True)
     assert tp.spec.obs_spec.shape == jp.spec.obs_spec.shape
     jps, jts = jp.reset(jax.random.PRNGKey(0))
     tps, tts = tp.reset(repro_torch.random.PRNGKey(0))
@@ -114,7 +90,7 @@ def test_pool_state_carried_across_continues_the_stream():
     """The JAX package's PoolState, mid-rollout, loaded into the port:
     both continue with the same blocks (Pong, async, so the state holds
     READY and WAITING lanes and a frame stack)."""
-    jp, tp = pools("PongClassic-v5", 4, 2, "fifo")
+    jp, tp = pools("PongClassic-v5", 4, 2, "fifo", obs=False)
     jps, jts = jp.reset(jax.random.PRNGKey(3))
     jstep = jax.jit(jp.step)
     for t in range(7):
@@ -122,7 +98,7 @@ def test_pool_state_carried_across_continues_the_stream():
                                                  False)), jts.env_id)
     arrays = jax_leaves(jps)
     tps = pool_state_from_numpy(tp, arrays)
-    back = pool_state_to_numpy(tps)
+    back = pool_state_to_numpy(tp, tps)
     assert set(back) == set(arrays)
     for k, v in arrays.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
@@ -149,6 +125,21 @@ def test_running_the_port_imports_neither_jax_nor_repro():
         "    ps, ts = pool.step(ps, torch.zeros((2,) + pool.spec.act_spec\n"
         "                       .shape, dtype=pool.spec.act_spec.dtype),\n"
         "                       ts.env_id)\n"
+        "import tempfile\n"
+        "from repro_torch.checkpoint.store import CheckpointStore\n"
+        "from repro_torch.core.dm_api import DmEnv\n"
+        "for task, engine in (('AntNorm-v3', 'device'),\n"
+        "                     ('AntSkew-v3', 'device-masked'),\n"
+        "                     ('Pendulum-v1', 'device')):\n"
+        "    pool = repro_torch.make(task, num_envs=4, batch_size=2,\n"
+        "                            engine=engine, device='cpu')\n"
+        "    dm = DmEnv(pool)\n"
+        "    ts = dm.reset()\n"
+        "    dm.step(torch.zeros((2,) + pool.spec.act_spec.shape),\n"
+        "            ts.observation.env_id)\n"
+        "    pool.stats(dm._bound.state)\n"
+        "    pool.save_transform_state(CheckpointStore(tempfile.mkdtemp()),\n"
+        "                              1, dm._bound.state)\n"
         "from repro_torch.rl.policy_lm import LMPolicy, build_lm_collect_fn\n"
         "from repro_torch.serving import DecodePool\n"
         "pool = repro_torch.make('TokenRagged-v0', num_envs=4, batch_size=2,\n"
@@ -205,7 +196,10 @@ def test_port_sources_import_neither_jax_nor_repro():
                  ("launch", "steps.py"),
                  ("kernels", "flash_attention", "ops.py"),
                  ("core", "xla_loop.py"), ("rl", "ppo.py"),
-                 ("rl", "nets.py"), ("optim", "adamw.py")):
+                 ("rl", "nets.py"), ("optim", "adamw.py"),
+                 ("obs", "telemetry.py"), ("core", "protocol.py"),
+                 ("core", "dm_api.py"), ("checkpoint", "store.py"),
+                 ("envs", "classic.py")):
         assert os.path.join(ROOT, "src", "repro_torch", *part) in files
     offenders = []
     for path in files:
@@ -224,11 +218,11 @@ def test_make_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    ({"engine": "device-masked"}, NotImplementedError),
+    ({"engine": "forloop"}, NotImplementedError),
     ({"engine": "device-sharded"}, NotImplementedError),
     ({"engine": "thread"}, NotImplementedError),
     ({"engine": "gpu-cluster"}, ValueError),
-    ({"obs": True}, NotImplementedError),
+    ({"engine": "subprocess"}, NotImplementedError),
     ({"batch_size": 2, "schedule": "hierarchical"}, ValueError),
     ({"batch_size": 2, "schedule": "random"}, ValueError),
 ])
@@ -238,17 +232,26 @@ def test_make_refuses_what_is_not_ported(kwargs, error):
 
 
 def test_registered_tasks_and_stats():
+    """Every device-family task of ``repro.make`` (its host-only
+    ``make_py`` entries wait for the host engines, A9); ``stats()`` by
+    default, and a RuntimeError under ``obs=False``, as in ``repro``."""
     assert repro_torch.list_envs() == sorted([
         "Ant-v3", "MujocoLike-Ant-v3", "Pong-v5", "AtariLike-Pong-v5",
         "PongStack-v5", "PongClassic-v5", "TokenCopy-v0", "TokenSkew-v0",
-        "TokenRagged-v0"])
+        "TokenRagged-v0", "AntNorm-v3", "AntSkew-v3", "CartPole-v1",
+        "MountainCar-v0", "Pendulum-v1"])
+    assert repro_torch.list_envs() == jax_registry.list_envs()
     with pytest.raises(KeyError):
-        repro_torch.make("AntNorm-v3", num_envs=4, device="cpu")
+        repro_torch.make("Breakout-v5", num_envs=4, device="cpu")
     pool = repro_torch.make("PongStack-v5", num_envs=4, device="cpu")
     ps, ts = pool.reset(repro_torch.random.PRNGKey(0))
     assert tuple(ts.obs.shape) == (4, 4, 84, 84)
-    with pytest.raises(NotImplementedError):
-        pool.stats(ps)
+    stats = pool.stats(ps)
+    assert (stats["recvs"], stats["served"], stats["stepped"]) == (1, 4, 0)
+    pool = repro_torch.make("PongStack-v5", num_envs=4, device="cpu",
+                            obs=False)
+    with pytest.raises(RuntimeError, match="obs=False"):
+        pool.stats(pool.reset(repro_torch.random.PRNGKey(0))[0])
 
 
 @pytest.mark.parametrize("kwargs,item", [
