@@ -104,6 +104,27 @@ Phases, in order; any failure exits non-zero:
    the f32 smoke configs of qwen3-0.6b and sliding starcoder2-3b
    (window 32): identical tokens, logits within 1e-4.
 
+5. the host engines (``engine="thread" | "forloop" | "subprocess"``,
+   each env one lane of its batched env on the card): the thread and
+   forloop engines on the card against the device engine on the card,
+   Ant-v3, PongClassic-v5 and PongClassic-v5 with the playfield cropped
+   at N=8, 10 steps from one seed with the same actions routed by
+   ``env_id``: ids, reward, done and ``stats()`` bitwise, obs bitwise
+   (Ant within 1e-4), and every kernel of the path launched exactly
+   once per env step (env_step, pong_render) or per recv (grayscale,
+   resize, crop); the thread engine on the card against the CPU (Ant-v3
+   and PongClassic-v5, N=8); then rows of env steps/s, ms per recv, the
+   launches per env step and per recv, kernels and device busy a recv
+   (``torch.profiler``, three recvs; the subprocess rows' kernels run in
+   their workers, out of its sight) and ``stats()`` with its
+   conservation laws: Ant-v3 N=32 thread (sync and M=16), forloop and
+   subprocess (4 workers), on the card and on the CPU, 10 recvs each;
+   PongClassic-v5 N=16 thread (sync and M=8) on the card, 5 recvs each;
+   and ``train_host`` on Ant-v3 N=16 with the envs on the CPU and the
+   learner on the card (16 steps, ``PPOConfig``'s 4 x 4 minibatches,
+   MLP 256-128-64), two iterations, the second's four Fig. 4 buckets.
+   Each row is a JSON line with the card's name and power limit.
+
 Then a ``kernels`` JSON line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the repository beside it, the script fails before printing
@@ -144,6 +165,8 @@ SERVE_MAX_LEN = 161
 SERVE_MODEL = "qwen3-0.6b"
 # the device of phases 2 and 3
 DEV = "cuda"
+# the card's name and power limit (``card_line``), set by ``main``
+CARD = ""
 # the Pong playfield: rows 34..193 of the 210 x 160 screen
 PONG_CROP = (34, 0, 160, 160)
 # flash_attention's phase-2 shapes: (case, B, H, Hkv, Sq, Skv, D, causal,
@@ -717,21 +740,15 @@ def check_flash_attention(row) -> None:
 # phase 3: the pool on the card
 # ---------------------------------------------------------------------- #
 def counters() -> dict:
-    from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.env_step import ops as env_ops
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.image import ops as img_ops
+    from repro_torch.kernels.backend import kernel_ops
 
-    return {"env_step": env_ops.env_multi_step,
-            "pong_render": img_ops.pong_render,
-            "grayscale": img_ops.grayscale, "crop": img_ops.crop,
-            "resize": img_ops.resize, "decode_attention": decode_attention,
-            "flash_attention": flash_attention}
+    return kernel_ops()
 
 
 def reset_counts() -> None:
-    for fn in counters().values():
-        fn.launches = 0
+    from repro_torch.kernels.backend import reset_launches
+
+    reset_launches(counters().values())
 
 
 def read_counts(tag: str, path: tuple[str, ...]) -> dict:
@@ -1333,6 +1350,330 @@ def drive_model_serve(model, params, batch: int, prompt: int,
 
 
 # ---------------------------------------------------------------------- #
+# phase 5: the host engines
+# ---------------------------------------------------------------------- #
+# the kernels each launch per host env step / per recv, by task
+HOST_PER_STEP = {"Ant-v3": ("env_step",), "PongClassic-v5": ("pong_render",)}
+HOST_PER_RECV = {"Ant-v3": (), "PongClassic-v5": ("grayscale", "resize")}
+
+
+def host_steps(pool, tables, recvs: int, out):
+    """``recvs`` steps of a host pool, actions routed by ``env_id``;
+    returns the last block and the number of results served by a step."""
+    stepped = 0
+    for t in range(recvs):
+        ids = out["env_id"].long().cpu()
+        out = pool.step(tables[t % len(tables)][ids], out["env_id"])
+        stepped += out["env_id"].numel()
+    return out, stepped
+
+
+def drive_host(task: str, n: int, m: int | None, engine: str, dev: str,
+               recvs: int, num_threads: int | None = None) -> dict:
+    """One host-engine row: env steps/s and ms per recv over ``recvs``
+    recvs after a warm-up of two, the kernels of the path launched per
+    env step (env_step, pong_render) and per recv (grayscale, resize),
+    the CUDA kernels and device busy a recv (``torch.profiler``, three
+    more recvs; not for a subprocess row), ``stats()`` with its
+    conservation laws.  A sync row must launch each
+    per-step kernel exactly once per env step and each per-recv kernel
+    once per recv; a subprocess row's env steps launch in its workers,
+    whose counts ``pool.launches()`` reads.  An async row's window also
+    counts steps begun before it and still in flight after it, so its
+    counts stay out of the ``kernels`` line (``launches`` is empty,
+    ``launches_in_window`` has them)."""
+    import torch
+
+    import repro_torch
+
+    pool = repro_torch.make(task, num_envs=n, batch_size=m, engine=engine,
+                            num_threads=num_threads, device=dev)
+    tag = f"host {task} {engine} N={n} M={pool.batch_size} {dev}"
+    try:
+        tables = [t.cpu() for t in action_tables(
+            pool, 8, np.random.default_rng(SEED))]
+        if pool.batch_size < n:
+            pool.async_reset()
+            out = pool.recv()
+        else:
+            out = pool.reset()
+        out, _ = host_steps(pool, tables, 2, out)
+        if dev == DEV:
+            torch.cuda.synchronize()
+        sub = engine == "subprocess"
+        # a subprocess worker's launches count in its own process
+        base = pool.launches() if sub else {}
+        reset_counts()
+        t0 = time.perf_counter()
+        out, stepped = host_steps(pool, tables, recvs, out)
+        if dev == DEV:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        on_card = dev == DEV
+        workers = pool.launches() if sub else {}
+        launches = {k: v + workers.get(k, 0) - base.get(k, 0)
+                    for k, v in read_counts(tag, ()).items()}
+        step_kernels = HOST_PER_STEP[task]
+        path = step_kernels + HOST_PER_RECV[task] if on_card else ()
+        for k in path:
+            if launches[k] == 0:
+                raise AssertionError(f"{tag}: kernel {k} never launched")
+        per_step = {k: launches[k] / stepped for k in step_kernels}
+        per_recv = {k: launches[k] / recvs for k in HOST_PER_RECV[task]}
+        sync = pool.batch_size == n
+        if on_card and sync and (
+                any(v != 1 for v in per_step.values())
+                or any(v != 1 for v in per_recv.values())):
+            raise AssertionError(f"{tag}: launches {launches} over {recvs} "
+                                 f"recvs of {stepped} env steps")
+        want = (pool.batch_size,) + tuple(pool.spec.obs_spec.shape)
+        if tuple(out["obs"].shape) != want or out["obs"].device.type != \
+                torch.device(dev).type:
+            raise AssertionError(f"{tag}: obs {tuple(out['obs'].shape)} on "
+                                 f"{out['obs'].device}, want {want}")
+        stats = pool.stats()
+        check_stats(tag, stats, pool.batch_size)
+        row = {"task": task, "engine": engine, "device": dev, "num_envs": n,
+               "batch_size": pool.batch_size,
+               "num_threads": getattr(pool, "num_threads",
+                                      getattr(pool, "num_workers", 1)),
+               "recvs": recvs, "seconds": dt,
+               "env_steps_per_s": stepped / dt,
+               "ms_per_recv": dt / recvs * 1e3,
+               "launches": launches if sync else {},
+               "launches_in_window": launches,
+               "launches_per_env_step": per_step,
+               "launches_per_recv": per_recv,
+               "stats": {k: stats[k] for k in (
+                   "recvs", "served", "stepped", "occupancy", "cost_sum",
+                   "wait_ticks_total")}}
+        row["stats"]["wait_hist"] = stats["wait_hist"].tolist()
+        # a subprocess row's kernels run in its workers, which this
+        # process's profiler does not see
+        if on_card and engine != "subprocess":
+            state = [out]
+
+            def recv():
+                state[0], _ = host_steps(pool, tables, 1, state[0])
+
+            row.update(profile_device(recv, 3))
+            busy = row["device_busy_ms_per_recv"]
+            row["device_idle_share"] = (None if busy is None
+                                        else 1.0 - busy / row["ms_per_recv"])
+    finally:
+        pool.close()
+    log(f"  {tag}: {row['env_steps_per_s']:.1f} env steps/s, "
+        f"{row['ms_per_recv']:.1f} ms/recv, launches per env step "
+        f"{per_step}, per recv {per_recv}, kernels/recv "
+        f"{row.get('kernels_per_recv')}, device busy "
+        f"{row.get('device_busy_ms_per_recv')} ms/recv; stats "
+        f"{row['stats']}")
+    log(json.dumps({"host_row": row, "card": CARD}))
+    return row
+
+
+def drive_train_host(n: int = 16, num_steps: int = 16) -> dict:
+    """``train_host`` on Ant-v3, the thread engine, N=n sync with the
+    envs on the CPU and the learner on the card (MLP 256-128-64,
+    ``PPOConfig``'s 4 epochs of 4 minibatches), two iterations: the first
+    warms up, the second is timed, its four Fig. 4 buckets (env_step,
+    inference, train, other) read off the tracer's totals."""
+    import torch
+
+    import repro_torch
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.rl.ppo import PPOConfig, train_host
+    from repro_torch.utils.tree import tree_leaves
+
+    pool = repro_torch.make("Ant-v3", num_envs=n, engine="thread",
+                            device="cpu")
+    cfg = PPOConfig(total_steps=2 * num_steps * n, num_steps=num_steps)
+    tr = Tracer()
+    marks = []
+
+    def log_fn(rec):
+        marks.append((time.perf_counter(), tr.totals()))
+
+    try:
+        reset_counts()
+        state, _, history, prof = train_host(pool, cfg=cfg, seed=SEED,
+                                             tracer=tr, log_fn=log_fn,
+                                             device=DEV)
+        torch.cuda.synchronize()
+    finally:
+        pool.close()
+    launches = read_counts("train_host", ())
+    (t1, tot1), (t2, tot2) = marks
+    buckets = {k: (tot2.get(k, 0.0) - tot1.get(k, 0.0)) * 1e3
+               for k in ("env_step", "inference", "train", "other")}
+    for leaf in tree_leaves(state.params):
+        if leaf.device.type != torch.device(DEV).type \
+                or not bool(torch.isfinite(leaf).all()):
+            raise AssertionError(f"train_host: params not finite on {DEV}")
+    if len(history) != 2 or not all(np.isfinite(r["loss"]) for r in history):
+        raise AssertionError(f"train_host: history {history}")
+    ms = (t2 - t1) * 1e3
+    row = {"task": "Ant-v3", "engine": "thread", "env_device": "cpu",
+           "learner_device": DEV, "num_envs": n, "num_steps": num_steps,
+           "epochs": cfg.epochs, "minibatches": cfg.minibatches,
+           "ms_per_iter": ms, "env_steps_per_s": num_steps * n / ms * 1e3,
+           "buckets_ms": buckets,
+           "bucket_share": {k: v / ms for k, v in buckets.items()},
+           "launches": launches,
+           "history": [{k: r[k] for k in ("iter", "loss", "episodes")}
+                       for r in history]}
+    log(f"  train_host Ant-v3 N={n} T={num_steps} (envs on the CPU, learner "
+        f"on the card): {ms:.0f} ms/iter, {row['env_steps_per_s']:.1f} env "
+        f"steps/s, buckets ms {buckets}")
+    log(json.dumps({"train_host": row, "card": CARD}))
+    return row
+
+
+def host_blocks(pool, steps: int, tables, out) -> tuple[list, dict]:
+    """``out``, a host pool's reset block, and ``steps`` more blocks;
+    every block's fields on the CPU, rows in ``env_id`` order, and
+    ``stats()``."""
+    blocks = []
+    for t in range(steps + 1):
+        order = out["env_id"].long().cpu().argsort()
+        blocks.append({k: v.cpu()[order] for k, v in out.items()})
+        if t < steps:
+            out = pool.step(tables[t][out["env_id"].long().cpu()],
+                            out["env_id"])
+    return blocks, pool.stats()
+
+
+def cross_check_host(task: str, atol: float | None, transforms=None,
+                     n: int = 8, steps: int = 10) -> dict:
+    """The thread and forloop engines on the card against the device
+    engine on the card, from one seed with the same actions routed by
+    ``env_id``: ids, reward, done and ``stats()`` bitwise, obs bitwise
+    (``atol`` None) or within ``atol``; each of the path's kernels
+    launched exactly once per env step (env_step, pong_render) or once
+    per recv (grayscale, resize, crop) over the steps."""
+    import torch
+
+    import repro_torch
+
+    kw = dict(num_envs=n, max_episode_steps=5, transforms=transforms)
+    dpool = repro_torch.make(task, device=DEV, **kw)
+    tables = [t.cpu() for t in action_tables(
+        dpool, steps, np.random.default_rng(SEED + 2))]
+    ps, ts = dpool.reset(repro_torch.random.PRNGKey(SEED))
+    want = []
+    for t in range(steps + 1):
+        order = ts.env_id.long().cpu().argsort()
+        want.append({k: getattr(ts, k).cpu()[order] for k in (
+            "env_id", "reward", "done", "obs")})
+        if t < steps:
+            ps, ts = dpool.step(ps, tables[t][ts.env_id.long().cpu()].to(DEV),
+                                ts.env_id)
+    want_stats = dpool.stats(ps)
+    per_recv = HOST_PER_RECV[task] + (("crop",) if transforms else ())
+    errs = {}
+    for engine in ("thread", "forloop"):
+        tag = f"host {task} {engine} vs device"
+        pool = repro_torch.make(task, engine=engine, device=DEV, seed=SEED,
+                                **kw)
+        try:
+            out = pool.reset()
+            torch.cuda.synchronize()
+            reset_counts()
+            got, stats = host_blocks(pool, steps, tables, out)
+            torch.cuda.synchronize()
+            launches = read_counts(tag, HOST_PER_STEP[task] + per_recv)
+        finally:
+            pool.close()
+        expect = {k: steps * n for k in HOST_PER_STEP[task]}
+        expect.update({k: steps for k in per_recv})
+        if any(launches[k] != v for k, v in expect.items()):
+            raise AssertionError(f"{tag}: launches {launches}, want {expect}")
+        for k, v in want_stats.items():
+            if not np.array_equal(stats[k], v):
+                raise AssertionError(f"{tag}: stats()[{k!r}] differs")
+        err = 0.0
+        for t, (g, w) in enumerate(zip(got, want)):
+            if g["obs"].device.type != "cpu":
+                raise AssertionError(tag)
+            for k in ("env_id", "reward", "done"):
+                if not torch.equal(g[k], w[k]):
+                    raise AssertionError(f"{tag} block {t}: {k} differs")
+            e = float((g["obs"].float() - w["obs"].float()).abs().max())
+            err = max(err, e)
+            if (atol is None and e != 0.0) or (atol is not None
+                                               and e > atol):
+                raise AssertionError(f"{tag} block {t}: obs differ by {e}")
+        errs[engine] = err
+    log(f"  host {task} {[t.name for t in dpool.pipeline.transforms]} N={n}: "
+        f"thread and forloop on the card == the device engine on the card "
+        f"over {steps} steps (ids, reward, done, stats() bitwise; obs max abs "
+        f"err {errs}); launches {expect}")
+    return errs
+
+
+def cross_check_host_cpu(task: str, atol: float | None, n: int = 8,
+                         steps: int = 10) -> None:
+    """The thread engine on the card against the thread engine on the
+    CPU: ids, done, step_cost and ``stats()`` bitwise, reward and obs
+    bitwise (``atol`` None) or within ``atol``."""
+    import torch
+
+    import repro_torch
+
+    runs = {}
+    for dev in (DEV, "cpu"):
+        pool = repro_torch.make(task, num_envs=n, engine="thread",
+                                device=dev, max_episode_steps=5)
+        try:
+            tables = [t.cpu() for t in action_tables(
+                pool, steps, np.random.default_rng(SEED + 3))]
+            runs[dev] = host_blocks(pool, steps, tables, pool.reset())
+        finally:
+            pool.close()
+    (got, gstats), (want, cstats) = runs[DEV], runs["cpu"]
+    tag = f"host {task} thread"
+    for k, v in cstats.items():
+        if not np.array_equal(gstats[k], v):
+            raise AssertionError(f"{tag}: stats()[{k!r}] differs")
+    for t, (g, c) in enumerate(zip(got, want)):
+        for k in ("env_id", "done", "step_cost"):
+            if not torch.equal(g[k], c[k]):
+                raise AssertionError(f"{tag} block {t}: {k} differs")
+        for k in ("reward", "obs"):
+            ok = (torch.equal(g[k], c[k]) if atol is None else
+                  torch.allclose(g[k], c[k], rtol=0, atol=atol))
+            if not ok:
+                raise AssertionError(f"{tag} block {t}: {k} differs")
+    log(f"  {tag} N={n}: cuda == cpu over {steps} steps, stats() bitwise"
+        + (" (bitwise)" if atol is None else f" (obs, reward within {atol})"))
+
+
+def host_phase() -> list[dict]:
+    """Phase 5: the checks, then the rows."""
+    import repro_torch
+
+    cropped = [repro_torch.Grayscale(), repro_torch.Crop(*PONG_CROP),
+               repro_torch.Resize(84, 84), repro_torch.FrameStack(4),
+               repro_torch.RewardClip()]
+    cross_check_host("Ant-v3", 1e-4)
+    cross_check_host("PongClassic-v5", None)
+    cross_check_host("PongClassic-v5", None, transforms=cropped)
+    cross_check_host_cpu("Ant-v3", 1e-4)
+    cross_check_host_cpu("PongClassic-v5", None)
+    rows = []
+    for dev in (DEV, "cpu"):
+        rows += [drive_host("Ant-v3", 32, None, "thread", dev, 10),
+                 drive_host("Ant-v3", 32, 16, "thread", dev, 10),
+                 drive_host("Ant-v3", 32, None, "forloop", dev, 10),
+                 drive_host("Ant-v3", 32, None, "subprocess", dev, 10,
+                            num_threads=4)]
+    rows += [drive_host("PongClassic-v5", 16, None, "thread", DEV, 5),
+             drive_host("PongClassic-v5", 16, 8, "thread", DEV, 5)]
+    rows.append(drive_train_host())
+    return rows
+
+
+# ---------------------------------------------------------------------- #
 # phase 4: the card against the CPU
 # ---------------------------------------------------------------------- #
 def cross_check(task: str, atol: float | None, batch_size: int | None = 8,
@@ -1583,7 +1924,8 @@ def main() -> int:
     # default)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
+    global CARD
+    card = CARD = card_line()
     start = time.perf_counter()
 
     def at() -> str:
@@ -1653,6 +1995,13 @@ def main() -> int:
     cross_check_collect()
     cross_check_model("qwen3-0.6b")
     cross_check_model("starcoder2-3b", attn_type="sliding")
+
+    log(f"phase 5: the host engines {at()}")
+    host_runs = host_phase()
+    log(json.dumps({"host_runs": host_runs, "card": card}))
+    for r in host_runs:
+        for k, v in r["launches"].items():
+            kernels[k]["launches"] += v
 
     log(f"done {at()}")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -8,10 +8,21 @@ compiled on the first launch (``kernels/build.py``).
     pool = repro_torch.make("PongClassic-v5", num_envs=1024)
     ps, ts = pool.reset(repro_torch.random.PRNGKey(0))
     ps, ts = pool.step(ps, actions, ts.env_id)
+
+    pool = repro_torch.make("Ant-v3", num_envs=64, engine="thread",
+                            device="cpu")        # the host thread pool
+    out = pool.reset()                           # a dict of tensors
+    out = pool.step(actions, out["env_id"])
 """
 
 from repro_torch import random
-from repro_torch.core.registry import list_envs, make
+from repro_torch.core.registry import (
+    list_engines,
+    list_envs,
+    make,
+    make_py,
+    register_py,
+)
 from repro_torch.core.transforms import (
     Crop,
     EpisodicLife,
@@ -28,6 +39,6 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Crop", "EpisodicLife", "FrameStack", "Grayscale", "NormalizeObs",
-    "ObsCast", "Resize", "RewardClip", "Transform", "list_envs", "make",
-    "random",
+    "ObsCast", "Resize", "RewardClip", "Transform", "list_engines",
+    "list_envs", "make", "make_py", "random", "register_py",
 ]

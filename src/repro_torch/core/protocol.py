@@ -9,9 +9,11 @@ paper's §3.1 API (``send``, ``recv``, ``step``, ``reset``) plus
   ``PoolState`` — ``send(ps, actions, ids) -> ps``, ``recv(ps) -> (ps,
   TimeStep)``, ``reset(key) -> (ps, TimeStep)`` — with ``init`` and
   ``xla()``;
-* **host** engines (the JAX package's thread, forloop and subprocess
-  pools; not ported yet, ROADMAP A9): stateful objects, ``send(actions,
-  ids)``, ``recv() -> dict``, ``reset() -> dict``.
+* **host** engines (``ThreadEnvPool``, ``ForLoopEnv``,
+  ``SubprocessEnv``): stateful objects, ``send(actions, ids)``,
+  ``recv() -> dict``, ``reset() -> dict``; the dict's values are
+  tensors on the pool's device, and ``send`` takes numpy or tensors on
+  any device.
 
 ``bind(pool)`` hides the difference behind one stateful handle whose
 ``reset``/``step``/``send``/``recv`` all return ``TimeStep`` blocks.
@@ -22,8 +24,6 @@ they are called as they are.
 from __future__ import annotations
 
 from typing import Any, Protocol, runtime_checkable
-
-import numpy as np
 
 from repro_torch import random
 from repro_torch.core.specs import EnvSpec, TimeStep
@@ -110,7 +110,7 @@ class BoundEnvPool:
         if self.functional:
             self._ps = self.pool.send(self._ps, actions, env_ids)
         else:
-            self.pool.send(np.asarray(actions), np.asarray(env_ids))
+            self.pool.send(actions, env_ids)
 
     def recv(self) -> TimeStep:
         if self.functional:
@@ -122,8 +122,7 @@ class BoundEnvPool:
         if self.functional:
             self._ps, ts = self.pool.step(self._ps, actions, env_ids)
             return ts
-        return to_timestep(self.pool.step(np.asarray(actions),
-                                          np.asarray(env_ids)))
+        return to_timestep(self.pool.step(actions, env_ids))
 
     def stats(self) -> dict:
         """The engine's counters: a functional engine's read off the

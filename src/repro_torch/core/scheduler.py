@@ -17,6 +17,7 @@ in f32 in the JAX package's op order.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.utils.tree import tree_dataclass
@@ -132,7 +133,26 @@ def get_scheduler(schedule: str = "fifo") -> Scheduler:
     raise ValueError(f"unknown schedule {schedule!r}; known: {SCHEDULES}")
 
 
+# ---------------------------------------------------------------------- #
+# host (numpy) mirror: ThreadEnvPool's work-queue ordering
+# ---------------------------------------------------------------------- #
+def numpy_priority(schedule: str, cost: np.ndarray) -> np.ndarray:
+    """Host mirror of the policy priorities for lanes being enqueued;
+    lower is pulled by a worker earlier.  ``fifo`` returns zeros (the
+    caller's enqueue order is the host pool's native FIFO); ``sjf``
+    orders by the per-lane cost estimate, with no aging term, like
+    ``SjfScheduler``."""
+    cost = np.asarray(cost, np.float32)
+    if schedule == "fifo":
+        return np.zeros_like(cost)
+    if schedule == "sjf":
+        return cost
+    raise ValueError(
+        f"no host mirror for schedule {schedule!r}; known: {SCHEDULES}")
+
+
 __all__ = [
     "HAS_ACTION", "READY", "SCHEDULES", "WAITING_ACTION", "FifoScheduler",
     "SchedState", "Scheduler", "SjfScheduler", "get_scheduler",
+    "numpy_priority",
 ]

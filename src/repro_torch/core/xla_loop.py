@@ -13,9 +13,15 @@ no ``donate`` option.  Capturing a step in a CUDA graph is left to a
 later slice (ROADMAP B, "outside the kernels").
 
 Step ``t`` of a collect draws with ``random.split(key, num_steps)[t]``,
-the key the scan hands its step ``t``.  Only ``DeviceEnvPool`` is
-ported: a host engine (ROADMAP A9) raises, and so does the pipelined
-collect (A10).
+the key the scan hands its step ``t``.
+
+``collect_init`` and ``build_collect_fn`` are engine-agnostic, as in the
+JAX package: a host engine (thread, forloop, subprocess) gets a loop
+with the same signature and trajectory layout (``ps`` is None), the
+policy acting on each block moved to the key's device, where the
+trajectory is stacked.  The stepwise baseline is for the device engine
+only and raises ``ValueError`` on a host pool, as the JAX package's does;
+the pipelined collect is not ported yet (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -26,17 +32,20 @@ import torch
 
 from repro_torch import random
 from repro_torch.core.engine import DeviceEnvPool, PoolState
+from repro_torch.core.protocol import to_timestep
 from repro_torch.core.specs import TimeStep
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 PolicyFn = Callable[[Any, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def check_device_pool(pool: Any) -> DeviceEnvPool:
+def check_device_pool(pool: Any, what: str) -> DeviceEnvPool:
+    """``pool``, which ``what`` needs to be the functional (device)
+    engine; a host pool raises ``ValueError``."""
     if not isinstance(pool, DeviceEnvPool):
-        raise NotImplementedError(
-            f"{type(pool).__name__}: only the device engine is ported; the "
-            "host engines are not ported yet (ROADMAP A9)")
+        raise ValueError(
+            f"{what} needs a functional (device-family) engine; "
+            f"{type(pool).__name__} is a host engine")
     return pool
 
 
@@ -53,20 +62,29 @@ def write_step(buffers: Any, t: int, tree: Any) -> None:
         buf[t].copy_(leaf)
 
 
-def collect_init(pool: DeviceEnvPool, key: torch.Tensor
-                 ) -> tuple[PoolState, TimeStep]:
-    """``(PoolState, first TimeStep)``: the pool reset from ``key``."""
-    return check_device_pool(pool).reset(key)
+def collect_init(pool: Any, key: torch.Tensor
+                 ) -> tuple[PoolState | None, TimeStep]:
+    """``(carry, first TimeStep)``: the device engine reset from ``key``
+    (``carry`` its ``PoolState``), or a host engine reset (``carry``
+    None; an async thread pool through ``async_reset`` and one recv)."""
+    if isinstance(pool, DeviceEnvPool):
+        return pool.reset(key)
+    if pool.batch_size < pool.num_envs:
+        pool.async_reset()
+        return None, to_timestep(pool.recv())
+    return None, to_timestep(pool.reset())
 
 
-def build_collect_fn(pool: DeviceEnvPool, policy_fn: PolicyFn,
+def build_collect_fn(pool: Any, policy_fn: PolicyFn,
                      num_steps: int) -> Callable:
     """Returns ``collect(ps, policy_params, last_ts, key) -> (ps, last_ts,
     trajectory, actions)``: ``trajectory`` stacks the ``num_steps``
     TimeStep blocks the policy acted on (leaves ``(num_steps, M,
     ...)``), ``actions`` what it returned.  ``policy_fn(params, obs,
-    key) -> actions``."""
-    check_device_pool(pool)
+    key) -> actions``.  Over a host engine ``ps`` is ignored and
+    returned as None."""
+    if not isinstance(pool, DeviceEnvPool):
+        return _host_collect_fn(pool, policy_fn, num_steps)
 
     def collect(ps: PoolState, params: Any, last_ts: TimeStep,
                 key: torch.Tensor):
@@ -86,12 +104,38 @@ def build_collect_fn(pool: DeviceEnvPool, policy_fn: PolicyFn,
     return collect
 
 
+def _host_collect_fn(pool: Any, policy_fn: PolicyFn, num_steps: int
+                     ) -> Callable:
+    """``build_collect_fn`` over a host engine: the policy acts on each
+    block moved to the key's device, its actions go to the pool as they
+    are, and the trajectory is stacked on the key's device."""
+
+    def collect(ps: Any, params: Any, last_ts: Any, key: torch.Tensor):
+        del ps
+        dev = key.device
+        ts = to_timestep(last_ts)
+        traj = acts = None
+        for t, k in enumerate(random.split(key, num_steps)):
+            ts = tree_map(lambda x: x.to(dev), ts)
+            actions = policy_fn(params, ts.obs, k)
+            if traj is None:
+                traj = alloc_steps(num_steps, ts)
+                acts = alloc_steps(num_steps, actions)
+            write_step(traj, t, ts)
+            acts[t] = actions
+            ts = to_timestep(pool.step(actions, ts.env_id))
+        return None, ts, traj, acts
+
+    return collect
+
+
 def build_stepwise_collect_fn(pool: DeviceEnvPool, policy_fn: PolicyFn,
                               num_steps: int) -> Callable:
     """``build_collect_fn``'s signature and layout, with the served obs
     copied to the host and back before the policy runs each step: what a
     driver that keeps the batch on the host pays, the baseline the
     device-resident loop is measured against."""
+    check_device_pool(pool, "build_stepwise_collect_fn")
 
     def host_policy(params, obs, key):
         return policy_fn(params, obs.cpu().to(obs.device), key)
@@ -99,8 +143,10 @@ def build_stepwise_collect_fn(pool: DeviceEnvPool, policy_fn: PolicyFn,
     return build_collect_fn(pool, host_policy, num_steps)
 
 
-def build_pipelined_collect_fn(*args: Any, **kwargs: Any):
-    """The pipelined driver's collect: not ported yet (ROADMAP A10)."""
+def build_pipelined_collect_fn(pool: Any, *args: Any, **kwargs: Any):
+    """The collect of ``train_pipelined``, for the device engine only:
+    not ported yet (ROADMAP A10)."""
+    check_device_pool(pool, "build_pipelined_collect_fn")
     raise NotImplementedError(
         "build_pipelined_collect_fn (the pipelined driver's collect) is not "
         "ported yet (ROADMAP A10)")

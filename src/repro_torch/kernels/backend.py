@@ -12,6 +12,8 @@ exception, never the plain version.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 BACKENDS = ("auto", "cuda", "reference")
@@ -36,4 +38,44 @@ def check_launch(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
-__all__ = ["BACKENDS", "check_launch", "resolve_backend"]
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(op) -> None:
+    """``op.launches += 1`` under one lock: the bare ``+=`` reads, adds
+    and writes back, and loses counts when host engine workers launch
+    from several threads at once."""
+    with _COUNT_LOCK:
+        op.launches += 1
+
+
+def reset_launches(ops) -> None:
+    """Set each op's ``launches`` to 0 under ``count_launch``'s lock."""
+    with _COUNT_LOCK:
+        for op in ops:
+            op.launches = 0
+
+
+def kernel_ops() -> dict:
+    """Every kernel's wrapper, by kernel name; each counts the launches
+    of its kernel in this process in ``.launches``."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.env_step.ops import env_multi_step
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.image import ops as img
+
+    return {"env_step": env_multi_step, "pong_render": img.pong_render,
+            "grayscale": img.grayscale, "crop": img.crop,
+            "resize": img.resize, "decode_attention": decode_attention,
+            "flash_attention": flash_attention}
+
+
+def launch_counts() -> dict[str, int]:
+    """``kernel_ops()``'s launch counts, read under the counters' lock."""
+    ops = kernel_ops()
+    with _COUNT_LOCK:
+        return {k: op.launches for k, op in ops.items()}
+
+
+__all__ = ["BACKENDS", "check_launch", "count_launch", "kernel_ops",
+           "launch_counts", "reset_launches", "resolve_backend"]

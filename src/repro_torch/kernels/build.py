@@ -26,6 +26,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -113,9 +114,20 @@ def _compile(nvcc: str, sources: list[Path], out: Path) -> None:
         os.replace(lib, out)
 
 
-@functools.cache
+# one build serves every thread: without it, threads that reach their
+# first kernel together would each miss the cache and run nvcc
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on the first call."""
+    """The loaded kernel library, built on the first call (by one thread,
+    however many call at once)."""
+    with _LIBRARY_LOCK:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
     sources = sorted(CSRC.glob("*.cu"))
     out = BUILD_DIR / f"librepro_torch_{_digest(sources)}.so"
     if not out.exists():

@@ -23,7 +23,11 @@ import functools
 
 import torch
 
-from repro_torch.kernels.backend import check_launch, resolve_backend
+from repro_torch.kernels.backend import (
+    check_launch,
+    count_launch,
+    resolve_backend,
+)
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_reference,
     default_scale,
@@ -149,7 +153,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         DTYPES[q.dtype], warps, rows, load_width(k, v),
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("decode_attention", err)
-    decode_attention.launches += 1
+    count_launch(decode_attention)
     return out
 
 

@@ -10,7 +10,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.backend import check_launch, resolve_backend
+from repro_torch.kernels.backend import (
+    check_launch,
+    count_launch,
+    resolve_backend,
+)
 from repro_torch.kernels.env_step.ref import (
     N_JOINTS,
     STATE_DIM,
@@ -79,7 +83,7 @@ def env_multi_step(
         env_step_plan(n), torch.cuda.current_stream(dev).cuda_stream,
     )
     check_launch("env_step", err)
-    env_multi_step.launches += 1
+    count_launch(env_multi_step)
     return out, reward
 
 

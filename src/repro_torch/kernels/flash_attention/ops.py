@@ -27,7 +27,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.backend import check_launch, resolve_backend
+from repro_torch.kernels.backend import (
+    check_launch,
+    count_launch,
+    resolve_backend,
+)
 from repro_torch.kernels.decode_attention.ref import default_scale
 from repro_torch.kernels.flash_attention.ref import mha_reference
 
@@ -129,7 +133,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out.stride(0), out.stride(1), out.stride(2),
         DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_attention", err)
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out
 
 

@@ -14,7 +14,11 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels.backend import check_launch, resolve_backend
+from repro_torch.kernels.backend import (
+    check_launch,
+    count_launch,
+    resolve_backend,
+)
 from repro_torch.kernels.image.ref import (
     RGB_H,
     RGB_W,
@@ -84,7 +88,7 @@ def pong_render(ball_x: torch.Tensor, ball_y: torch.Tensor,
         enemy_y.data_ptr(), out.data_ptr(), n, rows, blocks,
         _stream(ball_x))
     check_launch("pong_render", err)
-    pong_render.launches += 1
+    count_launch(pong_render)
     return out
 
 
@@ -129,7 +133,7 @@ def grayscale(rgb: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
         rgb.data_ptr(), out.data_ptr(), n, int(vec),
         gray_plan(n, vec, _device_sms(rgb.device)), _stream(rgb))
     check_launch("grayscale", err)
-    grayscale.launches += 1
+    count_launch(grayscale)
     return out
 
 
@@ -181,7 +185,7 @@ def crop(img: torch.Tensor, top: int, left: int, height: int, width: int,
                                 top, left, height, width, path,
                                 _stream(img))
     check_launch("crop", err)
-    crop.launches += 1
+    count_launch(crop)
     return out
 
 
@@ -251,7 +255,7 @@ def resize(img: torch.Tensor, out_h: int, out_w: int, method: str = "area",
         img.data_ptr(), taps.data_ptr(), out.data_ptr(), n, h, w, out_h,
         out_w, ka, kb, int(bulk_copies(img.data_ptr(), h, w)), _stream(img))
     check_launch("resize", err)
-    resize.launches += 1
+    count_launch(resize)
     return out
 
 

@@ -27,6 +27,10 @@ bitwise the JAX package's; like JAX's int32 they wrap.  The JAX package
 avoids scatters (XLA:CPU serializes a scatter with duplicate indices)
 with an (M, N) one-hot per recv; here a block's lanes are distinct, so
 the per-lane counts are one ``index_add`` each.
+
+``HostTelemetry`` is the numpy mirror the host engines keep
+(``core/host_pool.py``, ``core/baselines.py``): the same counters with
+the same semantics, so their ``stats()`` equal the device engine's.
 """
 
 from __future__ import annotations
@@ -167,8 +171,65 @@ def stats_to_jsonable(stats: dict) -> dict:
             for k, v in stats.items()}
 
 
+class HostTelemetry:
+    """Numpy mirror of ``Telemetry`` for the host engines.
+
+    The pool records what it enqueues (``on_enqueue`` tags each lane's
+    outstanding work item as a step or a reset) and what it serves
+    (``record_block`` once per recv block), so the counters carry the
+    exact semantics of the device engine's, including the step/reset
+    distinction the served block alone cannot reveal.
+    """
+
+    def __init__(self, num_envs: int):
+        n = int(num_envs)
+        self.num_envs = n
+        self.serves = np.zeros(n, np.int64)
+        self.wait_ticks = np.zeros(n, np.int64)
+        self.wait_hist = np.zeros(NUM_BUCKETS, np.int64)
+        self.served = 0
+        self.stepped = 0
+        self.cost_sum = 0
+        self.overdue_admits = 0
+        self.tick = 0
+        self._send_tick = np.zeros(n, np.int64)
+        self._kind_step = np.zeros(n, bool)
+
+    def on_enqueue(self, env_ids, stepped: bool) -> None:
+        """Lanes received work (an action, or a reset when ``stepped``
+        is False) at the current tick."""
+        ids = np.asarray(env_ids, np.int64)
+        self._send_tick[ids] = self.tick
+        self._kind_step[ids] = stepped
+
+    def record_block(self, env_ids, step_cost) -> None:
+        """One recv block was served; advances the tick (the host
+        mirror of ``Scheduler.complete``)."""
+        ids = np.asarray(env_ids, np.int64)
+        wait = self.tick - self._send_tick[ids]
+        self.serves[ids] += 1
+        self.wait_ticks[ids] += wait
+        buckets = np.sum(
+            wait[:, None] >= np.asarray(WAIT_EDGES[1:], np.int64)[None, :],
+            axis=1)
+        np.add.at(self.wait_hist, buckets, 1)
+        self.served += int(ids.size)
+        stepped = self._kind_step[ids]
+        self.stepped += int(stepped.sum())
+        self.cost_sum += int(np.asarray(step_cost, np.int64)[stepped].sum())
+        self.tick += 1
+
+    def snapshot(self) -> dict:
+        return format_stats(
+            recvs=self.tick, serves=self.serves, wait_ticks=self.wait_ticks,
+            wait_hist=self.wait_hist, served=self.served,
+            stepped=self.stepped, cost_sum=self.cost_sum,
+            overdue_admits=self.overdue_admits)
+
+
 __all__ = [
-    "NUM_BUCKETS", "PER_SHARD_FIELDS", "WAIT_EDGES", "Telemetry",
+    "NUM_BUCKETS", "PER_SHARD_FIELDS", "WAIT_EDGES", "HostTelemetry",
+    "Telemetry",
     "format_stats", "init_telemetry", "record_finished", "record_serve",
     "snapshot_device", "stats_to_jsonable",
 ]

@@ -11,11 +11,18 @@ JAX package's, split for split, so a seed gives both packages the same
 initial weights, the same collect keys and the same minibatch
 permutations (``random.permutation``, bitwise).
 
+``train_host`` trains over a host engine (thread, forloop,
+subprocess), the configuration the paper's Fig. 4 profiles: envs
+stepped by the host pool, the policy and the same PPO update on
+``device`` (the card by default, wherever the pool is), each stage
+timed as a fenced ``obs/trace.py`` span (env_step, inference, train,
+other).
+
 The JAX package fuses collect and update into one jitted, donated
 program and places the policy on the env mesh
 (``distributed/sharding.py::policy_shardings``); the port's engine
 holds one device, so there is no placement (the sharded engine is
-ROADMAP A12).  The pipelined, host and disaggregated drivers and the
+ROADMAP A12).  ``train_pipelined``, ``train_disaggregated`` and the
 V-trace update are not ported yet and raise naming their item.
 """
 
@@ -28,12 +35,14 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import random
+from repro_torch.core.registry import resolve_device
 from repro_torch.core.xla_loop import (
     alloc_steps,
     check_device_pool,
     write_step,
 )
 from repro_torch.obs.metrics import MetricsRegistry, publish_history
+from repro_torch.obs.trace import Tracer
 from repro_torch.optim import adamw, linear_decay
 from repro_torch.rl.gae import gae
 from repro_torch.rl.nets import ActorCritic
@@ -191,7 +200,7 @@ def train_device(pool: Any, cfg: PPOConfig, seed: int = 0,
     record an iteration (``iter``, ``env_steps``, ``time_s``, the mean
     ``pg``, ``vf``, ``ent``, ``ratio`` and ``loss`` over the
     minibatches, ``episodes`` and ``mean_return``)."""
-    check_device_pool(pool)
+    check_device_pool(pool, "train_device (use train_host)")
     dev = pool.device
     net = ActorCritic(pool.spec, hidden=hidden)
     key, k_init, k_pool = random.split(random.PRNGKey(seed, device=dev), 3)
@@ -255,10 +264,105 @@ def train_device(pool: Any, cfg: PPOConfig, seed: int = 0,
     return state, net, history
 
 
+# --------------------------------------------------------------------- #
+# training over a host engine (the paper's Fig. 4 profile path)
+# --------------------------------------------------------------------- #
+def train_host(env_pool: Any, spec: Any = None, cfg: PPOConfig | None = None,
+               seed: int = 0, log_fn: Callable[[dict], None] | None = None,
+               hidden: tuple[int, ...] = (256, 128, 64),
+               tracer: Tracer | None = None,
+               registry: MetricsRegistry | None = None,
+               device: torch.device | str | None = None):
+    """PPO over a host engine (``ThreadEnvPool``, ``ForLoopEnv``,
+    ``SubprocessEnv``) with the policy and update on ``device`` (None:
+    the card, wherever the pool is; the paper's layout is envs on the
+    CPU and the learner on the card).  Returns ``(state, net, history,
+    profile)``; ``profile`` has the paper's four buckets, env_step /
+    inference / train / other, in seconds.
+
+    Each bucket is a fenced ``obs/trace.py`` span that closes only after
+    its outputs are computed on the card, so no bucket's device work
+    leaks into the next.  Pass a ``tracer`` to also get the per-span
+    Chrome trace; a ``registry`` receives each iteration record as
+    ``ppo_*`` metrics.  The key flow is the JAX package's: one split for
+    the init, then one per sample step and one per update."""
+    if spec is None:
+        spec = env_pool.spec
+    if cfg is None:
+        cfg = PPOConfig()
+    dev = resolve_device(device)
+    net = ActorCritic(spec, hidden=hidden)
+    key, k_init = random.split(random.PRNGKey(seed, device=dev))
+    params = net.init(k_init)
+
+    M = env_pool.batch_size
+    steps_per_iter = cfg.num_steps * M
+    n_iters = max(1, cfg.total_steps // steps_per_iter)
+    opt, update = make_ppo_update(net, cfg,
+                                  n_iters * cfg.epochs * cfg.minibatches)
+    state = PPOState(params=params, opt=opt.init(params),
+                     step=torch.zeros((), dtype=torch.int32, device=dev))
+
+    env_pool.async_reset()
+    out = env_pool.recv()
+
+    tr = tracer if tracer is not None else Tracer()
+    history: list[dict] = []
+    t_start = time.time()
+    for it in range(n_iters):
+        traj: dict[str, list] = {k: [] for k in (
+            "obs", "actions", "logp", "values", "rewards", "dones",
+            "ep_ret")}
+        for _ in range(cfg.num_steps):
+            with tr.span("inference") as sp, torch.no_grad():
+                key, ks = random.split(key)
+                obs = out["obs"].to(dev)
+                a, logp, v, _ = net.sample(state.params, obs, ks)
+                sp.fence((a, logp, v))
+                a_host = a.cpu()
+            with tr.span("env_step"):
+                new_out = env_pool.step(a_host, out["env_id"])
+            with tr.span("other"):
+                for k, x in (("obs", obs), ("actions", a), ("logp", logp),
+                             ("values", v),
+                             ("rewards", new_out["reward"]),
+                             ("dones", new_out["done"]),
+                             ("ep_ret", new_out["episode_return"])):
+                    traj[k].append(x.to(dev))
+                out = new_out
+
+        with tr.span("other") as sp, torch.no_grad():  # GAE belongs here
+            stacked = {k: torch.stack(v) for k, v in traj.items()}
+            last_v = net.forward(state.params, out["obs"].to(dev))[1]
+            adv, ret = gae(stacked["rewards"], stacked["values"],
+                           stacked["dones"], last_v, cfg.gamma, cfg.lam)
+            rollout = {k: stacked[k] for k in ("obs", "actions", "logp",
+                                                "values")}
+            rollout.update(adv=adv, ret=ret)
+            sp.fence((adv, ret))
+        with tr.span("train") as sp:
+            key, ku = random.split(key)
+            state, metrics = update(state, rollout, ku)
+            sp.fence(metrics["loss"])
+
+        episodes, ep_sum = _episode_metrics(stacked["dones"],
+                                            stacked["ep_ret"])
+        rec = {"iter": it, "env_steps": (it + 1) * steps_per_iter,
+               "time_s": time.time() - t_start,
+               **{k: float(v) for k, v in metrics.items()}}
+        _record(history, rec, int(episodes), float(ep_sum), log_fn,
+                registry)
+    totals = tr.totals()
+    prof = {k: totals.get(k, 0.0)
+            for k in ("env_step", "inference", "train", "other")}
+    return state, net, history, prof
+
+
 def _not_ported(name: str, item: str):
     def driver(*args: Any, **kwargs: Any):
         raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP {item}); train_device is")
+            f"{name} is not ported yet (ROADMAP {item}); train_device and "
+            "train_host are")
 
     driver.__name__ = driver.__qualname__ = name
     driver.__doc__ = f"Not ported yet (ROADMAP {item})."
@@ -266,7 +370,6 @@ def _not_ported(name: str, item: str):
 
 
 train_pipelined = _not_ported("train_pipelined", "A10")
-train_host = _not_ported("train_host", "A10")
 train_host_pipelined = _not_ported("train_host_pipelined", "A10")
 train = _not_ported("train", "A10")
 train_disaggregated = _not_ported("train_disaggregated", "A12")

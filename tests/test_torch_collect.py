@@ -162,13 +162,23 @@ def test_array_spec_sample_is_bitwise(dtype, lo, hi, leading):
 
 
 def test_only_the_device_engine_is_ported():
-    class HostPool:
-        pass
-
-    with pytest.raises(NotImplementedError, match="A9"):
-        tloop.build_collect_fn(HostPool(), torch_policy(False), 4)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tloop.collect_init(HostPool(), R.PRNGKey(0))
+    """``collect_init`` and ``build_collect_fn`` take a host pool too (a
+    forloop pool here: tests/test_torch_train_host.py holds its stream
+    to ``repro``'s); the stepwise and pipelined collects are for the
+    device engine and raise ``ValueError`` on a host pool, as
+    ``repro``'s do; the pipelined one is not ported yet (A10)."""
+    host = repro_torch.make("Pong-v5", num_envs=4, engine="forloop",
+                            device="cpu", max_episode_steps=5)
+    ps, ts = tloop.collect_init(host, R.PRNGKey(0))
+    assert ps is None and tuple(ts.obs.shape) == (4, 4, 84, 84)
+    ps, ts, traj, acts = tloop.build_collect_fn(
+        host, torch_policy(False), 4)(ps, 50, ts, R.PRNGKey(1))
+    assert ps is None and tuple(traj.obs.shape) == (4, 4, 4, 84, 84)
+    assert tuple(acts.shape) == (4, 4)
+    for build in (tloop.build_stepwise_collect_fn,
+                  tloop.build_pipelined_collect_fn):
+        with pytest.raises(ValueError, match="host engine"):
+            build(host, torch_policy(False), 4)
     _, tp = pools("Ant-v3", 4, None)
     with pytest.raises(NotImplementedError, match="A10"):
         tloop.build_pipelined_collect_fn(tp, torch_policy(True), 4)

@@ -6,7 +6,8 @@ order; in bf16 also within ``BF16_EXCESS_TOL`` of the rounding of the
 exact value, ``kernels/flash_attention/ref.py::rounding_excess``), and
 a pool and a decode server on the card against the same on the CPU,
 and one ``train_device`` iteration on the card through the path's
-kernels.  These need a CUDA device: each test is marked ``gpu`` and
+kernels; the host engines on the card against the CPU, their launches
+per env step, and one library build for eight threads.  These need a CUDA device: each test is marked ``gpu`` and
 skips without one.  Run them on the card with
 
     PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
@@ -14,6 +15,8 @@ skips without one.  Run them on the card with
 This file imports no JAX, and ``--noconftest`` skips tests/conftest.py,
 which does: the machine with the card may have no JAX.
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -618,3 +621,120 @@ def test_train_device_runs_on_the_card_through_the_kernels(cuda, task,
         assert leaf.device.type == "cuda" and bool(torch.isfinite(leaf).all())
     for k, n in zip(kernels, before):
         assert k.launches > n, k.__name__
+
+
+def run_host_pool(task, dev, engine, n=8, steps=10):
+    """A host pool's blocks on ``dev``, rows in ``env_id`` order (ids,
+    done, cost, reward, obs on the CPU), its ``stats()`` and the launches
+    of the Ant and Pong kernels over its steps (the reset excluded), a
+    subprocess pool's read from its workers."""
+    pool = repro_torch.make(task, num_envs=n, engine=engine, num_threads=4,
+                            device=dev, max_episode_steps=5)
+    act = pool.spec.act_spec
+    rng = np.random.default_rng(5)
+    kernels = (env_multi_step, ops.pong_render, ops.grayscale, ops.resize)
+    names = ("env_step", "pong_render", "grayscale", "resize")
+
+    def counts():
+        workers = pool.launches() if engine == "subprocess" else {}
+        return [k.launches + workers.get(name, 0)
+                for k, name in zip(kernels, names)]
+
+    try:
+        out = pool.reset()
+        before = counts()
+        rec = []
+        for _ in range(steps):
+            ids = out["env_id"].cpu().numpy()
+            a = (rng.uniform(-1, 1, (n,) + act.shape).astype(np.float32)
+                 if act.dtype.is_floating_point
+                 else rng.integers(0, 6, n).astype(np.int32))
+            out = pool.step(torch.from_numpy(a[ids]).to(dev), out["env_id"])
+            assert out["obs"].device.type == torch.device(dev).type
+            order = out["env_id"].cpu().argsort()
+            rec.append([out[k].cpu()[order] for k in (
+                "env_id", "done", "step_cost", "reward", "obs")])
+        stats = pool.stats()
+        launches = [c - b for c, b in zip(counts(), before)]
+    finally:
+        pool.close()
+    return rec, stats, launches
+
+
+@pytest.mark.parametrize("task,engine,atol", [
+    ("Ant-v3", "thread", 1e-4), ("Ant-v3", "forloop", 1e-4),
+    ("Ant-v3", "subprocess", 1e-4), ("PongClassic-v5", "thread", None),
+])
+def test_host_pools_on_the_card_match_the_cpu(cuda, task, engine, atol):
+    """The host engines on the card (envs stepped there, one lane each,
+    the block transformed there) against the same on the CPU: ids, done,
+    cost and ``stats()`` bitwise; Pong's obs and reward bitwise, Ant's
+    within 1e-4 (CUDA's ``cosf`` against torch's CPU ``cos``)."""
+    got, gstats, _ = run_host_pool(task, cuda, engine)
+    want, cstats, _ = run_host_pool(task, "cpu", engine)
+    for t, (g, c) in enumerate(zip(got, want)):
+        for x, y in zip(g[:3], c[:3]):
+            assert torch.equal(x, y), t
+        for x, y in zip(g[3:], c[3:]):
+            assert (torch.equal(x, y) if atol is None else
+                    torch.allclose(x, y, rtol=0, atol=atol)), t
+    for k, v in cstats.items():
+        assert np.array_equal(gstats[k], v), k
+
+
+@pytest.mark.parametrize("task,engine,n,per_step,per_recv", [
+    ("Ant-v3", "thread", 8, (1, 0), (0, 0)),
+    ("PongClassic-v5", "thread", 4, (0, 1), (1, 1)),
+    ("Ant-v3", "subprocess", 8, (1, 0), (0, 0)),
+])
+def test_host_engine_launches_once_per_env_step(cuda, task, engine, n,
+                                                per_step, per_recv):
+    """No plain fallback hides a kernel, and no count is lost to the
+    worker threads or processes: env_step (Ant) and pong_render (Pong)
+    launch once per host env step, grayscale and resize once per
+    PongClassic recv."""
+    steps = 6
+    _, _, launches = run_host_pool(task, cuda, engine, n=n, steps=steps)
+    want = [steps * n * k for k in per_step] + [steps * k for k in per_recv]
+    assert launches == want
+
+
+def test_library_builds_once_when_eight_threads_first_touch_a_kernel(
+        cuda, monkeypatch, tmp_path):
+    """Eight threads launch env_step together on a fresh build directory:
+    one nvcc build serves them all, and every launch is counted."""
+    from repro_torch.kernels import build
+
+    builds = []
+    compile_ = build._compile
+
+    def counted(nvcc, sources, out):
+        builds.append(out)
+        compile_(nvcc, sources, out)
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_compile", counted)
+    build._load.cache_clear()
+    state, action, cost, reward0 = env_inputs(33, 9)
+    barrier = threading.Barrier(8)
+    results = []
+    try:
+        before = env_multi_step.launches
+
+        def first_touch():
+            barrier.wait()
+            results.append(env_multi_step(state, action, cost, reward0,
+                                          n_sub=10))
+
+        threads = [threading.Thread(target=first_touch) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        assert len(builds) == 1 and len(results) == 8
+        assert env_multi_step.launches - before == 8
+        for r in results:
+            assert torch.equal(r[0], results[0][0])
+    finally:
+        build._load.cache_clear()

@@ -10,8 +10,8 @@ the last bit, and the physics carries that over 30 steps).
 
 Also: a ``PoolState`` carried across from the JAX package continues the
 same stream; importing and running the port pulls in neither ``jax`` nor
-``repro``; ``make`` refuses what the port does not have yet (the host
-and sharded engines).
+``repro``; ``make`` refuses what the port does not have yet (the sharded
+engine) and builds the host engines.
 """
 
 import os
@@ -171,6 +171,20 @@ def test_running_the_port_imports_neither_jax_nor_repro():
         "                                     repro_torch.random.PRNGKey(1))\n"
         "    train_device(pool, PPOConfig(total_steps=4, num_steps=2,\n"
         "                                 minibatches=1), hidden=(8,))\n"
+        "import numpy as np\n"
+        "from repro_torch.core import baselines, buffers, host_pool\n"
+        "from repro_torch.envs import host_numpy\n"
+        "from repro_torch.rl import train_host\n"
+        "for engine in ('thread', 'forloop', 'subprocess'):\n"
+        "    pool = repro_torch.make('Ant-v3', num_envs=2, engine=engine,\n"
+        "                            num_threads=1, device='cpu')\n"
+        "    train_host(pool, cfg=PPOConfig(total_steps=4, num_steps=2,\n"
+        "                                   minibatches=1), hidden=(8,),\n"
+        "               device='cpu')\n"
+        "    pool.close()\n"
+        "env = repro_torch.make_py('Ant-v3')\n"
+        "env.reset()\n"
+        "env.step(np.zeros(8, np.float32))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
@@ -199,7 +213,9 @@ def test_port_sources_import_neither_jax_nor_repro():
                  ("rl", "nets.py"), ("optim", "adamw.py"),
                  ("obs", "telemetry.py"), ("core", "protocol.py"),
                  ("core", "dm_api.py"), ("checkpoint", "store.py"),
-                 ("envs", "classic.py")):
+                 ("envs", "classic.py"), ("core", "host_pool.py"),
+                 ("core", "baselines.py"), ("core", "buffers.py"),
+                 ("envs", "host_numpy.py")):
         assert os.path.join(ROOT, "src", "repro_torch", *part) in files
     offenders = []
     for path in files:
@@ -218,23 +234,38 @@ def test_make_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    ({"engine": "forloop"}, NotImplementedError),
+    ({"engine": "forloop"}, None),
     ({"engine": "device-sharded"}, NotImplementedError),
-    ({"engine": "thread"}, NotImplementedError),
+    ({"engine": "thread"}, None),
     ({"engine": "gpu-cluster"}, ValueError),
-    ({"engine": "subprocess"}, NotImplementedError),
+    ({"engine": "subprocess"}, None),
     ({"batch_size": 2, "schedule": "hierarchical"}, ValueError),
     ({"batch_size": 2, "schedule": "random"}, ValueError),
 ])
 def test_make_refuses_what_is_not_ported(kwargs, error):
-    with pytest.raises(error):
-        repro_torch.make("Ant-v3", num_envs=4, device="cpu", **kwargs)
+    """The sharded engine and unknown engines and schedules raise; the
+    host engines (``error`` None) are ported: they build and serve a
+    block of every env, tensors on the pool's device."""
+    if error is not None:
+        with pytest.raises(error):
+            repro_torch.make("Ant-v3", num_envs=4, device="cpu", **kwargs)
+        return
+    pool = repro_torch.make("Ant-v3", num_envs=4, device="cpu",
+                            num_threads=1, **kwargs)
+    try:
+        out = pool.reset()
+        assert tuple(out["obs"].shape) == (4, 29)
+        assert sorted(out["env_id"].tolist()) == [0, 1, 2, 3]
+        assert out["obs"].device == torch.device("cpu")
+    finally:
+        pool.close()
 
 
 def test_registered_tasks_and_stats():
-    """Every device-family task of ``repro.make`` (its host-only
-    ``make_py`` entries wait for the host engines, A9); ``stats()`` by
-    default, and a RuntimeError under ``obs=False``, as in ``repro``."""
+    """Every device-family task of ``repro.make`` (its pure-numpy envs
+    are ``make_py``'s: tests/test_torch_host_engines.py);
+    ``stats()`` by default, and a RuntimeError under ``obs=False``, as
+    in ``repro``."""
     assert repro_torch.list_envs() == sorted([
         "Ant-v3", "MujocoLike-Ant-v3", "Pong-v5", "AtariLike-Pong-v5",
         "PongStack-v5", "PongClassic-v5", "TokenCopy-v0", "TokenSkew-v0",
@@ -255,13 +286,26 @@ def test_registered_tasks_and_stats():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"num_threads": 4}, "A9"),
+    ({"num_threads": 4}, None),
     ({"num_shards": 2}, "A12"),
     ({"mesh": 2}, "A12"),
 ])
 def test_make_names_the_item_of_each_unported_option(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        repro_torch.make("Ant-v3", num_envs=4, device="cpu", **kwargs)
+    """``num_shards`` and ``mesh`` name the sharded engine's item;
+    ``num_threads`` (``item`` None) is the host engines' thread count,
+    which the device engine ignores, as ``repro.make`` does."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            repro_torch.make("Ant-v3", num_envs=4, device="cpu", **kwargs)
+        return
+    assert repro_torch.make("Ant-v3", num_envs=4, device="cpu",
+                            **kwargs).num_envs == 4
+    pool = repro_torch.make("Ant-v3", num_envs=4, device="cpu",
+                            engine="thread", **kwargs)
+    try:
+        assert pool.num_threads == 4
+    finally:
+        pool.close()
 
 
 def test_make_takes_the_options_of_repro_make():

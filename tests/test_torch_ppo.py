@@ -284,12 +284,20 @@ def test_train_device_four_updates_match_repro(task, n, m):
 
 
 def test_train_device_refuses_what_is_not_ported():
-    class HostPool:
-        spec = None
-
-    with pytest.raises(NotImplementedError, match="A9"):
-        tppo.train_device(HostPool(), tppo.PPOConfig())
-    for name, item in (("train_pipelined", "A10"), ("train_host", "A10"),
+    """``train_device`` on a host pool names ``train_host``, which runs
+    on one (tests/test_torch_train_host.py holds it to ``repro``'s); the
+    pipelined, V-trace and disaggregated trainers name their items."""
+    host = repro_torch.make("CartPole-v1", num_envs=4, engine="forloop",
+                            device="cpu")
+    with pytest.raises(ValueError, match="train_host"):
+        tppo.train_device(host, tppo.PPOConfig())
+    state, _, history, prof = tppo.train_host(
+        host, cfg=tppo.PPOConfig(total_steps=8, num_steps=2, epochs=1,
+                                 minibatches=1),
+        hidden=(8,), device="cpu")
+    assert int(state.step) == 1 and len(history) == 1
+    assert set(prof) == {"env_step", "inference", "train", "other"}
+    for name, item in (("train_pipelined", "A10"),
                        ("train_host_pipelined", "A10"), ("train", "A10"),
                        ("make_vtrace_ppo_update", "A10"),
                        ("train_disaggregated", "A12")):

@@ -148,7 +148,7 @@ class HostPool:
         return self._out([0, 1, 2, 3])
 
     def send(self, actions, env_ids):
-        assert isinstance(actions, np.ndarray)
+        self.sent = (actions, env_ids)
         self.calls.append("send")
 
     def recv(self):
@@ -173,7 +173,11 @@ def test_bind_over_a_host_engine():
     h = protocol.bind(pool)
     ts = h.reset()
     assert isinstance(ts, TimeStep) and ts.env_id.tolist() == [2, 3]
-    h.send(torch.zeros(2), ts.env_id)
+    # the host branch hands actions and ids over as they come (a CUDA
+    # tensor included: the pool converts them)
+    actions = torch.zeros(2)
+    h.send(actions, ts.env_id)
+    assert pool.sent[0] is actions and pool.sent[1] is ts.env_id
     assert h.recv().reward.tolist() == [1.0, 1.0]
     assert h.step(torch.zeros(2), np.array([0, 1])).env_id.tolist() == [0, 1]
     assert pool.calls == ["async_reset", "recv", "send", "recv", "step"]
