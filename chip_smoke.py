@@ -66,7 +66,14 @@ Phases, in order; any failure exits non-zero:
      warm up, one timed (env steps/s, frames/s, ms per iteration and
      the host ms of it spent in the recvs), one under ``torch.profiler``
      (device busy, idle share, the top three kernel families); losses
-     and params finite, params on the card;
+     and params finite, params on the card; after each, the same run
+     through ``train_pipelined`` (the update on a second CUDA stream):
+     its ms per iteration beside ``train_device``'s, each iteration's
+     ``rho_behavior`` (finite), peak memory, and from the profiled
+     iteration's kernel events by stream the overlap share (the
+     fraction of the update stream's kernel time during which a
+     collect-stream kernel also ran) and the time any kernel ran, whose
+     complement is the idle share;
    - the decode server: ``DecodePool.serve`` on qwen3-0.6b at full width
      (28 layers, weights from a seeded generator), 32 lanes, 64
      requests, fifo with continuous admission; then five decode steps
@@ -96,7 +103,8 @@ Phases, in order; any failure exits non-zero:
    Ant-v3 N=8, 8 steps, 2 iterations of 1 epoch of 2 minibatches,
    hidden (32, 32)): the actions sent equal (Ant's within 1e-4), the
    same episodes, losses within 1e-4 relative (``pg`` 1e-5 absolute),
-   params within 1e-5.
+   params within 1e-5; ``train_pipelined`` alike, its ``rho_behavior``
+   within 1e-4.
    ``DecodePool.serve`` on the f32 ``lm-policy`` config (4 lanes, 8
    requests) gives identical token lists, and 16 recvs of the sampled
    LM collect on ``TokenRagged-v0`` N=16/M=8 identical actions, ids and
@@ -122,13 +130,18 @@ Phases, in order; any failure exits non-zero:
    PongClassic-v5 N=16 thread (sync and M=8) on the card, 5 recvs each;
    and ``train_host`` on Ant-v3 N=16 with the envs on the CPU and the
    learner on the card (16 steps, ``PPOConfig``'s 4 x 4 minibatches,
-   MLP 256-128-64), two iterations, the second's four Fig. 4 buckets.
+   MLP 256-128-64), two iterations, the second's four Fig. 4 buckets;
+   ``train_host_pipelined`` in the same layout, three iterations, its
+   actor_wait, train and other buckets a timed iteration beside
+   ``train_host``'s, and again with the envs on the card (N=8, 8 steps),
+   where env_step must launch.
    Each row is a JSON line with the card's name and power limit.
 
 Then a ``kernels`` JSON line, the card line, and the last line
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
-the rest of the repository beside it, the script fails before printing
-any result.
+``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py turns``
+runs only the two training drivers in turns (``train_turns``).
+Without a CUDA device, or without the rest of the repository beside it,
+the script fails before printing any result.
 """
 
 from __future__ import annotations
@@ -924,21 +937,128 @@ def drive_pool(task: str, n: int, m: int | None, schedule: str,
     return out
 
 
-def drive_train(task: str, n: int, num_steps: int, path: tuple[str, ...]
-                ) -> dict:
+def stream_overlap(prof, path: tuple[str, ...]) -> dict:
+    """The profiler's kernel events by CUDA stream: the collect stream is
+    the one that ran the path's kernels (``<name>_kernel``), every other
+    stream with kernels counts as the update's (cuDNN runs some of the
+    update's convolution kernels on streams of its own, so a run with
+    both halves on one stream still shows a small share: the baseline,
+    ``train_turns``'s one-stream rows).  Returns the kernel ms on each,
+    the ms during which any kernel ran (``device_union_ms``) and
+    ``overlap_share``, the fraction of the update streams' kernel time
+    during which a collect-stream kernel also ran (None with one
+    stream)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    by_stream: dict[int, list[tuple[int, int]]] = {}
+    collect_ids = set()
+    marks = tuple(f"{k}_kernel" for k in path)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0:
+            continue
+        sid = e.device_resource_id()
+        by_stream.setdefault(sid, []).append((e.start_ns(), e.end_ns()))
+        if any(m in e.name() for m in marks):
+            collect_ids.add(sid)
+
+    def merged(spans):
+        out = []
+        for a, b in sorted(spans):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    every = merged([s for spans in by_stream.values() for s in spans])
+    collect = merged([s for sid in collect_ids for s in by_stream[sid]])
+    update = [s for sid, spans in by_stream.items() if sid not in collect_ids
+              for s in spans]
+    starts = [a for a, _ in collect]
+    covered = 0
+    for a, b in update:
+        i = max(0, bisect.bisect_right(starts, a) - 1)
+        while i < len(collect) and collect[i][0] < b:
+            covered += max(0, min(b, collect[i][1]) - max(a, collect[i][0]))
+            i += 1
+    update_ns = sum(b - a for a, b in update)
+    return {"collect_stream_kernel_ms":
+            sum(b - a for sid in collect_ids
+                for a, b in by_stream[sid]) / 1e6,
+            "update_stream_kernel_ms": update_ns / 1e6,
+            "streams": len(by_stream),
+            "device_union_ms": sum(b - a for a, b in every) / 1e6,
+            "overlap_share": covered / update_ns if update_ns else None}
+
+
+def host_api(prof) -> dict:
+    """The CUDA runtime calls ``prof`` saw on the host: the kernel
+    launches' count, summed and longest ms (a launch blocks once the
+    card's queue of pending work is full), and the ms spent in
+    ``*Synchronize`` calls."""
+    from torch.autograd import DeviceType
+
+    launch, sync = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CPU:
+            continue
+        name = e.name()
+        if "LaunchKernel" in name:
+            launch.append(e.duration_ns())
+        elif "Synchronize" in name:
+            sync.append(e.duration_ns())
+    return {"launch_api_calls": len(launch),
+            "launch_api_ms": sum(launch) / 1e6,
+            "launch_api_max_ms": max(launch, default=0) / 1e6,
+            "sync_api_ms": sum(sync) / 1e6}
+
+
+def drive_train(task: str, n: int, num_steps: int, path: tuple[str, ...],
+                beside: dict | None = None) -> dict:
     """``train_device`` on ``task`` N=n sync with ``PPOConfig``'s defaults
     (4 epochs of 4 minibatches) at ``num_steps``, the nets at their
     published widths (Ant: MLP 256-128-64; Pong: the Nature-CNN, fc 512),
     f32 without TF32, for three iterations: the first warms up, the
     second is timed, the third runs under ``torch.profiler``.  The
-    launch counts cover the whole call."""
+    launch counts cover the whole call.
+
+    With ``beside``, a ``train_device`` row of the same task, it runs
+    ``train_pipelined`` instead and adds each
+    iteration's ``rho_behavior`` (finite), the ms per iteration against
+    ``beside``'s, and what ``stream_overlap`` reads off the profiled
+    iteration: the overlap share of the update stream's kernel time and
+    the device time during which any kernel ran, from which its idle
+    share comes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import repro_torch
     from repro_torch.core.xla_loop import frames_per_batch
-    from repro_torch.rl.ppo import PPOConfig, train_device
+    from repro_torch.rl.ppo import PPOConfig, train_device, train_pipelined
     from repro_torch.utils.tree import tree_leaves
+
+    from repro_torch.rl import ppo
+
+    driver = train_device if beside is None else train_pipelined
+    name = driver.__name__
+    # host seconds from the update's call to its return, an iteration:
+    # its dispatch, and any wait for the card while it dispatches
+    maker = "make_ppo_update" if beside is None else "make_vtrace_ppo_update"
+    make_update = getattr(ppo, maker)
+    update_s = []
+
+    def timed_maker(*args, **kwargs):
+        opt, update = make_update(*args, **kwargs)
+
+        def timed_update(*a, **kw):
+            t = time.perf_counter()
+            out = update(*a, **kw)
+            update_s.append(time.perf_counter() - t)
+            return out
+
+        return opt, timed_update
 
     pool = repro_torch.make(task, num_envs=n)
     iters = 3
@@ -958,8 +1078,8 @@ def drive_train(task: str, n: int, num_steps: int, path: tuple[str, ...]
     pool.step = timed_step
 
     def log_fn(rec):
-        # train_device has just read the iteration's metrics, so the card
-        # has finished the iteration
+        # the driver has just read the iteration's metrics, so the card
+        # has finished its update (train_device: the whole iteration)
         ends.append(time.perf_counter())
         recv_s.append(0.0)
         if rec["iter"] == 1:
@@ -972,29 +1092,37 @@ def drive_train(task: str, n: int, num_steps: int, path: tuple[str, ...]
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    state, net, history = train_device(pool, cfg, seed=SEED, log_fn=log_fn)
+    setattr(ppo, maker, timed_maker)
+    try:
+        state, net, history = driver(pool, cfg, seed=SEED, log_fn=log_fn)
+    finally:
+        setattr(ppo, maker, make_update)
     torch.cuda.synchronize()
-    launches = read_counts(f"train {task}", path)
+    launches = read_counts(f"{name} {task}", path)
     updates = iters * cfg.epochs * cfg.minibatches
     if len(history) != iters or int(state.step) != updates:
-        raise AssertionError(f"train {task}: {len(history)} iterations, "
+        raise AssertionError(f"{name} {task}: {len(history)} iterations, "
                              f"{int(state.step)} updates")
+    metrics = ("loss", "pg", "vf", "ent", "ratio") + (
+        () if beside is None else ("rho_behavior",))
     for rec in history:
-        bad = [k for k in ("loss", "pg", "vf", "ent", "ratio")
-               if not np.isfinite(rec[k])]
+        bad = [k for k in metrics if not np.isfinite(rec[k])]
         if bad:
-            raise AssertionError(f"train {task} iter {rec['iter']}: "
+            raise AssertionError(f"{name} {task} iter {rec['iter']}: "
                                  f"non-finite {bad}")
     for leaf in tree_leaves(state.params):
         if leaf.device.type != torch.device(DEV).type \
                 or not bool(torch.isfinite(leaf).all()):
-            raise AssertionError(f"train {task}: params not finite on "
+            raise AssertionError(f"{name} {task}: params not finite on "
                                  f"{DEV}")
     t_prof = time.perf_counter()
     summary = device_summary(prof, 1, "iter")
+    streams = None if beside is None else stream_overlap(prof, path)
+    api = host_api(prof)
     dt = ends[1] - ends[0]
     busy = summary["device_busy_ms_per_iter"]
-    out = {"task": task, "num_envs": n, "batch_size": pool.batch_size,
+    out = {"driver": name, "task": task, "num_envs": n,
+           "batch_size": pool.batch_size,
            "num_steps": num_steps, "epochs": cfg.epochs,
            "minibatches": cfg.minibatches, "iterations": iters,
            "net": "nature-cnn" if net.pixel else list(net.hidden),
@@ -1002,26 +1130,48 @@ def drive_train(task: str, n: int, num_steps: int, path: tuple[str, ...]
            "frames_per_s": num_steps * frames_per_batch(pool) / dt,
            "ms_per_iter": dt * 1e3,
            "recv_host_ms_per_iter": recv_s[1] * 1e3,
+           "update_host_ms_per_iter": update_s[1] * 1e3,
            "warmup_ms": (ends[0] - t0) * 1e3,
            "profiled_ms": (ends[2] - ends[1]) * 1e3,
-           "profile_read_s": time.perf_counter() - t_prof,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches,
-           "history": [{k: r[k] for k in ("iter", "loss", "pg", "vf", "ent",
-                                          "ratio", "episodes",
-                                          "mean_return")}
-                       for r in history]}
+           "history": [{k: r[k] for k in ("iter",) + metrics + (
+               "episodes", "mean_return")} for r in history]}
     out.update(summary)
+    out.update(api)
     out["top3_ms_per_iter"] = top3(summary, "iter")
     out["device_idle_share"] = (None if busy is None
                                 else 1.0 - busy / out["ms_per_iter"])
-    log(f"  train_device {task} N={n} T={num_steps}: "
+    extra = ""
+    if streams is not None:
+        out.update(streams)
+        out["device_idle_share"] = 1.0 - (streams["device_union_ms"]
+                                          / out["ms_per_iter"])
+        out["train_device_ms_per_iter"] = beside["ms_per_iter"]
+        out["ms_per_iter_vs_train_device"] = (out["ms_per_iter"]
+                                              / beside["ms_per_iter"])
+        extra = (f" against train_device's {beside['ms_per_iter']:.1f} "
+                 f"({out['ms_per_iter_vs_train_device']:.3f}x); overlap "
+                 f"share {streams['overlap_share']}, kernels on the "
+                 f"update stream {streams['update_stream_kernel_ms']:.1f} "
+                 f"ms and the collect's "
+                 f"{streams['collect_stream_kernel_ms']:.1f}, any kernel "
+                 f"running {streams['device_union_ms']:.1f} ms of the "
+                 f"profiled {out['profiled_ms']:.1f}; rho_behavior "
+                 f"{[r['rho_behavior'] for r in history]}")
+    out["profile_read_s"] = time.perf_counter() - t_prof
+    log(f"  {name} {task} N={n} T={num_steps}: "
         f"{out['env_steps_per_s']:.0f} env steps/s, "
         f"{out['frames_per_s']:.0f} frames/s, {out['ms_per_iter']:.1f} "
-        f"ms/iter ({out['recv_host_ms_per_iter']:.1f} in the recvs), "
-        f"device busy {busy} ms/iter, idle share "
+        f"ms/iter ({out['recv_host_ms_per_iter']:.1f} in the recvs, "
+        f"{out['update_host_ms_per_iter']:.1f} in the update's call)"
+        f"{extra}, device busy {busy} ms/iter, idle share "
         f"{out['device_idle_share']}, top3 {out['top3_ms_per_iter']}, "
-        f"launches {launches}")
+        f"peak {out['peak_mem_gb']:.2f} GB, launches {launches}; in the "
+        f"profiled iteration {api['launch_api_calls']} kernel launches "
+        f"took {api['launch_api_ms']:.1f} ms of host (longest "
+        f"{api['launch_api_max_ms']:.3f}), synchronize calls "
+        f"{api['sync_api_ms']:.1f} ms; {CARD}")
     del state, net, pool
     torch.cuda.empty_cache()
     return out
@@ -1529,6 +1679,78 @@ def drive_train_host(n: int = 16, num_steps: int = 16) -> dict:
     return row
 
 
+def drive_train_host_pipelined(beside: dict, n: int = 16,
+                               num_steps: int = 16, env_device: str = "cpu"
+                               ) -> dict:
+    """``train_host_pipelined`` on Ant-v3, the thread engine, N=n sync
+    with the envs on ``env_device`` and the learner on the card (MLP
+    256-128-64, ``PPOConfig``'s 4 epochs of 4 minibatches), three
+    iterations: the first warms up, the second and third are timed, their
+    buckets (actor_wait, train, other) read off the tracer's totals and
+    set beside ``beside``'s, the ``train_host`` row of the same layout.
+    The actor runs ahead of the learner by up to the ring's two blocks,
+    so the launches count more env steps than the learner consumed.
+    With the envs on the card env_step must have launched."""
+    import torch
+
+    import repro_torch
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.rl.ppo import PPOConfig, train_host_pipelined
+    from repro_torch.utils.tree import tree_leaves
+
+    pool = repro_torch.make("Ant-v3", num_envs=n, engine="thread",
+                            device=env_device)
+    iters = 3
+    cfg = PPOConfig(total_steps=iters * num_steps * n, num_steps=num_steps)
+    tr = Tracer()
+    marks = []
+
+    def log_fn(rec):
+        marks.append((time.perf_counter(), tr.totals()))
+
+    try:
+        reset_counts()
+        state, _, history, prof = train_host_pipelined(
+            pool, cfg=cfg, seed=SEED, tracer=tr, log_fn=log_fn, device=DEV)
+        torch.cuda.synchronize()
+    finally:
+        pool.close()
+    tag = f"train_host_pipelined envs on {env_device}"
+    launches = read_counts(tag, ("env_step",) if env_device == DEV else ())
+    (t1, tot1), (t3, tot3) = marks[0], marks[-1]
+    timed = iters - 1
+    buckets = {k: (tot3.get(k, 0.0) - tot1.get(k, 0.0)) * 1e3 / timed
+               for k in ("actor_wait", "train", "other")}
+    for leaf in tree_leaves(state.params):
+        if leaf.device.type != torch.device(DEV).type \
+                or not bool(torch.isfinite(leaf).all()):
+            raise AssertionError(f"{tag}: params not finite on {DEV}")
+    if len(history) != iters or not all(
+            np.isfinite(r[k]) for r in history
+            for k in ("loss", "rho_behavior")):
+        raise AssertionError(f"{tag}: history {history}")
+    ms = (t3 - t1) * 1e3 / timed
+    row = {"task": "Ant-v3", "engine": "thread", "env_device": env_device,
+           "learner_device": DEV, "num_envs": n, "num_steps": num_steps,
+           "epochs": cfg.epochs, "minibatches": cfg.minibatches,
+           "iterations": iters, "ms_per_iter": ms,
+           "env_steps_per_s": num_steps * n / ms * 1e3,
+           "buckets_ms": buckets,
+           "bucket_share": {k: v / ms for k, v in buckets.items()},
+           "train_host_ms_per_iter": beside["ms_per_iter"],
+           "train_host_buckets_ms": beside["buckets_ms"],
+           "launches": launches,
+           "history": [{k: r[k] for k in ("iter", "loss", "rho_behavior",
+                                          "episodes")} for r in history]}
+    log(f"  {tag}, learner on the card, Ant-v3 N={n} T={num_steps}: "
+        f"{ms:.0f} ms/iter, {row['env_steps_per_s']:.1f} env steps/s, "
+        f"buckets ms {buckets}; train_host {beside['ms_per_iter']:.0f} "
+        f"ms/iter, buckets ms {beside['buckets_ms']}; rho_behavior "
+        f"{[r['rho_behavior'] for r in history]}; launches {launches}")
+    log(json.dumps({"train_host_pipelined": row, "card": CARD}))
+    return row
+
+
 def host_blocks(pool, steps: int, tables, out) -> tuple[list, dict]:
     """``out``, a host pool's reset block, and ``steps`` more blocks;
     every block's fields on the CPU, rows in ``env_id`` order, and
@@ -1669,7 +1891,10 @@ def host_phase() -> list[dict]:
                             num_threads=4)]
     rows += [drive_host("PongClassic-v5", 16, None, "thread", DEV, 5),
              drive_host("PongClassic-v5", 16, 8, "thread", DEV, 5)]
-    rows.append(drive_train_host())
+    host_row = drive_train_host()
+    rows += [host_row, drive_train_host_pipelined(host_row),
+             drive_train_host_pipelined(host_row, n=8, num_steps=8,
+                                        env_device=DEV)]
     return rows
 
 
@@ -1792,14 +2017,16 @@ def cross_check_collect(recvs: int = 16) -> None:
         "recvs (actions, ids, dones)")
 
 
-def cross_check_train(task: str, n: int, atol: float | None) -> None:
-    """``train_device`` at the CPU tests' size (N=n sync, 8 steps, hidden
-    (32, 32), 5-step episodes) for 2 iterations of 1 epoch of 2
-    minibatches on the card and on the CPU: the actions each step sent,
-    equal (``atol`` None) or within ``atol``, the same episodes, losses
-    within 1e-4 relative (``pg`` 1e-5 absolute), the final params within
-    1e-5.  TF32 is off, so
-    the card's convs and matmuls are f32 too.
+def cross_check_train(task: str, n: int, atol: float | None,
+                      pipelined: bool = False) -> None:
+    """``train_device`` (``train_pipelined`` if ``pipelined``, its
+    ``rho_behavior`` held as the losses are) at the CPU tests' size (N=n
+    sync, 8 steps, hidden (32, 32), 5-step episodes) for 2 iterations of
+    1 epoch of 2 minibatches on the card and on the CPU: the actions
+    each step sent, equal (``atol`` None) or within ``atol``, the same
+    episodes, losses within 1e-4 relative (``pg`` 1e-5 absolute), the
+    final params within 1e-5.  TF32 is off, so the card's convs and
+    matmuls are f32 too.
 
     Four updates, not ``PPOConfig``'s 32: over 32 a ReLU whose input
     sits at zero can open under one summation order and not another,
@@ -1810,9 +2037,11 @@ def cross_check_train(task: str, n: int, atol: float | None) -> None:
     import torch
 
     import repro_torch
-    from repro_torch.rl.ppo import PPOConfig, train_device
+    from repro_torch.rl.ppo import PPOConfig, train_device, train_pipelined
     from repro_torch.utils.tree import tree_leaves_with_path
 
+    driver = train_pipelined if pipelined else train_device
+    name = driver.__name__
     runs = {}
     for dev in (DEV, "cpu"):
         pool = repro_torch.make(task, num_envs=n, device=dev,
@@ -1827,8 +2056,7 @@ def cross_check_train(task: str, n: int, atol: float | None) -> None:
         pool.step = recording_step
         cfg = PPOConfig(total_steps=2 * 8 * n, num_steps=8, epochs=1,
                         minibatches=2)
-        state, _, history = train_device(pool, cfg, seed=SEED,
-                                         hidden=(32, 32))
+        state, _, history = driver(pool, cfg, seed=SEED, hidden=(32, 32))
         runs[dev] = (torch.stack(acts), history,
                      {p: x.cpu() for p, x in
                       tree_leaves_with_path(state.params)})
@@ -1838,23 +2066,24 @@ def cross_check_train(task: str, n: int, atol: float | None) -> None:
     else:
         ok = torch.allclose(g_acts, c_acts, rtol=0, atol=atol)
     if not ok:
-        raise AssertionError(f"train {task}: actions differ between cuda "
+        raise AssertionError(f"{name} {task}: actions differ between cuda "
                              "and cpu")
     eps = [r["episodes"] for r in c_hist]
     if [r["episodes"] for r in g_hist] != eps or sum(eps) == 0:
-        raise AssertionError(f"train {task}: episodes differ between cuda "
+        raise AssertionError(f"{name} {task}: episodes differ between cuda "
                              "and cpu, or none ended")
     for g, c in zip(g_hist, c_hist):
-        for k in ("loss", "pg", "vf", "ent", "ratio"):
+        for k in ("loss", "pg", "vf", "ent", "ratio") + (
+                ("rho_behavior",) if pipelined else ()):
             # pg is a mean of terms of size 1 that cancel to 1e-4
             tol = 1e-5 if k == "pg" else 1e-4 * abs(c[k]) + 1e-6
             if abs(g[k] - c[k]) > tol:
-                raise AssertionError(f"train {task} iter {c['iter']}: {k} "
+                raise AssertionError(f"{name} {task} iter {c['iter']}: {k} "
                                      f"{g[k]} on cuda, {c[k]} on cpu")
     err = max(float((g_par[p] - c_par[p]).abs().max()) for p in c_par)
     if err > 1e-5:
-        raise AssertionError(f"train {task}: params differ by {err} > 1e-5")
-    log(f"  train_device {task} N={n}, 2 iterations of 1 x 2 minibatches: "
+        raise AssertionError(f"{name} {task}: params differ by {err} > 1e-5")
+    log(f"  {name} {task} N={n}, 2 iterations of 1 x 2 minibatches: "
         "cuda == cpu actions"
         + (" (bitwise)" if atol is None else f" (within {atol})")
         + f", episodes {eps}, losses within 1e-4, params within 1e-5 "
@@ -1961,9 +2190,12 @@ def main() -> int:
         drive_pool("AntNorm-v3", 4096, None, "fifo", ant),
     ]
     log(json.dumps({"pool_runs": runs}))
-    train_runs = [drive_train("Ant-v3", 4096, 128, ant),
-                  drive_train("PongClassic-v5", 1024, 128, pong)]
-    log(json.dumps({"train_runs": train_runs}))
+    train_runs = []
+    for task, n, path in (("Ant-v3", 4096, ant),
+                          ("PongClassic-v5", 1024, pong)):
+        row = drive_train(task, n, 128, path)
+        train_runs += [row, drive_train(task, n, 128, path, beside=row)]
+    log(json.dumps({"train_runs": train_runs, "card": card}))
     cfg, pol, params = qwen3_params()
     lm_runs = [drive_serve(cfg, pol, params), drive_collect(cfg, params)]
     del pol, params
@@ -1991,6 +2223,8 @@ def main() -> int:
     cross_check("AntNorm-v3", 1e-3, batch_size=None)
     cross_check_train("PongClassic-v5", 4, None)
     cross_check_train("Ant-v3", 8, 1e-4)
+    cross_check_train("PongClassic-v5", 4, None, pipelined=True)
+    cross_check_train("Ant-v3", 8, 1e-4, pipelined=True)
     cross_check_serve()
     cross_check_collect()
     cross_check_model("qwen3-0.6b")
@@ -2012,5 +2246,71 @@ def main() -> int:
     return 0
 
 
+TURN_PATHS = {"Ant-v3": (4096, ("env_step",)),
+              "PongClassic-v5": (1024, ("pong_render", "grayscale",
+                                        "resize"))}
+
+
+def train_turns(argv: list[str]) -> int:
+    """``python3 chip_smoke.py turns [--tasks Ant-v3,PongClassic-v5]
+    [--rounds 1]``: ``drive_train`` through ``train_device``,
+    ``train_pipelined`` and ``train_pipelined`` with both halves on one
+    stream (its ``_Streams`` made the CPU's no-ops: the pipelined order
+    and code without the second stream) in turns, device, two streams,
+    one stream, one stream, two streams, device for each task and round,
+    so each driver's spread shows beside their differences on one card;
+    one JSON line a run (the row without its history and launches, with
+    its ``variant``), the card's name and power limit first."""
+    import argparse
+
+    import torch
+
+    from repro_torch.rl import ppo
+
+    parser = argparse.ArgumentParser(prog="chip_smoke.py turns")
+    parser.add_argument("--tasks", default="Ant-v3,PongClassic-v5")
+    parser.add_argument("--rounds", type=int, default=1)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels.build import library
+
+    class OneStream(ppo._Streams):
+        def __init__(self, dev):
+            super().__init__(torch.device("cpu"))
+
+    global CARD
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    CARD = card_line()
+    log(CARD)
+    library()
+    two_streams = ppo._Streams
+    for r in range(args.rounds):
+        for task in args.tasks.split(","):
+            n, path = TURN_PATHS[task]
+            device_row = None
+            for variant in ("device", "two streams", "one stream",
+                            "one stream", "two streams", "device"):
+                ppo._Streams = (OneStream if variant == "one stream"
+                                else two_streams)
+                try:
+                    row = drive_train(task, n, 128, path,
+                                      beside=None if variant == "device"
+                                      else device_row)
+                finally:
+                    ppo._Streams = two_streams
+                if variant == "device":
+                    device_row = row
+                log(json.dumps({"round": r, "variant": variant, **{
+                    k: v for k, v in row.items()
+                    if k not in ("history", "launches",
+                                 "top_kernels_ms_per_iter")},
+                    "card": CARD}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(train_turns(sys.argv[2:]) if sys.argv[1:2] == ["turns"]
+             else main())

@@ -37,8 +37,26 @@ from repro_torch.core.transforms import (
 
 __version__ = "0.1.0"
 
+# the rest of ``repro``'s ``_CORE_EXPORTS``, resolved from
+# ``repro_torch.core`` on first use
+_CORE_EXPORTS = (
+    "DmEnv", "EnvPool", "FunctionalEnvPool", "bind", "is_functional",
+    "to_timestep", "build_collect_fn", "build_random_collect_fn",
+    "collect_init", "TransformPipeline",
+)
+
+
+def __getattr__(name: str):
+    if name in _CORE_EXPORTS:
+        from repro_torch import core
+
+        return getattr(core, name)
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")
+
+
 __all__ = [
     "Crop", "EpisodicLife", "FrameStack", "Grayscale", "NormalizeObs",
     "ObsCast", "Resize", "RewardClip", "Transform", "list_engines",
     "list_envs", "make", "make_py", "random", "register_py",
+    *_CORE_EXPORTS,
 ]

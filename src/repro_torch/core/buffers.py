@@ -113,11 +113,27 @@ class _Block:
         self.ready.clear()
         self._done = itertools.count()
 
+    def _mark_done(self, n: int) -> None:
+        last = 0
+        for _ in range(n):
+            last = next(self._done)
+        if last == self.batch - 1:
+            self.ready.set()
+
     def write(self, slot: int, values: dict[str, Any]) -> None:
         for name, v in values.items():
             self.arrays[name][slot] = v
-        if next(self._done) == self.batch - 1:
-            self.ready.set()
+        self._mark_done(1)
+
+    def write_slice(self, lo: int, values: dict[str, Any]) -> None:
+        """Write a contiguous run of slots in one numpy slice assignment
+        (zero-copy batching: the batch lands straight in the block)."""
+        n = 0
+        for name, v in values.items():
+            v = np.asarray(v)
+            n = v.shape[0]
+            self.arrays[name][lo:lo + n] = v
+        self._mark_done(n)
 
 
 class StateBufferQueue:
@@ -128,10 +144,13 @@ class StateBufferQueue:
     ``k % M``.  A block whose M slots are written flips its ready event;
     ``take()`` consumes blocks in allocation order and recycles them.
 
-    Occupancy is bounded: a free-slot semaphore makes ``acquire_slot``
-    block once ``num_blocks * batch`` slots are outstanding
+    Occupancy is bounded: a free-slot semaphore makes ``acquire_slot`` /
+    ``put_batch`` block once ``num_blocks * batch`` slots are outstanding
     (the consumer's ``take`` returns permits), so a fast producer can
-    never wrap onto a block the consumer has not taken.
+    never wrap onto a block the consumer has not taken, the bound on the
+    policy lag of ``rl/ppo.py::train_host_pipelined``.  ``put_batch`` is
+    the batched producer: one slice write per block it lands in, split
+    at the ring's end.
     """
 
     def __init__(
@@ -155,6 +174,29 @@ class StateBufferQueue:
         with self._alloc_lock:
             k = next(self._alloc)
         return self._blocks[(k // self.batch) % self.num_blocks], k % self.batch
+
+    def put_batch(self, values: dict[str, Any],
+                  timeout: float | None = None) -> None:
+        """Write a whole ``(m, ...)``-leading batch of rows in allocation
+        order; blocks under backpressure like ``acquire_slot``.  Rows
+        land contiguously (one slice write per block spanned)."""
+        arrs = {name: np.asarray(v) for name, v in values.items()}
+        m = next(iter(arrs.values())).shape[0] if arrs else 0
+        if m == 0:
+            return
+        _acquire_many(self._free, m, timeout, "StateBufferQueue")
+        with self._alloc_lock:
+            k0 = next(self._alloc)
+            for _ in range(m - 1):
+                next(self._alloc)
+        off = 0
+        while off < m:
+            k = k0 + off
+            blk = self._blocks[(k // self.batch) % self.num_blocks]
+            lo = k % self.batch
+            run = min(self.batch - lo, m - off)
+            blk.write_slice(lo, {n: v[off:off + run] for n, v in arrs.items()})
+            off += run
 
     def take(self, timeout: float | None = None) -> dict[str, np.ndarray]:
         blk = self._blocks[self._take_head % self.num_blocks]

@@ -455,7 +455,18 @@ def pool_state_to_numpy(pool: DeviceEnvPool, ps: PoolState
     return out
 
 
+def make_pool(env: Environment, num_envs: int, batch_size: int | None = None,
+              mode: str | None = None, batched: bool | None = None,
+              schedule: str = "fifo", transforms: Any = (), obs: bool = True,
+              device: torch.device | str = "cuda") -> DeviceEnvPool:
+    """The JAX package's ``make_pool``: the device engine over ``env``,
+    sync iff ``batch_size`` is None or ``num_envs``, on ``device``."""
+    return DeviceEnvPool(env, num_envs, batch_size, mode=mode,
+                         batched=batched, schedule=schedule,
+                         transforms=transforms, obs=obs, device=device)
+
+
 __all__ = [
-    "DeviceEnvPool", "PoolState", "derive_env_keys",
+    "DeviceEnvPool", "PoolState", "derive_env_keys", "make_pool",
     "pool_state_from_numpy", "pool_state_to_numpy",
 ]

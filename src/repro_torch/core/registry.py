@@ -97,9 +97,15 @@ def _ant_skew(**kw: Any) -> MujocoLike:
     return MujocoLike(**{"heavy_frac": 0.25, "heavy_iters": 4, **kw})
 
 
+# tasks added by ``register``: task -> (env factory, default pipeline)
+_REGISTERED: dict[str, tuple[Callable[..., Environment],
+                             tuple[Transform, ...]]] = {}
+
+
 def _registry() -> dict[str, tuple[Callable[..., Environment],
                                    tuple[Transform, ...]]]:
-    """task -> (env factory, default transform pipeline)."""
+    """task -> (env factory, default transform pipeline): the built-in
+    tasks, then those added by ``register``."""
     return {
         "CartPole-v1": (CartPole, ()),
         "MountainCar-v0": (MountainCar, ()),
@@ -118,7 +124,21 @@ def _registry() -> dict[str, tuple[Callable[..., Environment],
         "TokenCopy-v0": (TokenEnv, ()),
         "TokenSkew-v0": (_token_skew, ()),
         "TokenRagged-v0": (_token_ragged, ()),
+        **_REGISTERED,
     }
+
+
+def register(name: str, factory: Callable[..., Environment],
+             transforms: tuple[Transform, ...] = ()) -> None:
+    """Register a device task; ``transforms`` is its default in-engine
+    pipeline (e.g. ``Pong-v5`` ships ``FrameStack(4)``).  A name taken
+    by a built-in task is overridden."""
+    _REGISTERED[name] = (factory, tuple(transforms))
+
+
+def default_transforms(task_id: str) -> tuple[Transform, ...]:
+    """The task's registered default transform pipeline."""
+    return _registry().get(task_id, (None, ()))[1]
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -259,5 +279,5 @@ def make(task_id: str, num_envs: int, batch_size: int | None = None,
                          obs=obs, device=dev)
 
 
-__all__ = ["ENGINES", "list_engines", "list_envs", "make", "make_py",
-           "register_py", "resolve_device"]
+__all__ = ["ENGINES", "default_transforms", "list_engines", "list_envs",
+           "make", "make_py", "register", "register_py", "resolve_device"]

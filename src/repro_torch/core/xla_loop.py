@@ -8,8 +8,9 @@ step by step into tensors allocated once at ``(num_steps, M, ...)``
 (PongClassic-v5's obs at N = 1024 and 128 steps are 3.70 GB of uint8,
 too much to keep as a list and stack afterwards).  ``DeviceEnvPool``'s
 methods return a new ``PoolState`` and never write into the one they
-were given, which stands in for donation, so ``build_collect_fn`` has
-no ``donate`` option.  Capturing a step in a CUDA graph is left to a
+were given, which stands in for donation, so neither
+``build_collect_fn`` nor ``build_pipelined_collect_fn`` has a
+``donate`` option.  Capturing a step in a CUDA graph is left to a
 later slice (ROADMAP B, "outside the kernels").
 
 Step ``t`` of a collect draws with ``random.split(key, num_steps)[t]``,
@@ -19,9 +20,11 @@ the key the scan hands its step ``t``.
 JAX package: a host engine (thread, forloop, subprocess) gets a loop
 with the same signature and trajectory layout (``ps`` is None), the
 policy acting on each block moved to the key's device, where the
-trajectory is stacked.  The stepwise baseline is for the device engine
-only and raises ``ValueError`` on a host pool, as the JAX package's does;
-the pipelined collect is not ported yet (ROADMAP A10).
+trajectory is stacked.  The stepwise baseline and the pipelined
+collect are for the device engine only and raise
+``ValueError`` on a host pool, as the JAX package's do.  The pipelined
+collect allocates a fresh rollout every call, which is what lets two be
+in flight (``rl/ppo.py::train_pipelined``).
 """
 
 from __future__ import annotations
@@ -143,13 +146,42 @@ def build_stepwise_collect_fn(pool: DeviceEnvPool, policy_fn: PolicyFn,
     return build_collect_fn(pool, host_policy, num_steps)
 
 
-def build_pipelined_collect_fn(pool: Any, *args: Any, **kwargs: Any):
-    """The collect of ``train_pipelined``, for the device engine only:
-    not ported yet (ROADMAP A10)."""
+def build_pipelined_collect_fn(
+        pool: Any,
+        policy_fn: Callable[[Any, torch.Tensor, torch.Tensor],
+                            tuple[torch.Tensor, torch.Tensor]],
+        num_steps: int) -> Callable:
+    """Returns ``collect(ps, params, last_ts, key) -> (ps, last_ts,
+    rollout)``, the collect half of ``rl/ppo.py::train_pipelined``, for
+    the device engine only.
+
+    ``rollout`` is a dict of ``(num_steps, M, ...)`` tensors: ``obs``,
+    ``actions``, ``logp`` (the behavior policy's log-prob, recorded at
+    collect time), ``rewards``, ``dones``, ``ep_ret``, plus ``last_obs``
+    ``(M, ...)`` for the learner's bootstrap value.  ``policy_fn(params,
+    obs, key) -> (actions, logp)``.  Every call allocates a fresh
+    rollout: the driver keeps two in flight, one being read by the
+    update while the next is written."""
     check_device_pool(pool, "build_pipelined_collect_fn")
-    raise NotImplementedError(
-        "build_pipelined_collect_fn (the pipelined driver's collect) is not "
-        "ported yet (ROADMAP A10)")
+
+    def collect(ps: PoolState, params: Any, last_ts: TimeStep,
+                key: torch.Tensor):
+        rollout = None
+        ts = last_ts
+        for t, k in enumerate(random.split(key, num_steps)):
+            actions, logp = policy_fn(params, ts.obs, k)
+            ps, new_ts = pool.step(ps, actions, ts.env_id)
+            data = {"obs": ts.obs, "actions": actions, "logp": logp,
+                    "rewards": new_ts.reward, "dones": new_ts.done,
+                    "ep_ret": new_ts.episode_return}
+            if rollout is None:
+                rollout = alloc_steps(num_steps, data)
+            write_step(rollout, t, data)
+            ts = new_ts
+        rollout["last_obs"] = ts.obs
+        return ps, ts, rollout
+
+    return collect
 
 
 def build_random_collect_fn(pool: DeviceEnvPool, num_steps: int) -> Callable:

@@ -18,26 +18,46 @@ stepped by the host pool, the policy and the same PPO update on
 timed as a fenced ``obs/trace.py`` span (env_step, inference, train,
 other).
 
+``train_pipelined`` splits an iteration in two halves that share no
+output: the V-trace update of rollout t (``make_vtrace_ppo_update``) and
+the collect of rollout t+1 behind the params from before that update
+(``core/xla_loop.py::build_pipelined_collect_fn``), so the consumed
+rollout is one policy step stale and V-trace (``rl/vtrace.py``,
+``PPOConfig.rho_clip``/``c_clip``) corrects it.  On the card the update
+runs on a second CUDA stream, dispatched first, so its device work runs
+while the host dispatches the host-bound collect.
+``train_host_pipelined`` is the same split over a host engine: an actor
+thread streams served batches into a ``core/buffers.py::
+StateBufferQueue`` while the learner takes blocks and runs the same
+update.  ``train`` dispatches on ``is_functional``: ``train_device``
+for the device engine, ``train_host`` for the rest.
+
 The JAX package fuses collect and update into one jitted, donated
 program and places the policy on the env mesh
 (``distributed/sharding.py::policy_shardings``); the port's engine
 holds one device, so there is no placement (the sharded engine is
-ROADMAP A12).  ``train_pipelined``, ``train_disaggregated`` and the
-V-trace update are not ported yet and raise naming their item.
+ROADMAP A12), and ``train_disaggregated`` raises naming A12.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch import random
+from repro_torch.core.buffers import StateBufferQueue
+from repro_torch.core.host_pool import numpy_dtype
+from repro_torch.core.protocol import is_functional
 from repro_torch.core.registry import resolve_device
 from repro_torch.core.xla_loop import (
     alloc_steps,
+    build_pipelined_collect_fn,
     check_device_pool,
     write_step,
 )
@@ -46,13 +66,13 @@ from repro_torch.obs.trace import Tracer
 from repro_torch.optim import adamw, linear_decay
 from repro_torch.rl.gae import gae
 from repro_torch.rl.nets import ActorCritic
+from repro_torch.rl.vtrace import vtrace
 from repro_torch.utils.tree import tree_dataclass, tree_leaves, tree_map
 
 
 @dataclasses.dataclass
 class PPOConfig:
-    """The JAX package's ``PPOConfig`` without ``rho_clip`` and
-    ``c_clip``, which only its pipelined drivers read (ROADMAP A10)."""
+    """The JAX package's ``PPOConfig``, field for field."""
 
     total_steps: int = 100_000
     num_steps: int = 128          # rollout length per env (N_steps)
@@ -67,6 +87,11 @@ class PPOConfig:
     max_grad_norm: float = 0.5
     anneal_lr: bool = True
     vf_clip: bool = True
+    # V-trace truncation thresholds (rho-bar / c-bar, Espeholt et al.
+    # 2018) for the pipelined drivers' stale rollouts; train_device and
+    # train_host keep plain GAE.
+    rho_clip: float = 1.0
+    c_clip: float = 1.0
 
 
 @tree_dataclass
@@ -154,10 +179,45 @@ def make_ppo_update(net: ActorCritic, cfg: PPOConfig, total_updates: int):
     return opt, update
 
 
-def make_vtrace_ppo_update(*args: Any, **kwargs: Any):
-    """The pipelined learner's V-trace update: not ported yet (A10)."""
-    raise NotImplementedError(
-        "make_vtrace_ppo_update (V-trace) is not ported yet (ROADMAP A10)")
+def make_vtrace_ppo_update(net: ActorCritic, cfg: PPOConfig,
+                           total_updates: int):
+    """The pipelined learner's update, V-trace-corrected PPO:
+    ``(optimizer, update)``.
+
+    ``update(state, traj, key)`` takes the pipelined collect's rollout
+    (``obs``, ``actions``, the behavior ``logp``, ``rewards``, ``dones``,
+    ``last_obs``), recomputes the target log-probs and values under the
+    current params, forms V-trace's value targets and rho-clipped
+    advantages, then runs ``make_ppo_update``'s epochs (the clipped
+    ratio taken against the behavior log-prob).  The metrics add
+    ``rho_behavior``, the mean importance ratio pi/mu over the rollout
+    (1.0: no lag).  Shared by ``train_pipelined`` and
+    ``train_host_pipelined``."""
+    opt, ppo_update = make_ppo_update(net, cfg, total_updates)
+
+    def update(state: PPOState, traj: dict[str, torch.Tensor],
+               key: torch.Tensor):
+        T, M = traj["rewards"].shape
+        with torch.no_grad():
+            obs = traj["obs"].reshape((T * M,) + tuple(traj["obs"].shape[2:]))
+            act = traj["actions"].reshape(
+                (T * M,) + tuple(traj["actions"].shape[2:]))
+            target_logp, _, v = net.logp_entropy(state.params, obs, act)
+            target_logp = target_logp.reshape(T, M)
+            values = v.reshape(T, M)
+            last_v = net.forward(state.params, traj["last_obs"])[1]
+            vs, pg_adv = vtrace(traj["logp"], target_logp, traj["rewards"],
+                                values, traj["dones"], last_v,
+                                gamma=cfg.gamma, lam=cfg.lam,
+                                rho_clip=cfg.rho_clip, c_clip=cfg.c_clip)
+            rho = torch.mean(torch.exp(target_logp - traj["logp"]))
+        rollout = {"obs": traj["obs"], "actions": traj["actions"],
+                   "logp": traj["logp"], "values": values,
+                   "adv": pg_adv, "ret": vs}
+        state, metrics = ppo_update(state, rollout, key)
+        return state, dict(metrics, rho_behavior=rho)
+
+    return opt, update
 
 
 def _episode_metrics(traj_dones: torch.Tensor, traj_ep_ret: torch.Tensor
@@ -265,6 +325,141 @@ def train_device(pool: Any, cfg: PPOConfig, seed: int = 0,
 
 
 # --------------------------------------------------------------------- #
+# pipelined device driver: collect and update on two CUDA streams
+# --------------------------------------------------------------------- #
+def _keep_for(tree: Any, stream: Any) -> None:
+    """Tell the caching allocator that ``stream`` reads every CUDA leaf
+    of ``tree``, so none is handed out again before ``stream`` is done
+    with it, whenever Python drops it."""
+    for leaf in tree_leaves(tree):
+        if leaf.is_cuda:
+            leaf.record_stream(stream)
+
+
+class _Streams:
+    """``train_pipelined``'s two CUDA streams: the collect runs on the
+    stream current at the call, the update on a stream of its own.  On
+    the CPU there are no streams: every method is a no-op and the two
+    halves run in the order they are called."""
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+        if self.cuda:
+            self.collect = torch.cuda.current_stream(dev)
+            self.update = torch.cuda.Stream(dev)
+
+    def on_update(self):
+        """Context: ops dispatched inside run on the update stream."""
+        return (torch.cuda.stream(self.update) if self.cuda
+                else contextlib.nullcontext())
+
+    def to_update(self, *trees: Any) -> None:
+        """The update stream waits for all the collect stream has
+        queued (the rollout, the update's key), and ``trees``, made on
+        the collect stream, outlive the update stream's use."""
+        if self.cuda:
+            self.update.wait_stream(self.collect)
+            _keep_for(trees, self.update)
+
+    def updated(self):
+        """An event after all the update stream has queued (None on the
+        CPU)."""
+        return self.update.record_event() if self.cuda else None
+
+    def to_collect(self, event: Any, params: Any) -> None:
+        """The collect stream waits for ``event``, the update that made
+        ``params`` (None: they were made on the collect stream), and
+        ``params`` outlive the collect stream's use."""
+        if self.cuda:
+            if event is not None:
+                self.collect.wait_event(event)
+            _keep_for(params, self.collect)
+
+
+def train_pipelined(pool: Any, cfg: PPOConfig, seed: int = 0,
+                    log_fn: Callable[[dict], None] | None = None,
+                    hidden: tuple[int, ...] = (256, 128, 64)):
+    """Pipelined PPO on a ``repro_torch.make`` device pool, on the
+    pool's device.  Returns ``(state, net, history)``, ``history`` with
+    ``train_device``'s keys plus ``rho_behavior``.
+
+    A prologue collects rollout 0 behind the initial params; iteration
+    t then runs the V-trace update of rollout t and the collect of
+    rollout t+1 behind the params from before that update, so the
+    consumed rollout is one policy step stale (the JAX package's key
+    flow and lag, split for split, so both give the same numbers for a
+    seed).  The two halves share no output.  On the card the update is
+    dispatched first, on its own CUDA stream, and the collect after it
+    on the stream current at the call: the update's device work runs
+    while the host dispatches the collect.  Events order them: the
+    update of rollout t waits for the collect that wrote it, the collect
+    of t+1 for the update that made its params.  The iteration's scalar
+    metrics are read (one copy) after both are dispatched.  On the CPU
+    the same code runs the halves in turn.
+
+    The JAX package places the learner on one device of the env mesh
+    and pushes its params back each iteration (``to_mesh``,
+    ``to_learner``); the port's engine holds one device, so both are
+    the identity."""
+    check_device_pool(pool, "train_pipelined (use train_host_pipelined)")
+    dev = pool.device
+    net = ActorCritic(pool.spec, hidden=hidden)
+    key, k_init, k_pool = random.split(random.PRNGKey(seed, device=dev), 3)
+    params = net.init(k_init)
+
+    M = pool.batch_size
+    steps_per_iter = cfg.num_steps * M
+    n_iters = max(1, cfg.total_steps // steps_per_iter)
+    opt, vupdate = make_vtrace_ppo_update(
+        net, cfg, n_iters * cfg.epochs * cfg.minibatches)
+    state = PPOState(params=params, opt=opt.init(params),
+                     step=torch.zeros((), dtype=torch.int32, device=dev))
+
+    def policy(p, obs, k):
+        a, logp, _, _ = net.sample(p, obs, k)
+        return a, logp
+
+    collect = build_pipelined_collect_fn(pool, policy, cfg.num_steps)
+
+    def update_step(state, traj, ku):
+        """The update and the iteration's scalars, stacked in f64."""
+        state, metrics = vupdate(state, traj, ku)
+        episodes, ep_sum = _episode_metrics(traj["dones"], traj["ep_ret"])
+        metrics = dict(metrics, episodes=episodes, ep_sum=ep_sum)
+        names = list(metrics)
+        return state, names, torch.stack(
+            [metrics[k].to(torch.float64) for k in names])
+
+    streams = _Streams(dev)
+    ps, ts = pool.reset(k_pool)
+    key, kc = random.split(key)
+    with torch.no_grad():
+        ps, ts, traj = collect(ps, state.params, ts, kc)
+    made_params = None   # the event after the update that made the params
+    history: list[dict] = []
+    t0 = time.time()
+    for it in range(n_iters):
+        key, kc, ku = random.split(key, 3)
+        behavior = state.params
+        streams.to_update(traj, ku, state)
+        with streams.on_update():
+            state, names, scalars = update_step(state, traj, ku)
+        made_next = streams.updated()
+        streams.to_collect(made_params, behavior)
+        with torch.no_grad():
+            ps, ts, traj = collect(ps, behavior, ts, kc)
+        made_params = made_next
+        with streams.on_update():   # waits for the update alone
+            values = dict(zip(names, scalars.tolist()))
+        episodes = int(values.pop("episodes"))
+        ep_sum = values.pop("ep_sum")
+        rec = {"iter": it, "env_steps": (it + 1) * steps_per_iter,
+               "time_s": time.time() - t0, **values}
+        _record(history, rec, episodes, ep_sum, log_fn)
+    return state, net, history
+
+
+# --------------------------------------------------------------------- #
 # training over a host engine (the paper's Fig. 4 profile path)
 # --------------------------------------------------------------------- #
 def train_host(env_pool: Any, spec: Any = None, cfg: PPOConfig | None = None,
@@ -358,21 +553,184 @@ def train_host(env_pool: Any, spec: Any = None, cfg: PPOConfig | None = None,
     return state, net, history, prof
 
 
-def _not_ported(name: str, item: str):
-    def driver(*args: Any, **kwargs: Any):
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP {item}); train_device and "
-            "train_host are")
+# --------------------------------------------------------------------- #
+# pipelined host driver: actor thread -> StateBufferQueue -> learner
+# --------------------------------------------------------------------- #
+def train_host_pipelined(env_pool: Any, spec: Any = None,
+                         cfg: PPOConfig | None = None, seed: int = 0,
+                         log_fn: Callable[[dict], None] | None = None,
+                         hidden: tuple[int, ...] = (256, 128, 64),
+                         tracer: Tracer | None = None,
+                         registry: MetricsRegistry | None = None,
+                         device: torch.device | str | None = None):
+    """The pipelined driver over a host engine (``ThreadEnvPool``,
+    ``ForLoopEnv``, ``SubprocessEnv``), the paper's Appendix D queues on
+    a hot path, with the policy and update on ``device`` (None: the
+    card, wherever the pool is).
 
-    driver.__name__ = driver.__qualname__ = name
-    driver.__doc__ = f"Not ported yet (ROADMAP {item})."
-    return driver
+    An actor thread loops ``sample -> step`` behind the latest params
+    the learner has published and writes every served batch into a
+    ``StateBufferQueue`` with ``put_batch``.  The learner ``take``s
+    ``num_steps`` blocks, stacks them on ``device`` and runs
+    ``make_vtrace_ppo_update`` (behavior log-probs from the actor,
+    values and target log-probs recomputed under the current params).
+    The ring's bounded occupancy is the backpressure that bounds the
+    actor's lead, and with it the policy lag.  Only the first
+    iteration's blocks are all sampled behind the initial params; later
+    ones depend on when the learner publishes.
+
+    Returns ``(state, net, history, profile)``; the profile buckets are
+    ``actor_wait`` (the learner blocked on the queue: env stepping that
+    did not overlap), ``train`` and ``other``, fenced ``obs/trace.py``
+    spans.  An actor exception surfaces from the learner as
+    ``RuntimeError("pipelined actor thread died")``."""
+    if spec is None:
+        spec = env_pool.spec
+    if cfg is None:
+        cfg = PPOConfig()
+    dev = resolve_device(device)
+    net = ActorCritic(spec, hidden=hidden)
+    key, k_init = random.split(random.PRNGKey(seed, device=dev))
+    params = net.init(k_init)
+
+    M = env_pool.batch_size
+    steps_per_iter = cfg.num_steps * M
+    n_iters = max(1, cfg.total_steps // steps_per_iter)
+    opt, update = make_vtrace_ppo_update(
+        net, cfg, n_iters * cfg.epochs * cfg.minibatches)
+    state = PPOState(params=params, opt=opt.init(params),
+                     step=torch.zeros((), dtype=torch.int32, device=dev))
+
+    obs_dt = numpy_dtype(spec.obs_spec.dtype)
+    fields = {
+        "obs": (tuple(spec.obs_spec.shape), obs_dt),
+        "next_obs": (tuple(spec.obs_spec.shape), obs_dt),
+        "actions": (tuple(spec.act_spec.shape),
+                    numpy_dtype(spec.act_spec.dtype)),
+        "logp": ((), np.float32),
+        "rewards": ((), np.float32),
+        "dones": ((), np.bool_),
+        "ep_ret": ((), np.float32),
+    }
+    queue = StateBufferQueue(fields, M, env_pool.num_envs)
+
+    # the behavior params: written by the learner, read by the actor (a
+    # dict-slot swap is atomic under the GIL; the update makes new
+    # tensors, so the ones the actor holds stay as they were)
+    published = {"params": state.params}
+    stop = threading.Event()
+    failure: list[BaseException] = []
+
+    def actor():
+        try:
+            akey = random.PRNGKey(seed + 1, device=dev)
+            env_pool.async_reset()
+            out = env_pool.recv()
+            while not stop.is_set():
+                akey, ks = random.split(akey)
+                with torch.no_grad():
+                    a, logp, _, _ = net.sample(published["params"],
+                                               out["obs"].to(dev), ks)
+                a_host = a.cpu()
+                new_out = env_pool.step(a_host, out["env_id"])
+                batch = {
+                    "obs": out["obs"].cpu().numpy(),
+                    "next_obs": new_out["obs"].cpu().numpy(),
+                    "actions": a_host.numpy(),
+                    "logp": logp.cpu().numpy(),
+                    "rewards": new_out["reward"].cpu().numpy(),
+                    "dones": new_out["done"].cpu().numpy(),
+                    "ep_ret": new_out["episode_return"].cpu().numpy(),
+                }
+                while not stop.is_set():
+                    try:
+                        # re-check stop between waits, so shutdown cannot
+                        # deadlock against a full ring
+                        queue.put_batch(batch, timeout=0.1)
+                        break
+                    except TimeoutError:
+                        continue
+                out = new_out
+        except Exception as e:  # the learner raises it
+            failure.append(e)
+            stop.set()
+
+    thread = threading.Thread(target=actor, daemon=True)
+    thread.start()
+
+    tr = tracer if tracer is not None else Tracer()
+    history: list[dict] = []
+    t_start = time.time()
+    try:
+        for it in range(n_iters):
+            with tr.span("actor_wait"):
+                blocks = []
+                for _ in range(cfg.num_steps):
+                    while True:
+                        if failure:
+                            raise RuntimeError(
+                                "pipelined actor thread died") from failure[0]
+                        try:
+                            blocks.append(queue.take(timeout=5.0))
+                            break
+                        except TimeoutError:
+                            continue
+
+            with tr.span("other") as sp:
+                traj = {k: torch.from_numpy(np.stack([b[k] for b in blocks]))
+                        .to(dev) for k in ("obs", "actions", "logp",
+                                           "rewards", "dones", "ep_ret")}
+                traj["last_obs"] = torch.from_numpy(
+                    blocks[-1]["next_obs"]).to(dev)
+                sp.fence(traj)
+
+            with tr.span("train") as sp:
+                key, ku = random.split(key)
+                state, metrics = update(state, traj, ku)
+                sp.fence(metrics["loss"])
+                published["params"] = state.params
+
+            dones = np.stack([b["dones"] for b in blocks])
+            rets = np.stack([b["ep_ret"] for b in blocks])[dones]
+            rec = {"iter": it, "env_steps": (it + 1) * steps_per_iter,
+                   "time_s": time.time() - t_start,
+                   **{k: float(v) for k, v in metrics.items()}}
+            _record(history, rec, int(rets.size), float(rets.sum()),
+                    log_fn, registry)
+    finally:
+        stop.set()
+        thread.join(timeout=10.0)
+    totals = tr.totals()
+    prof = {k: totals.get(k, 0.0) for k in ("actor_wait", "train", "other")}
+    return state, net, history, prof
 
 
-train_pipelined = _not_ported("train_pipelined", "A10")
-train_host_pipelined = _not_ported("train_host_pipelined", "A10")
-train = _not_ported("train", "A10")
-train_disaggregated = _not_ported("train_disaggregated", "A12")
+# --------------------------------------------------------------------- #
+# engine-agnostic entry (core/protocol.py dispatch)
+# --------------------------------------------------------------------- #
+def train(pool: Any, cfg: PPOConfig, seed: int = 0,
+          log_fn: Callable[[dict], None] | None = None,
+          hidden: tuple[int, ...] = (256, 128, 64)):
+    """PPO over any engine: ``train_device`` for the device engine
+    (``is_functional``), ``train_host`` for a host engine, the learner
+    on the pool's device either way.  Returns ``(state, net,
+    history)``; call ``train_host`` for its Fig. 4 buckets or to put
+    the learner elsewhere."""
+    if is_functional(pool):
+        return train_device(pool, cfg, seed=seed, log_fn=log_fn,
+                            hidden=hidden)
+    state, net, history, _ = train_host(pool, pool.spec, cfg, seed=seed,
+                                        log_fn=log_fn, hidden=hidden,
+                                        device=pool.device)
+    return state, net, history
+
+
+def train_disaggregated(*args: Any, **kwargs: Any):
+    """Not ported yet (ROADMAP A12)."""
+    raise NotImplementedError(
+        "train_disaggregated is not ported yet (ROADMAP A12); "
+        "train_device, train_pipelined, train_host and "
+        "train_host_pipelined are")
 
 
 __all__ = [

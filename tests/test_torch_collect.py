@@ -10,7 +10,8 @@ Pong's obs and reward are bitwise; Ant's obs, reward and actions are
 held to atol 1e-4, as tests/test_torch_pool.py holds Ant (XLA's fused
 multiply-adds and ``cos`` differ from torch's in the last bit, and the
 physics carries it on).  ``ArraySpec.sample`` and the random collect's
-actions are bitwise.
+actions are bitwise.  The pipelined collect acts through the
+actor-critic on the same weights in both packages.
 """
 
 import numpy as np
@@ -23,12 +24,14 @@ import jax.numpy as jnp  # noqa: E402
 
 import repro.core.registry as jax_registry  # noqa: E402
 import repro.core.xla_loop as jloop  # noqa: E402
+import repro.rl.nets as jnets  # noqa: E402
 import repro_torch  # noqa: E402
 from repro.core.specs import ArraySpec as JArraySpec  # noqa: E402
 from repro_torch import random as R  # noqa: E402
 from repro_torch.core import xla_loop as tloop  # noqa: E402
 from repro_torch.core.specs import ArraySpec  # noqa: E402
-from repro_torch.utils.tree import tree_map  # noqa: E402
+from repro_torch.rl import nets as tnets  # noqa: E402
+from repro_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
 
 STEPS = 12
 EXACT = ("env_id", "done", "terminated", "truncated", "step_cost",
@@ -166,7 +169,7 @@ def test_only_the_device_engine_is_ported():
     forloop pool here: tests/test_torch_train_host.py holds its stream
     to ``repro``'s); the stepwise and pipelined collects are for the
     device engine and raise ``ValueError`` on a host pool, as
-    ``repro``'s do; the pipelined one is not ported yet (A10)."""
+    ``repro``'s do."""
     host = repro_torch.make("Pong-v5", num_envs=4, engine="forloop",
                             device="cpu", max_episode_steps=5)
     ps, ts = tloop.collect_init(host, R.PRNGKey(0))
@@ -179,6 +182,61 @@ def test_only_the_device_engine_is_ported():
                   tloop.build_pipelined_collect_fn):
         with pytest.raises(ValueError, match="host engine"):
             build(host, torch_policy(False), 4)
-    _, tp = pools("Ant-v3", 4, None)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tloop.build_pipelined_collect_fn(tp, torch_policy(True), 4)
+
+
+@pytest.mark.parametrize("task,n,m", [
+    ("Ant-v3", 8, None), ("Ant-v3", 8, 4), ("PongClassic-v5", 4, 2),
+])
+def test_pipelined_collect_matches_repro(task, n, m):
+    """Two pipelined collects through the actor-critic on the same
+    weights (``params_from_jax``): every rollout leaf and ``last_obs``
+    bitwise for Pong but ``logp`` (1e-5, the nets' tolerance,
+    tests/test_torch_ppo.py), within 1e-4 for Ant's floats; each call
+    allocates a fresh rollout."""
+    jp, tp = pools(task, n, m)
+    jnet = jnets.ActorCritic(jp.spec, (32, 32))
+    tnet = tnets.ActorCritic(tp.spec, (32, 32))
+    jparams = jnet.init(jax.random.PRNGKey(1))
+    tparams = tnets.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+
+    def jpolicy(p, obs, k):
+        a, logp, _, _ = jnet.sample(p, obs, k)
+        return a, logp
+
+    def tpolicy(p, obs, k):
+        a, logp, _, _ = tnet.sample(p, obs, k)
+        return a, logp
+
+    jps, jts = jloop.collect_init(jp, jax.random.PRNGKey(0))
+    tps, tts = tloop.collect_init(tp, R.PRNGKey(0))
+    jcol = jloop.build_pipelined_collect_fn(jp, jpolicy, STEPS, donate=False)
+    tcol = tloop.build_pipelined_collect_fn(tp, tpolicy, STEPS)
+    rollouts = []
+    for k in (5, 6):
+        jps, jts, jroll = jcol(jps, jparams, jts, jax.random.PRNGKey(k))
+        with torch.no_grad():
+            tps, tts, troll = tcol(tps, tparams, tts, R.PRNGKey(k))
+        rollouts.append(troll)
+        assert troll.keys() == jroll.keys() == {
+            "obs", "actions", "logp", "rewards", "dones", "ep_ret",
+            "last_obs"}
+        assert bool(np.asarray(jroll["dones"]).any())
+        for f, want in jroll.items():
+            got = troll[f].numpy()
+            want = np.asarray(want)
+            assert got.shape == want.shape, f
+            assert got.dtype == want.dtype, f
+            if f == "logp":
+                tol = 1e-4 if task.startswith("Ant") else 1e-5
+                np.testing.assert_allclose(got, want, rtol=tol, atol=tol,
+                                           err_msg=f"{task} key {k} {f}")
+            elif task.startswith("Ant") and got.dtype == np.float32:
+                np.testing.assert_allclose(got, want, rtol=0, atol=1e-4,
+                                           err_msg=f"{task} key {k} {f}")
+            else:
+                np.testing.assert_array_equal(got, want,
+                                              err_msg=f"{task} key {k} {f}")
+    first, second = (tree_leaves(r) for r in rollouts)
+    assert not any(a.untyped_storage().data_ptr()
+                   == b.untyped_storage().data_ptr()
+                   for a in first for b in second)

@@ -6,7 +6,9 @@ order; in bf16 also within ``BF16_EXCESS_TOL`` of the rounding of the
 exact value, ``kernels/flash_attention/ref.py::rounding_excess``), and
 a pool and a decode server on the card against the same on the CPU,
 and one ``train_device`` iteration on the card through the path's
-kernels; the host engines on the card against the CPU, their launches
+kernels; ``train_pipelined`` on two streams against a serial run, the
+V-trace update without a host sync, ``train_host_pipelined`` with its
+learner on the card; the host engines on the card against the CPU, their launches
 per env step, and one library build for eight threads.  These need a CUDA device: each test is marked ``gpu`` and
 skips without one.  Run them on the card with
 
@@ -621,6 +623,105 @@ def test_train_device_runs_on_the_card_through_the_kernels(cuda, task,
         assert leaf.device.type == "cuda" and bool(torch.isfinite(leaf).all())
     for k, n in zip(kernels, before):
         assert k.launches > n, k.__name__
+
+
+@pytest.mark.parametrize("task,n", [("Ant-v3", 512), ("PongClassic-v5", 64)])
+def test_train_pipelined_on_two_streams_matches_a_serial_run(cuda, task, n,
+                                                             monkeypatch):
+    """``train_pipelined`` with its update on a second stream against the
+    same run with ``torch.cuda.synchronize()`` before each half: the same
+    history and params, bitwise (cuDNN deterministic), so no tensor that
+    crosses the streams was handed out again while the other stream read
+    it."""
+    from repro_torch.rl import ppo
+
+    class Serial(ppo._Streams):
+        def to_update(self, *trees):
+            torch.cuda.synchronize()
+            super().to_update(*trees)
+
+        def to_collect(self, event, params):
+            torch.cuda.synchronize()
+            super().to_collect(event, params)
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    cfg = PPOConfig(total_steps=3 * 16 * n, num_steps=16)
+    runs = []
+    for streams in (ppo._Streams, Serial):
+        monkeypatch.setattr(ppo, "_Streams", streams)
+        pool = repro_torch.make(task, num_envs=n, max_episode_steps=20)
+        state, _, history = ppo.train_pipelined(pool, cfg, seed=1)
+        runs.append((history, tree_leaves(state.params)))
+    (h_pipe, p_pipe), (h_serial, p_serial) = runs
+    assert len(h_pipe) == 3
+    for a, b in zip(h_pipe, h_serial):
+        assert {k: v for k, v in a.items() if k != "time_s"} == {
+            k: v for k, v in b.items() if k != "time_s"}
+    for a, b in zip(p_pipe, p_serial):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("task", ["Ant-v3", "PongClassic-v5"])
+def test_vtrace_update_issues_no_host_sync(cuda, task):
+    """The pipelined learner's update, recompute and V-trace included,
+    queues its work without waiting for the card
+    (``torch.cuda.set_sync_debug_mode("error")`` raises on a sync): the
+    host is free to dispatch the collect behind it."""
+    from repro_torch.rl.nets import ActorCritic
+    from repro_torch.rl.ppo import PPOState, make_vtrace_ppo_update
+
+    pool = repro_torch.make(task, num_envs=16)
+    net = ActorCritic(pool.spec, (32, 32))
+    cfg = PPOConfig(num_steps=8, epochs=2, minibatches=2)
+    opt, update = make_vtrace_ppo_update(net, cfg, 8)
+    params = net.init(repro_torch.random.PRNGKey(0, device=cuda))
+    state = PPOState(params, opt.init(params),
+                     torch.zeros((), dtype=torch.int32, device=cuda))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    obs_shape = (8, 16) + pool.spec.obs_spec.shape
+    obs = (torch.randint(0, 256, obs_shape, generator=gen, device=cuda)
+           .to(torch.uint8) if pool.spec.obs_spec.dtype == torch.uint8
+           else torch.randn(obs_shape, generator=gen, device=cuda))
+    actions = (torch.randint(0, net.act_dim, (8, 16), generator=gen,
+                             device=cuda).to(torch.int32) if net.discrete
+               else torch.randn((8, 16, net.act_dim), generator=gen,
+                                device=cuda))
+    traj = {"obs": obs, "actions": actions,
+            "logp": torch.randn((8, 16), generator=gen, device=cuda) - 2,
+            "rewards": torch.randn((8, 16), generator=gen, device=cuda),
+            "dones": torch.rand((8, 16), generator=gen, device=cuda) < 0.2,
+            "last_obs": obs[-1]}
+    key = repro_torch.random.PRNGKey(1, device=cuda)
+    update(state, traj, key)    # warm: cuBLAS and cuDNN set up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = update(state, traj, key)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(metrics["rho_behavior"]))
+
+
+def test_train_host_pipelined_learner_on_the_card(cuda):
+    """Envs on the CPU (thread engine), the learner on the card: two
+    iterations, finite metrics, the three buckets."""
+    from repro_torch.rl.ppo import train_host_pipelined
+
+    pool = repro_torch.make("Ant-v3", num_envs=8, engine="thread",
+                            num_threads=2, device="cpu")
+    try:
+        state, _, history, prof = train_host_pipelined(
+            pool, cfg=PPOConfig(total_steps=2 * 8 * 8, num_steps=8,
+                                epochs=1, minibatches=2), hidden=(32, 32))
+    finally:
+        pool.close()
+    assert len(history) == 2 and set(prof) == {"actor_wait", "train",
+                                                "other"}
+    assert all(np.isfinite(r[k]) for r in history for k in (
+        "loss", "rho_behavior"))
+    for leaf in tree_leaves(state.params):
+        assert leaf.device.type == "cuda"
 
 
 def run_host_pool(task, dev, engine, n=8, steps=10):

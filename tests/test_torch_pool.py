@@ -33,12 +33,17 @@ from repro_torch.core.engine import (  # noqa: E402
     pool_state_from_numpy,
     pool_state_to_numpy,
 )
+from repro_torch.core.registry import (  # noqa: E402
+    default_transforms,
+    register,
+)
 from repro_torch.core.scheduler import (  # noqa: E402
     SchedState,
     get_scheduler,
 )
+from repro_torch.envs.classic import CartPole  # noqa: E402
 
-from _torch_pair import compare, jax_leaves  # noqa: E402
+from _torch_pair import compare, jax_leaves, rollout  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 30
@@ -182,6 +187,17 @@ def test_running_the_port_imports_neither_jax_nor_repro():
         "                                   minibatches=1), hidden=(8,),\n"
         "               device='cpu')\n"
         "    pool.close()\n"
+        "from repro_torch.rl import (train, train_host_pipelined,\n"
+        "                            train_pipelined, vtrace)\n"
+        "cfg = PPOConfig(total_steps=8, num_steps=2, minibatches=1)\n"
+        "for task in ('Ant-v3', 'PongClassic-v5'):\n"
+        "    pool = repro_torch.make(task, num_envs=2, device='cpu')\n"
+        "    train_pipelined(pool, cfg, hidden=(8,))\n"
+        "    train(pool, cfg, hidden=(8,))\n"
+        "pool = repro_torch.make('Ant-v3', num_envs=2, engine='thread',\n"
+        "                        num_threads=1, device='cpu')\n"
+        "train_host_pipelined(pool, cfg=cfg, hidden=(8,), device='cpu')\n"
+        "pool.close()\n"
         "env = repro_torch.make_py('Ant-v3')\n"
         "env.reset()\n"
         "env.step(np.zeros(8, np.float32))\n"
@@ -215,7 +231,8 @@ def test_port_sources_import_neither_jax_nor_repro():
                  ("core", "dm_api.py"), ("checkpoint", "store.py"),
                  ("envs", "classic.py"), ("core", "host_pool.py"),
                  ("core", "baselines.py"), ("core", "buffers.py"),
-                 ("envs", "host_numpy.py")):
+                 ("envs", "host_numpy.py"), ("rl", "vtrace.py"),
+                 ("core", "__init__.py")):
         assert os.path.join(ROOT, "src", "repro_torch", *part) in files
     offenders = []
     for path in files:
@@ -382,3 +399,65 @@ def test_select_keeps_lax_top_k_tie_order(schedule):
         _, want = jax.lax.top_k(-jnp.asarray(prio), m)
         np.testing.assert_array_equal(sched.select(ss, m).numpy(),
                                       np.asarray(want))
+
+
+# sharded-engine names of repro.core, which wait for ROADMAP A12
+NOT_YET = {"MeshEnvPool", "ShardedDeviceEnvPool", "make_env_mesh"}
+
+
+def test_import_surface_matches_repro():
+    """``repro_torch.core`` exports every name of ``repro.core.__all__``
+    but the sharded engine's, and ``repro_torch`` the rest of
+    ``repro``'s ``_CORE_EXPORTS``; each task's default pipeline is
+    ``repro``'s."""
+    import repro
+    import repro.core as jcore
+
+    import repro_torch.core as tcore
+
+    want = set(jcore.__all__) - NOT_YET
+    assert set(tcore.__all__) == want
+    assert not any(hasattr(tcore, n) for n in NOT_YET)
+    for name in sorted(want):
+        assert getattr(tcore, name) is not None, name
+    for name in repro._CORE_EXPORTS:
+        assert getattr(repro_torch, name) is getattr(tcore, name), name
+    assert tcore.DeviceEnvPool is type(repro_torch.make("Ant-v3", 2,
+                                                        device="cpu"))
+    pool = tcore.make_pool(CartPole(), 4, 2, device="cpu")
+    assert (pool.mode, pool.batch_size) == ("async", 2)
+    for task in jax_registry.list_envs():
+        got = [type(t).__name__ for t in default_transforms(task)]
+        want_names = [type(t).__name__ for t in
+                      jax_registry.default_transforms(task)]
+        assert got == want_names, task
+
+
+def test_registered_task_streams_as_repro():
+    """A task registered in both packages, CartPole under a new name with
+    ``FrameStack(2)`` as its default pipeline, is listed, takes the
+    pipeline and streams as ``repro``'s: 30 async steps with auto-reset,
+    obs within 1e-5 (its float state, as tests/test_torch_protocol.py
+    holds CartPole), the rest exact."""
+    from repro.core.transforms import FrameStack as JFrameStack
+    from repro.envs.classic import CartPole as JCartPole
+
+    import repro_torch.core.registry as treg
+
+    name = "CartPoleStack2-v1"
+    jax_registry.register(name, JCartPole, (JFrameStack(2),))
+    register(name, CartPole, (repro_torch.FrameStack(2),))
+    try:
+        assert name in repro_torch.list_envs()
+        jp = jax_registry.make(name, num_envs=4, batch_size=2, obs=False)
+        tp = repro_torch.make(name, num_envs=4, batch_size=2, device="cpu")
+        assert tp.spec.obs_spec.shape == jp.spec.obs_spec.shape == (2, 4)
+        dones = []
+        rollout(jp, tp, STEPS, atol=1e-5, on_block=lambda t, jts, tts:
+                dones.append(int(tts.done.sum())))
+        assert sum(dones) > 0
+    finally:   # the other tests see the registries as they were
+        jax_registry._REGISTRY.pop(name)
+        jax_registry._TRANSFORMS.pop(name)
+        treg._REGISTERED.pop(name)
+    assert name not in repro_torch.list_envs()

@@ -286,7 +286,7 @@ def test_train_device_four_updates_match_repro(task, n, m):
 def test_train_device_refuses_what_is_not_ported():
     """``train_device`` on a host pool names ``train_host``, which runs
     on one (tests/test_torch_train_host.py holds it to ``repro``'s); the
-    pipelined, V-trace and disaggregated trainers name their items."""
+    disaggregated trainer names its item."""
     host = repro_torch.make("CartPole-v1", num_envs=4, engine="forloop",
                             device="cpu")
     with pytest.raises(ValueError, match="train_host"):
@@ -297,9 +297,42 @@ def test_train_device_refuses_what_is_not_ported():
         hidden=(8,), device="cpu")
     assert int(state.step) == 1 and len(history) == 1
     assert set(prof) == {"env_step", "inference", "train", "other"}
-    for name, item in (("train_pipelined", "A10"),
-                       ("train_host_pipelined", "A10"), ("train", "A10"),
-                       ("make_vtrace_ppo_update", "A10"),
-                       ("train_disaggregated", "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            getattr(tppo, name)(None, tppo.PPOConfig())
+    with pytest.raises(NotImplementedError, match="A12"):
+        tppo.train_disaggregated(None, tppo.PPOConfig())
+
+
+@pytest.mark.parametrize("task,n,engine", [
+    ("Ant-v3", 8, "device"), ("PongClassic-v5", 4, "device"),
+    ("Ant-v3", 8, "forloop"), ("CartPole-v1", 8, "forloop"),
+])
+def test_train_dispatches_as_repro(task, n, engine):
+    """``train`` runs ``train_device`` on the device engine and
+    ``train_host`` on a host engine, as ``repro``'s does: one iteration
+    at ``test_train_device_matches_repro``'s tolerances (losses within
+    1e-4 relative, params within 1e-5; 1e-4 for Ant over a host engine,
+    whose rollout carries 1e-4, tests/test_torch_train_host.py)."""
+    kw = dict(num_envs=n, engine=engine, max_episode_steps=5)
+    jp = jax_registry.make(task, obs=False, **kw)
+    tp = repro_torch.make(task, device="cpu", **kw)
+    cfg = dict(total_steps=8 * n, num_steps=8)
+    try:
+        js, _, jh = jppo.train(jp, jppo.PPOConfig(**cfg), seed=3,
+                               hidden=HIDDEN)
+        ts, tnet, th = tppo.train(tp, tppo.PPOConfig(**cfg), seed=3,
+                                  hidden=HIDDEN)
+    finally:
+        if engine != "device":
+            jp.close()
+            tp.close()
+    assert isinstance(tnet, tnets.ActorCritic)
+    assert len(th) == len(jh) == 1
+    jr, tr = jh[0], th[0]
+    assert tr.keys() == jr.keys()
+    for k in ("iter", "env_steps", "episodes"):
+        assert tr[k] == jr[k], k
+    for k in ("loss", "pg", "vf", "ent", "ratio", "mean_return"):
+        np.testing.assert_allclose(tr[k], jr[k], rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
+    assert int(ts.step) == int(js.step) == 16
+    atol = 1e-4 if (task, engine) == ("Ant-v3", "forloop") else 1e-5
+    assert_params_close(ts.params, js.params, atol=atol)
