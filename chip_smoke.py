@@ -137,6 +137,26 @@ Phases, in order; any failure exits non-zero:
    where env_step must launch.
    Each row is a JSON line with the card's name and power limit.
 
+6. the sharded engine (``engine="device-sharded"``) on the card.  Solo,
+   every shard on ``cuda:0``: Ant-v3 N=4096 at D=4 sync, M=2048 fifo
+   and M=2048 hierarchical, AntSkew-v3 N=4096 M=2048 hierarchical (its
+   ``overdue_admits`` in the stats), PongClassic-v5 N=1024 sync at D=2
+   and AntNorm-v3 N=4096 sync at D=2, each through ``drive_pool`` with
+   its collectives a recv (``EnvMesh.log``) and its kernel launches a
+   recv; the first six blocks of the three sync tasks against the same
+   pool at D=1 on the card, rows aligned by env id: bitwise, but
+   AntNorm-v3's normalized obs within 1e-3 (its moment sums run in
+   another order at each D).  Then two processes this script spawns
+   (``chip_smoke.py rank <i> <port> <device> <lanes>``), joined over gloo
+   on localhost and sharing the card: their Ant-v3 N=4096 D=2 sync
+   stream (20 blocks, as the whole mesh holds them) and ``stats()``
+   must hash the same as this process's solo D=2 run; then
+   ``train_disaggregated`` with one env process (two shards) and one
+   learner, ``PPOConfig``'s defaults, two iterations: ms an iteration
+   and the seconds in the hand-off (``host_broadcast``, waits
+   included).  A rank that fails fails the script.  Last,
+   ``train_device`` over a solo D=2 Ant-v3 N=4096 pool, two iterations.
+
 Then a ``kernels`` JSON line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py turns``
 runs only the two training drivers in turns (``train_turns``).
@@ -865,20 +885,29 @@ def check_stats(tag: str, stats: dict, m: int) -> None:
 def drive_pool(task: str, n: int, m: int | None, schedule: str,
                path: tuple[str, ...], recvs: int = 200,
                transforms=None, obs: bool = True,
-               engine: str = "device") -> dict:
+               engine: str = "device", shards: int | None = None) -> dict:
+    """``recvs`` timed recvs of ``task`` after ten of warm-up, then five
+    under ``torch.profiler``; ``shards``: the sharded engine on the card,
+    whose collectives a recv are counted too."""
     import torch
 
     import repro_torch
 
+    if shards is not None:
+        engine = "device-sharded"
     pool = repro_torch.make(task, num_envs=n, batch_size=m,
                             schedule=schedule, transforms=transforms,
-                            obs=obs, engine=engine)
+                            obs=obs, engine=engine, num_shards=shards,
+                            device=DEV)
     tables = action_tables(pool, 8, np.random.default_rng(SEED))
     ps, ts = pool.reset(repro_torch.random.PRNGKey(SEED))
     for t in range(10):
         ps, ts = pool.step(ps, tables[t % 8][ts.env_id.long()], ts.env_id)
     torch.cuda.synchronize()
 
+    mesh = getattr(pool, "mesh", None)
+    if mesh is not None:
+        mesh.reset_log()
     reset_counts()
     ticks0 = pool.masked_ticks
     ids, costs = [], []
@@ -890,6 +919,10 @@ def drive_pool(task: str, n: int, m: int | None, schedule: str,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts(task, path)
+    collectives = None if mesh is None else {
+        k: v / recvs for k, v in mesh.counts().items()}
+    collective_bytes = None if mesh is None else sum(
+        b for _, b in mesh.log) / recvs
     ticks = pool.masked_ticks - ticks0
     ids = torch.stack(ids)
     block = pool.batch_size
@@ -912,6 +945,12 @@ def drive_pool(task: str, n: int, m: int | None, schedule: str,
            "schedule": schedule, "recvs": recvs, "seconds": dt,
            "env_steps_per_s": steps / dt, "frames_per_s": frames / dt,
            "ms_per_recv": dt / recvs * 1e3, "launches": launches}
+    if mesh is not None:
+        out.update(num_shards=pool.num_shards,
+                   collectives_per_recv=collectives,
+                   collective_bytes_per_recv=collective_bytes,
+                   kernel_launches_per_recv={
+                       k: v / recvs for k, v in launches.items() if v})
     if engine == "device-masked":
         out["ticks_per_recv"] = ticks / recvs
     if obs:
@@ -926,7 +965,9 @@ def drive_pool(task: str, n: int, m: int | None, schedule: str,
     out["device_idle_share"] = (None if busy is None
                                 else 1.0 - busy / out["ms_per_recv"])
     log(f"  {task} N={n} M={block} {engine} {schedule} obs={obs} "
-        f"{out['transforms']}: "
+        + (f"D={pool.num_shards} collectives/recv {collectives} "
+           f"({collective_bytes:.0f} bytes) " if mesh is not None else "")
+        + f"{out['transforms']}: "
         f"{out['env_steps_per_s']:.0f} env steps/s, "
         f"{out['frames_per_s']:.0f} frames/s, "
         f"{out['ms_per_recv']:.2f} ms/recv, device busy {busy} ms/recv, "
@@ -2139,6 +2180,314 @@ def cross_check_model(arch: str, **overrides) -> None:
         f"steps: cuda == cpu tokens, logits within 1e-4 (max abs err {err})")
 
 
+# ---------------------------------------------------------------------- #
+# phase 6: the sharded engine on the card
+# ---------------------------------------------------------------------- #
+RANK_N = 4096         # Ant-v3 lanes of the two-rank rows
+RANK_RECVS = 20       # recvs of the two-rank stream
+RANK_ITERS = 2        # iterations of train_disaggregated
+
+
+def sorted_blocks(pool, tables, steps: int) -> list:
+    """``steps`` blocks of ``pool`` from the seed's reset, each field's
+    rows in env-id order, on the host."""
+    import repro_torch
+
+    ps, ts = pool.reset(repro_torch.random.PRNGKey(SEED))
+    out = []
+    for t in range(steps):
+        order = ts.env_id.argsort()
+        out.append({k: getattr(ts, k)[order].cpu() for k in (
+            "env_id", "obs", "reward", "done", "episode_return",
+            "step_cost")})
+        ps, ts = pool.step(ps, tables[t % 8][ts.env_id.long()], ts.env_id)
+    return out
+
+
+def check_mesh_invariance(task: str, n: int, shards: int,
+                          atol: float | None = None, steps: int = 6
+                          ) -> dict:
+    """The first ``steps`` sync blocks at D=``shards`` against the same
+    pool at D=1, both on the card, rows aligned by env id: bitwise, but
+    a ``NormalizeObs`` pool's obs (``atol``), whose block sums run in
+    another order at each D."""
+    import torch
+
+    import repro_torch
+
+    pools = [repro_torch.make(task, num_envs=n, engine="device-sharded",
+                              num_shards=d, device=DEV)
+             for d in (1, shards)]
+    tables = action_tables(pools[0], 8, np.random.default_rng(SEED))
+    one, many = (sorted_blocks(p, tables, steps) for p in pools)
+    err = 0.0
+    for t, (a, b) in enumerate(zip(one, many)):
+        for k in a:
+            if k == "obs" and atol is not None:
+                err = max(err, float((a[k] - b[k]).abs().max()))
+                if err > atol:
+                    raise AssertionError(f"{task} D={shards} block {t}: "
+                                         f"obs off by {err} > {atol}")
+            elif not torch.equal(a[k], b[k]):
+                raise AssertionError(f"{task} D={shards} block {t}: {k} "
+                                     "differs from D=1")
+    row = {"task": task, "num_envs": n, "num_shards": shards,
+           "blocks": steps, "bitwise": atol is None,
+           "obs_max_abs_err": err if atol is not None else 0.0}
+    log(f"  {task} N={n} D={shards} == D=1 on the card, {steps} blocks "
+        + ("bitwise" if atol is None else f"(obs within {err:.3g})"))
+    return row
+
+
+def rank_stream(task: str, n: int, recvs: int) -> dict:
+    """A sync stream of the sharded engine at D=2 over the mesh this
+    process sees (solo: both shards here; in a job of two: one a rank):
+    the sha256 of every block as the whole mesh holds it, ``stats()``,
+    and the ms a recv of a second run without the host reads."""
+    import hashlib
+
+    import torch
+
+    import repro_torch
+    from repro_torch.obs.telemetry import stats_to_jsonable
+
+    pool = repro_torch.make(task, num_envs=n, engine="device-sharded",
+                            num_shards=2, device=DEV)
+    tables = action_tables(pool, 8, np.random.default_rng(SEED))
+    ps, ts = pool.reset(repro_torch.random.PRNGKey(SEED))
+    sha = hashlib.sha256()
+    for t in range(recvs):
+        for x in pool.replicate((ts.obs, ts.reward, ts.done, ts.env_id)):
+            sha.update(x.cpu().numpy().tobytes())
+        ps, ts = pool.step(ps, tables[t % 8][ts.env_id.long()], ts.env_id)
+    stats = stats_to_jsonable(pool.stats(ps))
+    torch.cuda.synchronize()
+    pool.mesh.reset_log()
+    t0 = time.perf_counter()
+    for t in range(recvs):
+        ps, ts = pool.step(ps, tables[t % 8][ts.env_id.long()], ts.env_id)
+    torch.cuda.synchronize()
+    return {"sha": sha.hexdigest(), "stats": stats,
+            "block": int(ts.env_id.shape[0]),
+            "ms_per_recv": (time.perf_counter() - t0) / recvs * 1e3,
+            "collectives_per_recv": len(pool.mesh.log) / recvs}
+
+
+def drive_disaggregated(n: int, iters: int) -> dict:
+    """``train_disaggregated`` on Ant-v3 N=``n`` with ``PPOConfig``'s
+    defaults, the env process holding two shards and the learner none:
+    ms per iteration (the first includes the reset and the first
+    rollout) and the seconds each iteration spent in ``host_broadcast``
+    (the hand-off, waiting for the other side included)."""
+    import torch
+
+    import repro_torch
+    from repro_torch.distributed import sharding
+    from repro_torch.rl.ppo import PPOConfig, train_disaggregated
+    from repro_torch.utils.tree import tree_leaves
+
+    mesh = sharding.disaggregated_env_mesh(2, device=DEV)
+    pool = repro_torch.make("Ant-v3", num_envs=n, engine="device-sharded",
+                            mesh=mesh)
+    cfg = PPOConfig(total_steps=iters * 128 * n)
+    broadcast = sharding.host_broadcast
+    handoff = []
+
+    def timed(tree, src):
+        t = time.perf_counter()
+        out = broadcast(tree, src)
+        handoff.append(time.perf_counter() - t)
+        return out
+
+    ends = []
+    sharding.host_broadcast = timed
+    t0 = time.perf_counter()
+    try:
+        state, _, history = train_disaggregated(
+            pool, cfg, seed=SEED, log_fn=lambda r: ends.append(
+                time.perf_counter()))
+    finally:
+        sharding.host_broadcast = broadcast
+    for leaf in tree_leaves(state.params):
+        if not bool(torch.isfinite(leaf).all()):
+            raise AssertionError("train_disaggregated: params not finite")
+    for rec in history:
+        if not all(np.isfinite(rec[k]) for k in ("loss", "pg", "vf",
+                                                 "rho_behavior")):
+            raise AssertionError(f"train_disaggregated: {rec}")
+    laps = np.diff([t0] + ends) * 1e3
+    return {"local_shards": mesh.local_shards,
+            "ms_per_iter": laps.tolist(),
+            # one broadcast of the initial params, then two an iteration
+            "handoff_ms_per_iter": [
+                (handoff[1 + 2 * i] + handoff[2 + 2 * i]) * 1e3
+                for i in range(iters)],
+            "rollout_ms": [handoff[1 + 2 * i] * 1e3 for i in range(iters)],
+            "params_ms": [handoff[2 + 2 * i] * 1e3 for i in range(iters)],
+            "history": [{k: r[k] for k in ("iter", "loss", "pg", "vf",
+                                           "rho_behavior", "episodes")}
+                        for r in history]}
+
+
+def rank_main(argv: list[str]) -> int:
+    """``chip_smoke.py rank <process id> <port> <device> <lanes>``: one of
+    the two processes of the ranks rows, joined over gloo on localhost,
+    both on the same card: the D=2 stream, then ``train_disaggregated``;
+    prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch  # noqa: F401  (fails outside the repository)
+    from repro_torch.launch.mesh import initialize_multihost
+
+    global DEV
+    pid, port, DEV, n = int(argv[0]), argv[1], argv[2], int(argv[3])
+    if DEV.startswith("cuda"):
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            return 1
+        from repro_torch.kernels.build import library
+
+        library()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:   # a rehearsal on the CPU: nothing to wait for
+        torch.cuda.synchronize = lambda *a, **k: None
+    initialize_multihost(f"localhost:{port}", 2, pid, backend="gloo")
+    reset_counts()
+    out = {"pid": pid, "stream": rank_stream("Ant-v3", n, RANK_RECVS),
+           "disaggregated": drive_disaggregated(n, RANK_ITERS)}
+    out["launches"] = {k: fn.launches for k, fn in counters().items()}
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps(out))
+    return 0
+
+
+def ranks_phase() -> dict:
+    """Two processes sharing the card over gloo, spawned here: their D=2
+    Ant-v3 N=4096 stream and ``stats()`` must equal this process's solo
+    D=2 run, compared by hash; then ``train_disaggregated`` with one env
+    rank and one learner rank, ``RANK_ITERS`` iterations."""
+    import socket
+
+    solo = rank_stream("Ant-v3", RANK_N, RANK_RECVS)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "rank", str(i), port,
+         DEV, str(RANK_N)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for i in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"rank failed ({p.returncode}): "
+                                     f"{stderr[-3000:]}")
+            outs.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r in outs:
+        got = r["stream"]
+        if got["sha"] != solo["sha"] or got["stats"] != solo["stats"]:
+            raise AssertionError(f"rank {r['pid']}: stream or stats() "
+                                 "differ from solo D=2")
+        if 2 * got["block"] != solo["block"]:
+            raise AssertionError(f"rank {r['pid']}: block {got['block']}")
+    env, learner = (r["disaggregated"] for r in outs)
+    if env["history"] != learner["history"] or (
+            env["local_shards"], learner["local_shards"]) != (2, 0):
+        raise AssertionError("train_disaggregated: ranks disagree")
+    if outs[0]["launches"]["env_step"] == 0 and DEV.startswith("cuda"):
+        raise AssertionError("train_disaggregated: env_step never launched")
+    row = {"ranks": 2, "backend": "gloo", "seconds":
+           time.perf_counter() - t0, "stream_sha_equal": True,
+           "solo_ms_per_recv": solo["ms_per_recv"],
+           "rank_ms_per_recv": [r["stream"]["ms_per_recv"] for r in outs],
+           "solo_collectives_per_recv": solo["collectives_per_recv"],
+           "rank_collectives_per_recv": [r["stream"]["collectives_per_recv"]
+                                         for r in outs],
+           "disaggregated": {"env": env, "learner": learner},
+           "launches": {k: sum(r["launches"][k] for r in outs)
+                        for k in outs[0]["launches"]}}
+    log(f"  ranks: 2 processes on one card over gloo: Ant-v3 N={RANK_N} D=2 "
+        f"sync, {RANK_RECVS} blocks and stats() equal solo's by hash; "
+        f"{row['rank_ms_per_recv']} ms/recv against solo's "
+        f"{solo['ms_per_recv']:.2f}; train_disaggregated Ant-v3 N={RANK_N} "
+        f"{RANK_ITERS} iterations: ms/iter env {env['ms_per_iter']} "
+        f"learner {learner['ms_per_iter']}, hand-off ms env "
+        f"{env['handoff_ms_per_iter']} (rollout {env['rollout_ms']}) "
+        f"learner {learner['handoff_ms_per_iter']}; {CARD}")
+    return row
+
+
+def drive_sharded_train(n: int = 4096, shards: int = 2, iters: int = 2
+                        ) -> dict:
+    """``train_device`` over a solo D=``shards`` Ant-v3 pool,
+    ``PPOConfig``'s defaults, ``iters`` iterations; the last timed."""
+    import torch
+
+    import repro_torch
+    from repro_torch.rl.ppo import PPOConfig, train_device
+    from repro_torch.utils.tree import tree_leaves
+
+    pool = repro_torch.make("Ant-v3", num_envs=n, engine="device-sharded",
+                            num_shards=shards, device=DEV)
+    cfg = PPOConfig(total_steps=iters * 128 * n)
+    ends = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, _, history = train_device(
+        pool, cfg, seed=SEED, log_fn=lambda r: ends.append(
+            time.perf_counter()))
+    launches = read_counts("train_device sharded", ("env_step",))
+    for leaf in tree_leaves(state.params):
+        if not bool(torch.isfinite(leaf).all()):
+            raise AssertionError("train_device sharded: params not finite")
+    laps = np.diff([t0] + ends) * 1e3
+    row = {"driver": "train_device", "task": "Ant-v3", "num_envs": n,
+           "num_shards": shards, "iterations": iters,
+           "ms_per_iter": laps.tolist(),
+           "env_steps_per_s": 128 * n / laps[-1] * 1e3,
+           "launches": launches,
+           "loss": [r["loss"] for r in history]}
+    log(f"  train_device over Ant-v3 N={n} D={shards}: {laps.tolist()} "
+        f"ms/iter, {row['env_steps_per_s']:.0f} env steps/s, launches "
+        f"{launches}; {CARD}")
+    return row
+
+
+def sharded_phase() -> dict:
+    """Phase 6: the solo pools on the card, their D=1 equality, the two
+    ranks and ``train_device`` over a solo pool."""
+    ant = ("env_step",)
+    pong = ("pong_render", "grayscale", "resize")
+    rows = [
+        drive_pool("Ant-v3", 4096, None, "fifo", ant, recvs=50, shards=4),
+        drive_pool("Ant-v3", 4096, 2048, "fifo", ant, recvs=50, shards=4),
+        drive_pool("Ant-v3", 4096, 2048, "hierarchical", ant, recvs=50,
+                   shards=4),
+        drive_pool("AntSkew-v3", 4096, 2048, "hierarchical", ant,
+                   recvs=100, shards=4),
+        drive_pool("PongClassic-v5", 1024, None, "fifo", pong, recvs=30,
+                   shards=2),
+        drive_pool("AntNorm-v3", 4096, None, "fifo", ant, recvs=50,
+                   shards=2),
+    ]
+    checks = [check_mesh_invariance("Ant-v3", 4096, 4),
+              check_mesh_invariance("PongClassic-v5", 1024, 2),
+              check_mesh_invariance("AntNorm-v3", 4096, 2, atol=1e-3)]
+    return {"pools": rows, "mesh_invariance": checks,
+            "ranks": ranks_phase(), "train": drive_sharded_train()}
+
+
 def main() -> int:
     import torch
 
@@ -2237,6 +2586,13 @@ def main() -> int:
         for k, v in r["launches"].items():
             kernels[k]["launches"] += v
 
+    log(f"phase 6: the sharded engine on the card {at()}")
+    sharded = sharded_phase()
+    log(json.dumps({"sharded_runs": sharded, "card": card}))
+    for r in sharded["pools"] + [sharded["ranks"], sharded["train"]]:
+        for k, v in r["launches"].items():
+            kernels[k]["launches"] += v
+
     log(f"done {at()}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
@@ -2312,5 +2668,7 @@ def train_turns(argv: list[str]) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(train_turns(sys.argv[2:]) if sys.argv[1:2] == ["turns"]
+    if sys.argv[1:2] == ["turns"]:
+        sys.exit(train_turns(sys.argv[2:]))
+    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["rank"]
              else main())

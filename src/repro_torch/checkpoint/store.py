@@ -132,8 +132,9 @@ class CheckpointStore:
             arr = np.load(os.path.join(d, key + ".npy"))
             if arr.dtype == np.uint32:   # JAX keys; torch keeps them int64
                 arr = arr.astype(np.int64)
-            return torch.from_numpy(np.ascontiguousarray(arr)).to(
-                dtype=leaf.dtype, device=leaf.device)
+            # ascontiguousarray makes a 0-dim array 1-dim: keep its shape
+            return torch.from_numpy(np.ascontiguousarray(arr)).reshape(
+                arr.shape).to(dtype=leaf.dtype, device=leaf.device)
 
         return _map_with_key(load, like)
 

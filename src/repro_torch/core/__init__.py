@@ -2,9 +2,7 @@
 ported.
 
 Names resolve on first use (PEP 562), so importing a submodule of
-``repro_torch.core`` does not import every engine.  ``MeshEnvPool``,
-``ShardedDeviceEnvPool`` and ``make_env_mesh``, the sharded engine of
-``repro.core``, wait for ROADMAP A12 and are not here.
+``repro_torch.core`` does not import every engine.
 """
 
 import importlib
@@ -13,6 +11,8 @@ import importlib
 _EXPORTS = {
     "ArraySpec": "specs", "EnvSpec": "specs", "TimeStep": "specs",
     "DeviceEnvPool": "engine", "PoolState": "engine", "make_pool": "engine",
+    "MeshEnvPool": "engine", "make_env_mesh": "engine",
+    "ShardedDeviceEnvPool": "sharded_pool",
     "BoundEnvPool": "protocol", "EnvPool": "protocol",
     "FunctionalEnvPool": "protocol", "bind": "protocol",
     "is_functional": "protocol", "to_timestep": "protocol",

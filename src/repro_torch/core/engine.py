@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch import random
+from repro_torch.core.device import resolve_device
 from repro_torch.core.scheduler import (
     HAS_ACTION,
     READY,
@@ -46,9 +47,11 @@ from repro_torch.obs.telemetry import (
     snapshot_device,
 )
 from repro_torch.utils.tree import (
+    is_value,
     tree_dataclass,
     tree_gather,
     tree_leaves_with_path,
+    tree_map,
     tree_map_with_path,
     tree_scatter,
     tree_where,
@@ -92,6 +95,10 @@ class DeviceEnvPool:
     """EnvPool over ``num_envs`` lanes serving ``batch_size`` results per
     recv, on ``device``."""
 
+    # shards of the pool, and those this process holds (MeshEnvPool)
+    num_shards = 1
+    _d_local = 1
+
     def __init__(self, env: Environment, num_envs: int,
                  batch_size: int | None = None, mode: str | None = None,
                  batched: bool | None = None, schedule: str = "fifo",
@@ -116,13 +123,42 @@ class DeviceEnvPool:
         # masked mode: ticks run so far, counted on the host (the tick
         # loop's condition is read there anyway)
         self.masked_ticks = 0
-        self.scheduler = get_scheduler(schedule)
-        self.pipeline = TransformPipeline(transforms, env.spec)
+        # lanes and results per shard
+        self._n_local = self.num_envs // self.num_shards
+        self._m_local = self.batch_size // self.num_shards
+        self.scheduler = self._policy(schedule)
+        self.pipeline = self._pipeline(transforms, env.spec)
         # batched=False: the generic adapter (the A/B baseline), as in the
         # JAX package's engine
         self.benv = as_batch_env(env, native=batched)
         # callers see the transformed spec; act_spec never changes
         self.spec = self.pipeline.out_spec
+
+    def _policy(self, schedule: str):
+        return get_scheduler(schedule)
+
+    def _pipeline(self, transforms: Any, spec: Any) -> TransformPipeline:
+        return TransformPipeline(transforms, spec)
+
+    # ------------------------------------------------------------------ #
+    # the shard layout: one shard here; MeshEnvPool views the lanes it
+    # holds as (shards, lanes a shard)
+    # ------------------------------------------------------------------ #
+    def _shards(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-lane or per-block vector with a leading shard dim (none
+        here)."""
+        return x
+
+    def _lane_tick(self, ps: PoolState) -> torch.Tensor:
+        """The recv tick of each lane's shard (one tick here)."""
+        return ps.tick
+
+    def _rows(self, idx: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(rows, ids, env_id)`` of a selection ``idx``: the lane rows
+        in the block's shard layout, the same as one int64 vector, and
+        the env ids the block reports."""
+        return idx, idx.long(), idx
 
     # ------------------------------------------------------------------ #
     # construction / reset
@@ -130,7 +166,12 @@ class DeviceEnvPool:
     def init_from_keys(self, env_keys: torch.Tensor, rng: torch.Tensor
                        ) -> PoolState:
         """Every env resets; all results READY (async_reset)."""
-        env_keys = env_keys.to(self.device)
+        # the JAX package gives each of its D shards split(rng, D)[d]
+        return self._fresh(env_keys.to(self.device),
+                           random.split(rng.to(self.device), 1)[0])
+
+    def _fresh(self, env_keys: torch.Tensor, rng: torch.Tensor
+               ) -> PoolState:
         n = env_keys.shape[0]
         act = self.spec.act_spec
         dev = self.device
@@ -153,8 +194,7 @@ class DeviceEnvPool:
             r_ep_length=zeros(torch.int32),
             r_cost=zeros(torch.int32),
             tick=torch.zeros((), dtype=torch.int32, device=dev),
-            # the JAX package gives each of its D shards split(rng, D)[d]
-            rng=random.split(rng.to(dev), 1)[0],
+            rng=rng,
             tf_state=self.pipeline.init(n, dev),
             telemetry=init_telemetry(n, dev) if self.obs else (),
         )
@@ -171,24 +211,38 @@ class DeviceEnvPool:
     # send / recv
     # ------------------------------------------------------------------ #
     @staticmethod
-    def _sched_view(ps: PoolState) -> SchedState:
+    def _lanes(ps: PoolState, tick: torch.Tensor) -> SchedState:
+        """The scheduler's signals of every lane held, one vector each."""
         return SchedState(phase=ps.phase, cost=ps.cost,
-                          send_tick=ps.send_tick, tick=ps.tick)
+                          send_tick=ps.send_tick, tick=tick)
+
+    def _sched_view(self, ps: PoolState) -> SchedState:
+        """The signals a selection reads, in the shard layout."""
+        return self._lanes(ps, ps.tick)
+
+    def _send_ids(self, env_ids: Any) -> torch.Tensor:
+        """The lane rows of ``env_ids``, int64."""
+        return torch.as_tensor(env_ids, device=self.device).long()
 
     def send(self, ps: PoolState, actions: Any, env_ids: Any) -> PoolState:
         """Store ``actions`` for ``env_ids`` (the ids of a recv block)."""
-        ids = torch.as_tensor(env_ids, device=self.device).long()
+        ids = self._send_ids(env_ids)
         actions = torch.as_tensor(actions, device=self.device).to(
             ps.actions.dtype)
         sel = tree_gather(ps.env_states, ids)
         costs = torch.clamp(self.benv.v_step_cost(sel, actions),
                             self.spec.min_cost, self.spec.max_cost)
-        ss = self.scheduler.enqueue(self._sched_view(ps), ids, costs)
+        ss = self.scheduler.enqueue(
+            self._lanes(ps, self._send_tick(ps, ids)), ids, costs)
         return ps.replace(
             actions=ps.actions.index_copy(0, ids, actions),
             phase=ss.phase, cost=ss.cost, send_tick=ss.send_tick,
             progress=ps.progress.index_fill(0, ids, 0),
         )
+
+    def _send_tick(self, ps: PoolState, ids: torch.Tensor) -> torch.Tensor:
+        """The tick ``send`` stamps on lanes ``ids``."""
+        return ps.tick
 
     def _serve(self, ps: PoolState, ids: torch.Tensor, out: TimeStep
                ) -> tuple[PoolState, TimeStep]:
@@ -204,18 +258,17 @@ class DeviceEnvPool:
 
     def _recv_topm(self, ps: PoolState) -> tuple[PoolState, TimeStep]:
         full_block = self.batch_size == self.num_envs
+        ss = self._sched_view(ps)
         if self.obs:
-            idx, overdue = self.scheduler.select_info(self._sched_view(ps),
-                                                      self.batch_size)
+            idx, overdue = self.scheduler.select_info(ss, self._m_local)
         else:
-            idx = self.scheduler.select(self._sched_view(ps),
-                                        self.batch_size)
-        ids = idx.long()
+            idx = self.scheduler.select(ss, self._m_local)
+        rows, ids, env_id = self._rows(idx)
         if self.obs:
             # ticks waited, read before ``complete`` advances the tick; a
             # full block keeps it in lane order (record_serve's fast path)
-            wait = ps.tick - (ps.send_tick if full_block
-                              else ps.send_tick.index_select(0, ids))
+            wait = ss.tick - (ss.send_tick if full_block else self._shards(
+                ps.send_tick.index_select(0, ids)))
         sel_states = tree_gather(ps.env_states, ids)
         need_step = ps.phase.index_select(0, ids) == HAS_ACTION
 
@@ -236,12 +289,12 @@ class DeviceEnvPool:
             done=merge(ts.done, ps.r_done),
             terminated=merge(ts.terminated, ps.r_term),
             truncated=merge(ts.truncated, ps.r_trunc),
-            env_id=idx,
+            env_id=env_id,
             episode_return=merge(ts.episode_return, ps.r_ep_return),
             episode_length=merge(ts.episode_length, ps.r_ep_length),
             step_cost=merge(ts.step_cost, ps.r_cost),
         )
-        ss = self.scheduler.complete(self._sched_view(ps), idx)
+        ss = self.scheduler.complete(self._lanes(ps, ps.tick), ids)
         ps = ps.replace(
             env_states=tree_scatter(ps.env_states, ids, new_states),
             phase=ss.phase,
@@ -258,19 +311,23 @@ class DeviceEnvPool:
         )
         if self.obs:
             ps = ps.replace(telemetry=record_serve(
-                ps.telemetry, idx, wait, need_step, out.step_cost, overdue,
+                ps.telemetry, rows, wait, self._shards(need_step),
+                self._shards(out.step_cost), overdue,
                 full_block=full_block))
         return self._serve(ps, ids, out)
 
     # ------------------------------------------------------------------ #
     # masked (event-driven tick) mode
     # ------------------------------------------------------------------ #
-    def _tick(self, ps: PoolState) -> PoolState:
-        """Advance every HAS_ACTION lane one substep; idle lanes are
-        masked.  Pre-step, the substep and finalize (auto-reset draws
-        included) run over all N lanes, as in the JAX package, so the
-        streams stay the same."""
+    def _tick(self, ps: PoolState, live: torch.Tensor | None = None
+              ) -> PoolState:
+        """Advance every HAS_ACTION lane one substep (of the ``live``
+        lanes, when given); idle lanes are masked.  Pre-step, the substep
+        and finalize (auto-reset draws included) run over all N lanes, as
+        in the JAX package, so the streams stay the same."""
         busy = ps.phase == HAS_ACTION
+        if live is not None:
+            busy = busy & live
         starting = busy & (ps.progress == 0)
         # clear the step's accumulators as it starts
         states = tree_where(starting, self.benv.v_pre_step(ps.env_states),
@@ -286,7 +343,8 @@ class DeviceEnvPool:
             env_states=tree_where(finished, fin_states, states),
             progress=progress,
             phase=torch.where(finished, READY, ps.phase),
-            send_tick=torch.where(finished, ps.tick, ps.send_tick),
+            send_tick=torch.where(finished, self._lane_tick(ps),
+                                  ps.send_tick),
             r_reward=torch.where(finished, fin_ts.reward, ps.r_reward),
             r_done=torch.where(finished, fin_ts.done, ps.r_done),
             r_term=torch.where(finished, fin_ts.terminated, ps.r_term),
@@ -300,15 +358,14 @@ class DeviceEnvPool:
         if self.obs:
             # the substeps belong to the tick that finished the work; the
             # serve is recorded at recv with no stepped lanes
-            new = new.replace(telemetry=record_finished(ps.telemetry,
-                                                        finished, ps.cost))
+            new = new.replace(telemetry=record_finished(
+                ps.telemetry, self._shards(finished), self._shards(ps.cost)))
         return new
 
-    def _recv_masked(self, ps: PoolState) -> tuple[PoolState, TimeStep]:
-        """Tick until M results are READY, then serve them in completion
-        order.  The JAX package runs the loop on the device
-        (``lax.while_loop``); here it is a host loop whose condition is
-        one device-to-host read a tick."""
+    def _await_ready(self, ps: PoolState) -> PoolState:
+        """Tick until M results are READY.  The JAX package runs the loop
+        on the device (``lax.while_loop``); here it is a host loop whose
+        condition is one device-to-host read a tick."""
         m = self.batch_size
         while True:
             ready, busy = torch.stack([(ps.phase == READY).sum(),
@@ -323,28 +380,35 @@ class DeviceEnvPool:
                     "for the ids of the last block first")
             ps = self._tick(ps)
             self.masked_ticks += 1
-        idx = self.scheduler.select_ready(self._sched_view(ps), m)
-        ids = idx.long()
+        return ps
+
+    def _recv_masked(self, ps: PoolState) -> tuple[PoolState, TimeStep]:
+        """Tick until M results are READY, then serve them in completion
+        order."""
+        ps = self._await_ready(ps)
+        ss = self._sched_view(ps)
+        rows, ids, env_id = self._rows(
+            self.scheduler.select_ready(ss, self._m_local))
         out = TimeStep(
             obs=self.benv.v_observe(tree_gather(ps.env_states, ids)),
             reward=ps.r_reward.index_select(0, ids),
             done=ps.r_done.index_select(0, ids),
             terminated=ps.r_term.index_select(0, ids),
             truncated=ps.r_trunc.index_select(0, ids),
-            env_id=idx,
+            env_id=env_id,
             episode_return=ps.r_ep_return.index_select(0, ids),
             episode_length=ps.r_ep_length.index_select(0, ids),
             step_cost=ps.r_cost.index_select(0, ids),
         )
-        ss = self.scheduler.complete(self._sched_view(ps), idx)
         if self.obs:
             # waited since the step completed (``_tick`` stamps send_tick)
-            wait = ps.tick - ps.send_tick.index_select(0, ids)
-            no = torch.zeros_like(idx)
-            tele = record_serve(ps.telemetry, idx, wait, no.bool(), no,
+            wait = ss.tick - self._shards(ps.send_tick.index_select(0, ids))
+            no = torch.zeros_like(rows)
+            tele = record_serve(ps.telemetry, rows, wait, no.bool(), no,
                                 no.new_zeros(()))
             ps = ps.replace(telemetry=tele)
-        ps = ps.replace(phase=ss.phase, tick=ss.tick)
+        done = self.scheduler.complete(self._lanes(ps, ps.tick), ids)
+        ps = ps.replace(phase=done.phase, tick=done.tick)
         return self._serve(ps, ids, out)
 
     def recv(self, ps: PoolState) -> tuple[PoolState, TimeStep]:
@@ -390,6 +454,356 @@ class DeviceEnvPool:
         """``ps`` with the transform state saved at ``step``, e.g. by the
         JAX package's pool at any mesh size."""
         return ps.replace(tf_state=store.restore(step, ps.tf_state))
+
+
+# ---------------------------------------------------------------------- #
+# the sharded engine: D shards over one device or over processes
+# ---------------------------------------------------------------------- #
+def _dist() -> Any:
+    """``torch.distributed`` when a process group is up, else None."""
+    import torch.distributed as dist
+
+    return dist if dist.is_available() and dist.is_initialized() else None
+
+
+class EnvMesh:
+    """A 1-D mesh of ``num_shards`` env shards, the port's counterpart of
+    the JAX package's 1-D device mesh.
+
+    *solo*: one process holds every shard, on its ``device``.  *ranks*:
+    the shards are dealt in order to the processes ``ranks`` of a
+    ``torch.distributed`` job, D/P contiguous shards each on the
+    process's own device; ``group`` is their process group (None: the
+    whole job).  A process outside ``ranks`` holds no shard
+    (``local_shards == 0``), as the learner of ``train_disaggregated``.
+
+    The mesh issues the engine's collectives and counts them:
+    ``log`` holds ``(kind, bytes gathered)`` for each, whether or not it
+    crossed processes (in solo a gather is the local block itself).
+    Over gloo a CUDA tensor is staged through the host."""
+
+    def __init__(self, num_shards: int, device: torch.device | str,
+                 ranks: tuple[int, ...] = (0,), group: Any = None):
+        self.num_shards = int(num_shards)
+        self.device = torch.device(device)
+        self.ranks = tuple(int(r) for r in ranks)
+        self.group = group
+        p = len(self.ranks)
+        if list(self.ranks) != sorted(set(self.ranks)):
+            raise ValueError(f"ranks must be distinct and sorted: {ranks}")
+        if self.num_shards < 1 or self.num_shards % p:
+            raise ValueError(f"num_shards={self.num_shards} must be a "
+                             f"positive multiple of the {p} processes")
+        dist = _dist()
+        me = dist.get_rank() if dist is not None else 0
+        if p > 1 and dist is None:
+            raise RuntimeError("a mesh over several processes needs "
+                               "torch.distributed (launch/mesh.py::"
+                               "initialize_multihost)")
+        self.index = self.ranks.index(me) if me in self.ranks else None
+        self.local_shards = 0 if self.index is None else self.num_shards // p
+        self.first_shard = (self.index or 0) * (self.num_shards // p)
+        self.log: list[tuple[str, int]] = []
+
+    @property
+    def is_multiprocess(self) -> bool:
+        return len(self.ranks) > 1
+
+    def counts(self) -> dict[str, int]:
+        """Collectives issued since the last ``reset_log``, by kind."""
+        out: dict[str, int] = {}
+        for kind, _ in self.log:
+            out[kind] = out.get(kind, 0) + 1
+        return out
+
+    def reset_log(self) -> None:
+        self.log.clear()
+
+    def gather(self, x: torch.Tensor, kind: str, dim: int = 0
+               ) -> torch.Tensor:
+        """Concatenate every process's ``x`` along ``dim``, in shard
+        order: ``(D/P, ...) -> (D, ...)`` for per-shard values."""
+        self.log.append((kind, x.numel() * x.element_size()
+                         * len(self.ranks)))
+        if not self.is_multiprocess:
+            return x
+        dist = _dist()
+        staged = x.is_cuda and dist.get_backend(self.group) == "gloo"
+        src = (x.cpu() if staged else x).contiguous()
+        parts = [torch.empty_like(src) for _ in self.ranks]
+        dist.all_gather(parts, src, group=self.group)
+        out = torch.cat(parts, dim=dim)
+        return out.to(x.device) if staged else out
+
+    def replicate(self, tree: Any, kind: str = "replicate",
+                  dim: int = 0) -> Any:
+        """Every leaf gathered along ``dim`` (0: the lane or shard dim of
+        a pool's leaves): the whole mesh's values on every process."""
+        return tree_map(lambda x: x if x.ndim == 0
+                        else self.gather(x, kind, dim), tree)
+
+
+def make_env_mesh(num_shards: EnvMesh | int | None = None,
+                  device: torch.device | str | None = None,
+                  ranks: tuple[int, ...] | None = None) -> EnvMesh:
+    """The mesh of a sharded pool.  Without ``torch.distributed`` (or with
+    ``ranks`` of one process) it is solo: ``num_shards`` (default 1)
+    shards on ``device``.  In a job it spans ``ranks`` (default every
+    process), ``num_shards`` defaulting to one a process, each process's
+    shards on its ``device`` (default its current card; the CPU only when
+    asked for).  An ``EnvMesh`` passes through, if it is on ``device``.
+    Every process of the job must call it, with the same ranks: a
+    subgroup is made collectively."""
+    if isinstance(num_shards, EnvMesh):
+        if device is not None and torch.device(device) != num_shards.device:
+            raise ValueError(f"device={device!r} differs from the mesh's "
+                             f"{num_shards.device}")
+        return num_shards
+    dist = _dist()
+    if ranks is None:
+        ranks = tuple(range(dist.get_world_size())) if dist else (0,)
+    ranks = tuple(ranks)
+    if device is None and torch.cuda.is_available():
+        device = f"cuda:{torch.cuda.current_device()}"
+    dev = resolve_device(device)
+    d = len(ranks) if num_shards is None else int(num_shards)
+    group = None
+    if (len(ranks) > 1 and dist is not None
+            and dist.get_world_size() != len(ranks)):
+        group = dist.new_group(list(ranks))
+    return EnvMesh(d, dev, ranks, group)
+
+
+class MeshEnvPool(DeviceEnvPool):
+    """EnvPool over a 1-D mesh of D shards (the JAX package's
+    ``MeshEnvPool``; paper §4.1's scale-out).  N and M are global; each
+    shard owns N/D consecutive lanes and serves M/D of them a recv by its
+    own selection, with no gather of env data.
+
+    Layout: per-lane leaves are the ``(D_local * N/D, ...)`` lanes this
+    process holds, viewed ``(D_local, N/D, ...)`` where a shard's own
+    rows are picked, so the selected rows of all local shards go through
+    one ``env_step`` launch (and, for Pong, one render, grayscale and
+    resize launch) a recv.  ``tick``, ``rng``, the global transform state
+    and the per-shard counters carry a leading ``(D_local,)`` dim.
+    ``recv`` returns the process's block in shard-major order with
+    global ``env_id``s: in solo the whole M block, as the JAX package's
+    engine does, so the drivers take it unchanged; across ranks the
+    rank's own D_local M/D rows.  ``send`` takes a block in the same
+    order.  Sync blocks of a pool of D > 1 shards come in env-id order,
+    which makes the stream the same at every D > 1; D = 1 keeps the
+    priority order of the one-shard engine.
+
+    On a recv at most two collectives run: the hierarchical schedule's
+    ``(D, C)`` cost gather and ``NormalizeObs``' moment sums; both are
+    counted on ``mesh.log``.  Host reads of remote rows go through
+    ``replicate``."""
+
+    def __init__(self, env: Environment, num_envs: int,
+                 batch_size: int | None = None, mode: str | None = None,
+                 mesh: EnvMesh | int | None = None,
+                 batched: bool | None = None, schedule: str = "fifo",
+                 sched_patience: float = 1.0, transforms: Any = (),
+                 obs: bool = True, device: torch.device | str | None = None):
+        mesh = make_env_mesh(1 if mesh is None else mesh, device)
+        if batch_size is None:
+            batch_size = num_envs
+        d = mesh.num_shards
+        if num_envs % d:
+            raise ValueError(f"num_envs={num_envs} % num_shards={d}")
+        if batch_size % d:
+            raise ValueError(f"batch_size={batch_size} % num_shards={d}")
+        self.mesh = mesh
+        self.num_shards = d
+        self._d_local = mesh.local_shards
+        self.sched_patience = float(sched_patience)
+        super().__init__(env, num_envs, batch_size, mode=mode,
+                         batched=batched, schedule=schedule,
+                         transforms=transforms, obs=obs, device=mesh.device)
+        n = self._n_local
+        # the first lane and first block row of this process
+        self._lane0 = mesh.first_shard * n
+        self._row0 = mesh.first_shard * self._m_local
+        self._base = (torch.arange(self._d_local, dtype=torch.int32,
+                                   device=self.device) * n)[:, None]
+
+    def _policy(self, schedule):
+        return get_scheduler(schedule, mesh=self.mesh,
+                             num_shards=self.num_shards,
+                             patience=self.sched_patience)
+
+    def _pipeline(self, transforms, spec):
+        return TransformPipeline(
+            transforms, spec, mesh=self.mesh if self.num_shards > 1 else None)
+
+    @property
+    def is_multiprocess(self) -> bool:
+        return self.mesh.is_multiprocess
+
+    @property
+    def block_rows(self) -> tuple[int, int] | None:
+        """``(first row, M)``: where this process's block sits in the
+        global block of M rows; None when it holds the whole block."""
+        return (self._row0, self.batch_size) if self.is_multiprocess else None
+
+    # ------------------------------------------------------------------ #
+    # the shard layout
+    # ------------------------------------------------------------------ #
+    def _shards(self, x):
+        return x.reshape(self._d_local, -1)
+
+    def _lane_tick(self, ps):
+        return ps.tick.repeat_interleave(self._n_local)
+
+    def _sched_view(self, ps):
+        return SchedState(phase=self._shards(ps.phase),
+                          cost=self._shards(ps.cost),
+                          send_tick=self._shards(ps.send_tick),
+                          tick=ps.tick[:, None])
+
+    def _rows(self, idx):
+        if self.mode == "sync" and self.num_shards > 1:
+            # env-id order within a shard: the same shard-major stream
+            # for every D > 1, whatever the per-shard cost order
+            idx = torch.sort(idx, dim=-1).values
+        rows = idx + self._base
+        return rows, rows.reshape(-1).long(), (rows + self._lane0).reshape(-1)
+
+    def _send_ids(self, env_ids):
+        return super()._send_ids(env_ids) - self._lane0
+
+    def _send_tick(self, ps, ids):
+        return ps.tick.index_select(
+            0, torch.div(ids, self._n_local, rounding_mode="floor"))
+
+    # ------------------------------------------------------------------ #
+    # construction
+    # ------------------------------------------------------------------ #
+    def init_from_keys(self, env_keys, rng):
+        """Every env resets from its row of the global ``env_keys``; shard
+        d's rng is ``split(rng, D)[d]``, as in the JAX package."""
+        if self._d_local == 0:
+            raise RuntimeError("this process holds no shard of the pool's "
+                               "mesh")
+        d, lo = self._d_local, self._lane0
+        keys = env_keys.to(self.device)[lo:lo + d * self._n_local]
+        first = self.mesh.first_shard
+        rngs = random.split(rng.to(self.device), self.num_shards)
+        ps = self._fresh(keys, rngs[first:first + d])
+        tele = ps.telemetry
+        if self.obs:
+            tele = tele.replace(**{f: self._per_shard(getattr(tele, f))
+                                   for f in PER_SHARD_FIELDS})
+        return ps.replace(
+            tick=torch.zeros((d,), dtype=torch.int32, device=self.device),
+            tf_state=self._tf_shard(ps.tf_state), telemetry=tele)
+
+    def _per_shard(self, x: torch.Tensor) -> torch.Tensor:
+        return x.expand((self._d_local,) + tuple(x.shape)).clone()
+
+    def _tf_shard(self, tf_state: Any) -> Any:
+        """Global transform entries with a copy a local shard."""
+        return tuple(s if t.per_lane else tree_map(self._per_shard, s)
+                     for t, s in zip(self.pipeline.transforms, tf_state))
+
+    # ------------------------------------------------------------------ #
+    # masked mode: each shard ticks until its own M/D results are READY
+    # ------------------------------------------------------------------ #
+    def _await_ready(self, ps):
+        m = self._m_local
+        while True:
+            ready, busy = torch.stack([
+                self._shards(ps.phase == READY).sum(-1),
+                self._shards(ps.phase == HAS_ACTION).sum(-1)]).tolist()
+            short = [r < m for r in ready]
+            if not any(short):
+                return ps
+            for d, (r, b, s) in enumerate(zip(ready, busy, short)):
+                if s and b == 0:
+                    raise RuntimeError(
+                        f"masked recv: shard {self.mesh.first_shard + d} "
+                        f"has {r} results READY and no lane with an "
+                        f"action, so {m} can never be served; send actions "
+                        "for the ids of the last block first")
+            live = torch.tensor(short, device=self.device)
+            ps = self._tick(ps, live.repeat_interleave(self._n_local))
+            self.masked_ticks += 1
+
+    # ------------------------------------------------------------------ #
+    # host reads and placement
+    # ------------------------------------------------------------------ #
+    def replicate(self, tree: Any) -> Any:
+        """Every leaf gathered on its leading (lane, shard or row) dim, so
+        every process holds the mesh's whole value: host reads only,
+        never on a recv (it moves env data)."""
+        return self.mesh.replicate(tree)
+
+    def put_batch(self, tree: Any) -> Any:
+        """This process's rows of a global ``(M, ...)`` shard-major
+        batch, on the pool's device (every process passes the same)."""
+        lo, hi = self._row0, self._row0 + self._d_local * self._m_local
+        return tree_map(lambda x: torch.as_tensor(x)[lo:hi].to(self.device),
+                        tree, is_leaf=is_value)
+
+    def put_replicated(self, tree: Any) -> Any:
+        """A value every shard reads whole (e.g. the init key), on the
+        pool's device."""
+        return tree_map(lambda x: torch.as_tensor(x).to(self.device), tree,
+                        is_leaf=is_value)
+
+    def device_put(self, ps: PoolState) -> PoolState:
+        """The state on the mesh: it already is (the JAX package's
+        explicit layout)."""
+        return ps
+
+    def state_shardings(self, ps: PoolState) -> Any:
+        """The layout as a plan: every leaf with a dim is partitioned on
+        its leading (lane or shard) dim over the mesh, ``("env",
+        None, ...)``; 0-dim leaves are replicated, ``()``."""
+        return tree_map(lambda x: ("env",) + (None,) * (x.ndim - 1)
+                        if x.ndim else (), ps)
+
+    def stats(self, ps: PoolState) -> dict:
+        """The counters' host snapshot: per-shard partial sums added as
+        integers, so it is bitwise the same at every D and process
+        count.  Across processes the counters are gathered first."""
+        if not self.obs:
+            raise RuntimeError(
+                "telemetry disabled: pool was constructed with obs=False")
+        tele, tick = ps.telemetry, ps.tick
+        if self.is_multiprocess:
+            tele, tick = self.replicate((tele, tick))
+        return snapshot_device(tele, tick)
+
+    # ------------------------------------------------------------------ #
+    # transform-state checkpoints
+    # ------------------------------------------------------------------ #
+    def _tf_canonical(self, tf_state: Any) -> Any:
+        """Per-lane entries with all N rows, global entries without the
+        shard dim (the copies are equal): the JAX package's form, the
+        same at every mesh size."""
+        return tuple(
+            (self.mesh.replicate(s) if t.per_lane
+             else tree_map(lambda x: x[0], s))
+            for t, s in zip(self.pipeline.transforms, tf_state))
+
+    def save_transform_state(self, store, step, ps, meta=None):
+        """Save the canonical transform state; across processes the mesh's
+        first process writes it (the others return None)."""
+        canon = self._tf_canonical(ps.tf_state)
+        if self.mesh.index != 0:
+            return None
+        return store.save(step, canon, meta or {})
+
+    def restore_transform_state(self, store, step, ps):
+        """``ps`` with the transform state saved at ``step`` at any mesh
+        size: global entries are copied to every local shard."""
+        canon = store.restore(step, self._tf_canonical(ps.tf_state))
+        lo, hi = self._lane0, self._lane0 + self._d_local * self._n_local
+        return ps.replace(tf_state=tuple(
+            (tree_map(lambda x: x[lo:hi], c) if t.per_lane
+             else tree_map(self._per_shard, c))
+            for t, c in zip(self.pipeline.transforms, canon)))
 
 
 # ---------------------------------------------------------------------- #
@@ -467,6 +881,7 @@ def make_pool(env: Environment, num_envs: int, batch_size: int | None = None,
 
 
 __all__ = [
-    "DeviceEnvPool", "PoolState", "derive_env_keys", "make_pool",
+    "DeviceEnvPool", "EnvMesh", "MeshEnvPool", "PoolState",
+    "derive_env_keys", "make_env_mesh", "make_pool",
     "pool_state_from_numpy", "pool_state_to_numpy",
 ]

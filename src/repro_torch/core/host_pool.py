@@ -234,8 +234,9 @@ class ThreadEnvPool:
             raise ValueError("batch_size cannot exceed num_envs")
         if schedule not in ("fifo", "sjf"):
             raise ValueError(
-                "schedule='hierarchical' is the cross-shard policy: it needs "
-                "a device mesh (multi-GPU sharding, ROADMAP A12)"
+                "thread engine supports schedules ('fifo', 'sjf'); "
+                f"{schedule!r} is the cross-shard policy "
+                "(use engine='device-sharded')"
                 if schedule == "hierarchical" else
                 f"unknown schedule {schedule!r}; the thread engine knows "
                 "('fifo', 'sjf')")

@@ -5,7 +5,7 @@ An engine has specs (``spec``, ``num_envs``, ``batch_size``) and the
 paper's §3.1 API (``send``, ``recv``, ``step``, ``reset``) plus
 ``stats()``.  There are two calling conventions underneath:
 
-* **functional** engines (``DeviceEnvPool``): functions of an explicit
+* **functional** engines (``DeviceEnvPool``, ``MeshEnvPool``): functions of an explicit
   ``PoolState`` — ``send(ps, actions, ids) -> ps``, ``recv(ps) -> (ps,
   TimeStep)``, ``reset(key) -> (ps, TimeStep)`` — with ``init`` and
   ``xla()``;
@@ -19,6 +19,40 @@ paper's §3.1 API (``send``, ``recv``, ``step``, ``reset``) plus
 ``reset``/``step``/``send``/``recv`` all return ``TimeStep`` blocks.
 The JAX package's handle jits the functional engine's methods; here
 they are called as they are.
+
+Multi-process contract (``launch/mesh.py``, ``core/engine.py::
+MeshEnvPool``, ``distributed/sharding.py``).  After
+``initialize_multihost(coordinator, num_processes, process_id,
+backend=...)`` a ``MeshEnvPool`` may span the processes of the job, one
+device each: every process runs the same driver and calls the pool's
+methods in the same order, and each holds its own D/P shards.
+
+* **env state**: every ``PoolState`` leaf holds the process's own lanes
+  and shards; it never crosses processes on a recv.  ``recv`` returns
+  the process's own block of M/P rows, shard-major, with global
+  ``env_id``s, and ``send`` takes it back in that order.
+* **collectives on a recv**: exactly two families, both of fixed size,
+  independent of env count and observation size: the hierarchical
+  schedule's gather of the ``(D, C)`` candidate costs and
+  ``NormalizeObs``' gathers of its ``(D, *obs)`` moment sums.  The mesh
+  counts every collective it issues (``EnvMesh.log``), in solo too,
+  where a gather is the local block itself; a fifo or sjf pool without
+  ``NormalizeObs`` issues none.  Over gloo a CUDA tensor is staged
+  through the host, a round trip a collective.
+* **host reads**: ``stats(ps)`` and any read of remote rows go through
+  ``pool.replicate`` (a gather of every leaf), an explicit call off the
+  recv; the counters' per-shard integer sums keep the snapshot bitwise
+  the same at every process count.
+* **disaggregation** (``rl/ppo.py::train_disaggregated``): the env
+  shards live on the env processes' mesh
+  (``distributed.sharding.disaggregated_env_mesh``), the learner's
+  update on its own process; the rollout and the params cross by
+  ``host_broadcast`` (staged on the CPU) once an iteration each way,
+  and the consumed rollout is one policy step stale, as in
+  ``train_pipelined``, which V-trace corrects.
+* **transform-state checkpoints**: saved in the canonical form (all N
+  rows, one copy of the global statistics) by the mesh's first process,
+  restored at any shard and process count.
 """
 
 from __future__ import annotations

@@ -13,12 +13,17 @@
                 engine="thread", device="cpu")           # host thread pool
     pool = make("Ant-v3", num_envs=64, engine="subprocess",
                 num_threads=4)                           # gym.vector baseline
+    pool = make("Ant-v3", num_envs=4096, batch_size=2048,
+                engine="device-sharded", num_shards=4,
+                schedule="hierarchical")                 # D shards
     env = make_py("Ant-v3", seed=0)                      # one numpy env
 
   engine            pool class              execution substrate
   ----------------  ----------------------  ---------------------------------
   device (default)  DeviceEnvPool           N lanes on one device
   device-masked     DeviceEnvPool(masked)   tick ablation, one device
+  device-sharded    MeshEnvPool             D shards, on one device or
+                                            over torch.distributed ranks
   thread            ThreadEnvPool           host threads (paper's C++ pool)
   forloop           ForLoopEnv              sequential baseline (Table 1)
   subprocess        SubprocessEnv           gym.vector-style workers
@@ -28,8 +33,9 @@ Every engine derives its per-env init keys the same way
 by ``env_id`` all of them emit the same streams.  The host engines step
 each env as one lane of its batched env on ``device`` (the card unless
 ``device="cpu"``) and return their blocks as tensors there.  The
-sharded engine (``device-sharded``, ``num_shards``, ``mesh``) is not
-ported yet and raises naming ROADMAP A12.
+sharded engine takes ``num_shards`` shards on ``device``, or ``mesh``
+(``core/engine.py::make_env_mesh``, which may span the processes of a
+``torch.distributed`` job); without either, one shard a process.
 """
 
 from __future__ import annotations
@@ -42,8 +48,10 @@ import torch
 
 from repro_torch import random
 from repro_torch.core.baselines import ForLoopEnv, SubprocessEnv
+from repro_torch.core.device import resolve_device
 from repro_torch.core.engine import DeviceEnvPool, derive_env_keys
 from repro_torch.core.host_pool import ThreadEnvPool, TorchHostEnv
+from repro_torch.core.sharded_pool import ShardedDeviceEnvPool
 from repro_torch.core.transforms import (
     FrameStack,
     Grayscale,
@@ -139,17 +147,6 @@ def register(name: str, factory: Callable[..., Environment],
 def default_transforms(task_id: str) -> tuple[Transform, ...]:
     """The task's registered default transform pipeline."""
     return _registry().get(task_id, (None, ()))[1]
-
-
-def resolve_device(device: torch.device | str | None) -> torch.device:
-    """``device``, or ``cuda`` when it is None and a card is present;
-    there is no quiet fallback to the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 def list_envs() -> list[str]:
@@ -251,28 +248,36 @@ def make(task_id: str, num_envs: int, batch_size: int | None = None,
     ``pool.stats()``; False leaves them out.  ``batched`` None (or True)
     takes the env's native batched view, False the generic adapter.
     ``transforms=None`` takes the task's registered pipeline, an
-    explicit list replaces it.  ``sched_patience`` belongs to the
-    hierarchical schedule, which needs the sharded engine: that engine,
-    ``num_shards`` and ``mesh`` are not ported yet and raise."""
+    explicit list replaces it.  ``engine="device-sharded"`` is the mesh
+    engine over ``mesh`` (an ``EnvMesh``, whose device it takes) or
+    ``num_shards`` shards on ``device``, by default one shard a process
+    (``ShardedDeviceEnvPool``); it also takes ``schedule="hierarchical"``
+    with its fairness knob ``sched_patience``.  The other engines ignore
+    ``num_shards`` and ``mesh``, as ``repro.make`` does."""
     tasks = _registry()
     if task_id not in tasks:
         raise KeyError(f"unknown env {task_id!r}; known: {sorted(tasks)}")
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; known: {ENGINES}")
-    given = {"engine": engine if engine == "device-sharded" else None,
-             "num_shards": num_shards, "mesh": mesh}
-    for name, value in given.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}={value!r}: the sharded engine is not ported yet "
-                "(ROADMAP A12)")
     factory, default = tasks[task_id]
     tfs = resolve_transforms(transforms, default)
+    if engine == "device-sharded":
+        return ShardedDeviceEnvPool(
+            factory(**env_kwargs), num_envs, batch_size,
+            mesh=mesh if mesh is not None else num_shards, batched=batched,
+            schedule=schedule, sched_patience=sched_patience,
+            transforms=tfs, obs=obs, device=device)
     dev = resolve_device(device)
     if engine in HOST_ENGINES:
         return _make_host(engine, task_id, num_envs, batch_size, num_threads,
                           seed, batched, schedule, cost_ema_alpha, tfs, obs,
                           dev, env_kwargs)
+    if schedule == "hierarchical":
+        # the cross-shard policy needs a mesh; the one-device engine
+        # refuses it, as the JAX package's does
+        raise ValueError(
+            "schedule='hierarchical' is the cross-shard policy: it needs a "
+            "device mesh (use engine='device-sharded')")
     return DeviceEnvPool(factory(**env_kwargs), num_envs, batch_size,
                          mode="masked" if engine == "device-masked" else None,
                          batched=batched, schedule=schedule, transforms=tfs,

@@ -6,6 +6,15 @@ enqueue tick) and the recv tick; the engine builds it as a view of its
 ``PoolState`` fields.  A policy maps them to one f32 priority per lane
 (lower is served first); ``select`` takes the M lowest.
 
+A pool of several shards (``core/engine.py::MeshEnvPool``) hands the
+policy a view with a leading shard dim: ``phase``, ``cost`` and
+``send_tick`` ``(D, n)`` and ``tick`` ``(D, 1)``.  The priorities are
+elementwise and the selections sort the last dim, so every shard picks
+its own M/D lanes in one call, as each shard of the JAX package's
+``shard_map`` does.  Only ``HierarchicalScheduler`` communicates: one
+gather of a ``(D, C)`` matrix of candidate costs across the shards,
+through the pool's mesh (``EnvMesh.gather``).
+
 Tie order is part of the stream.  The JAX package selects with
 ``lax.top_k(-priority, m)``, which keeps the lower index first among
 equal values, and ties are the common case: the fifo READY band is
@@ -17,6 +26,8 @@ in f32 in the JAX package's op order.
 
 from __future__ import annotations
 
+from typing import Any
+
 import numpy as np
 import torch
 
@@ -27,7 +38,14 @@ HAS_ACTION = 1       # action stored; step not yet executed
 READY = 2            # unconsumed result available
 
 _BIG = 1e9           # exactly representable in f32
-SCHEDULES = ("fifo", "sjf")
+# the hierarchical bands: READY (-2^22) < overdue (-2^20) < admitted (0)
+# < deferred (2^20) < WAITING (2^22); powers of two small enough that f32
+# still resolves unit steps of cost and age inside a band, and values in
+# a band clipped to +-2^19 so that no band bleeds into the next
+_CAP = float(2 ** 19)
+_BAND = float(2 ** 20)
+_EDGE = float(2 ** 22)
+SCHEDULES = ("fifo", "sjf", "hierarchical")
 
 
 @tree_dataclass
@@ -58,13 +76,13 @@ class Scheduler:
         """The ``m`` lanes to serve, lowest priority first, ties by lane
         index (see the module docstring)."""
         order = torch.sort(self.priority(ss), stable=True).indices
-        return order[:m].to(torch.int32)
+        return order[..., :m].to(torch.int32)
 
     def select_info(self, ss: SchedState, m: int
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """``(idx, overdue_admits)``: ``select``'s lanes and the 0-dim
-        int32 count of lanes admitted through an overdue band this recv
-        (the telemetry signal), which fifo and sjf do not have."""
+        """``(idx, overdue_admits)``: ``select``'s lanes and the int32
+        count of lanes admitted through an overdue band this recv (the
+        telemetry signal; one a shard), which fifo and sjf do not have."""
         return self.select(ss, m), torch.zeros(
             (), dtype=torch.int32, device=ss.phase.device)
 
@@ -74,7 +92,8 @@ class Scheduler:
         after them; the same for every policy."""
         prio = torch.where(ss.phase == READY,
                            ss.send_tick.to(torch.float32), _BIG)
-        return torch.sort(prio, stable=True).indices[:m].to(torch.int32)
+        return torch.sort(prio, stable=True).indices[..., :m].to(
+            torch.int32)
 
     def complete(self, ss: SchedState, idx: torch.Tensor) -> SchedState:
         """Served lanes go back to WAITING; the tick advances."""
@@ -119,17 +138,83 @@ class SjfScheduler(Scheduler):
                         ss.cost.to(torch.float32), _BIG))
 
 
-def get_scheduler(schedule: str = "fifo") -> Scheduler:
-    """Resolve a policy name.  ``hierarchical`` is the cross-shard
-    policy and needs a device mesh, which this engine does not have."""
+class HierarchicalScheduler(Scheduler):
+    """Cost-aware hierarchical top-M across the shards of a mesh pool.
+
+    Each shard nominates its ``C = min(n, 2 m)`` cheapest lanes with an
+    action (n lanes and m results a shard); one gather of that ``(D, C)``
+    cost matrix, never of env data, gives every shard the same admission
+    cost ``tau``, the (D m)-th cheapest nominee.  Bands, low to high:
+    READY < overdue < admitted (cost <= tau, SJF with aging) < deferred
+    (cost > tau) < WAITING.  A deferred lane of cost c is overdue once
+    ``aging * (age + n // m) >= patience * c``: its deadline less one
+    rotation of n/m ticks, so expensive lanes come due together and are
+    served in one block.  A shard whose lanes are all deferred still
+    serves its cheapest m."""
+
+    name = "hierarchical"
+    aging = 1.0
+
+    def __init__(self, mesh: Any, num_shards: int, patience: float = 1.0):
+        self.mesh = mesh
+        self.num_shards = int(num_shards)
+        self.patience = float(patience)
+
+    def _tau(self, ss: SchedState, m: int) -> torch.Tensor:
+        """The (D m)-th smallest of the gathered candidate costs."""
+        c = min(ss.phase.shape[-1], 2 * m)
+        eff = torch.where(ss.phase == HAS_ACTION,
+                          ss.cost.to(torch.float32), _BIG)
+        cands = self.mesh.gather(torch.sort(eff, dim=-1).values[..., :c],
+                                 "candidates")
+        return torch.sort(cands.reshape(-1)).values[self.num_shards * m - 1]
+
+    def select(self, ss: SchedState, m: int) -> torch.Tensor:
+        return self.select_info(ss, m)[0]
+
+    def select_info(self, ss: SchedState, m: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        tau = self._tau(ss, m)
+        age = (ss.tick - ss.send_tick).to(torch.float32)
+        cost = ss.cost.to(torch.float32)
+        serviceable = ss.phase == HAS_ACTION
+        admitted = serviceable & (cost <= tau)
+        slack = float(ss.phase.shape[-1] // max(m, 1))
+        overdue = serviceable & ~admitted & (
+            self.aging * (age + slack) >= self.patience * cost)
+        sjf_aged = torch.clamp(cost - self.aging * age, -_CAP, _CAP)
+        pri = torch.where(
+            ss.phase == READY,
+            -_EDGE + torch.clamp_max(ss.send_tick.to(torch.float32), _CAP),
+            torch.where(overdue, -_BAND + sjf_aged, torch.where(
+                admitted, sjf_aged, torch.where(
+                    serviceable, _BAND + torch.clamp_max(cost, _CAP),
+                    _EDGE))))
+        idx = torch.sort(pri, stable=True).indices[..., :m]
+        return idx.to(torch.int32), overdue.gather(-1, idx).sum(
+            -1, dtype=torch.int32)
+
+
+def get_scheduler(schedule: str = "fifo", mesh: Any = None,
+                  num_shards: int | None = None,
+                  patience: float = 1.0) -> Scheduler:
+    """Resolve a policy name.
+    ``hierarchical`` is the cross-shard policy: it needs the pool's
+    ``mesh`` and ``num_shards``, which the sharded engine gives it.
+    ``patience`` is its fairness knob, which fifo and sjf accept and do
+    not use."""
+    if patience <= 0:
+        raise ValueError(f"patience must be > 0, got {patience}")
     if schedule == "fifo":
         return FifoScheduler()
     if schedule == "sjf":
         return SjfScheduler()
     if schedule == "hierarchical":
-        raise ValueError(
-            "schedule='hierarchical' is the cross-shard policy: it needs a "
-            "device mesh (multi-GPU sharding, ROADMAP A12)")
+        if mesh is None or num_shards is None:
+            raise ValueError(
+                "schedule='hierarchical' is the cross-shard policy: it "
+                "needs a device mesh (use engine='device-sharded')")
+        return HierarchicalScheduler(mesh, num_shards, patience=patience)
     raise ValueError(f"unknown schedule {schedule!r}; known: {SCHEDULES}")
 
 
@@ -148,11 +233,12 @@ def numpy_priority(schedule: str, cost: np.ndarray) -> np.ndarray:
     if schedule == "sjf":
         return cost
     raise ValueError(
-        f"no host mirror for schedule {schedule!r}; known: {SCHEDULES}")
+        f"no host mirror for schedule {schedule!r}; known: ('fifo', 'sjf')")
 
 
 __all__ = [
     "HAS_ACTION", "READY", "SCHEDULES", "WAITING_ACTION", "FifoScheduler",
-    "SchedState", "Scheduler", "SjfScheduler", "get_scheduler",
+    "HierarchicalScheduler", "SchedState", "Scheduler", "SjfScheduler",
+    "get_scheduler",
     "numpy_priority",
 ]

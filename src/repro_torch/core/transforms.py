@@ -23,6 +23,7 @@ from repro_torch.kernels.image.ref import RESIZE_METHODS, check_crop
 from repro_torch.utils.tree import (
     lane_mask,
     tree_gather,
+    tree_leaves,
     tree_scatter,
 )
 
@@ -44,7 +45,10 @@ class Transform:
 
     def apply(self, state: Any, ts: TimeStep, spec: EnvSpec
               ) -> tuple[Any, TimeStep]:
-        """Transform one served block; ``spec`` is this stage's input."""
+        """Transform one served block; ``spec`` is this stage's input.
+        A transform with global (not per-lane) state also takes
+        ``mesh=``: the pool's ``EnvMesh`` when it has more than one
+        shard, its state then one copy a shard the process holds."""
         return state, ts
 
 
@@ -158,7 +162,14 @@ class NormalizeObs(Transform):
     it, ``(x - mean) / sqrt(max(m2 / count, 0) + eps)``, clipped to
     ``[-clip, clip]``.  The block's sums run in torch's order, not XLA's,
     so the values agree with the JAX package's to f32 reduction-order
-    tolerance."""
+    tolerance.
+
+    Over a mesh of D > 1 shards each shard holds a copy of the moments
+    and serves M/D rows; the block's count, sum and squared deviations
+    are merged across the shards (the JAX package's ``psum``) by two
+    gathers of the ``(D, *obs)`` per-shard sums, added in shard order,
+    so the copies stay equal and the result does not depend on how the
+    shards are dealt to processes.  Statistics cross, never env data."""
 
     name = "normalize_obs"
 
@@ -179,11 +190,29 @@ class NormalizeObs(Transform):
         shape = spec.obs_spec.shape
         return {"count": zeros(()), "mean": zeros(shape), "m2": zeros(shape)}
 
-    def apply(self, state, ts, spec):
+    def apply(self, state, ts, spec, mesh=None):
+        if mesh is not None:
+            return self._apply_shards(state, ts, mesh)
         x = ts.obs.to(torch.float32)
         nb = float(x.shape[0])
         bmean = x.sum(0) / nb
         d2 = ((x - bmean) ** 2).sum(0)
+        return self._merge(state, x, nb, bmean, d2, ts)
+
+    def _apply_shards(self, state, ts, mesh):
+        d = mesh.local_shards
+        x = ts.obs.to(torch.float32)
+        xs = x.reshape((d, -1) + tuple(x.shape[1:]))
+        nb = float(xs.shape[1] * mesh.num_shards)
+        bmean = mesh.gather(xs.sum(1), "moments").sum(0) / nb
+        d2 = mesh.gather(((xs - bmean) ** 2).sum(1), "moments").sum(0)
+        # the copies are equal: merge into shard 0's, hand it to all
+        new, ts = self._merge({k: v[0] for k, v in state.items()}, x, nb,
+                              bmean, d2, ts)
+        return {k: v.expand((d,) + tuple(v.shape)).clone()
+                for k, v in new.items()}, ts
+
+    def _merge(self, state, x, nb, bmean, d2, ts):
         count, mean0 = state["count"], state["mean"]
         total = count + nb
         delta = bmean - mean0
@@ -287,9 +316,13 @@ class Crop(Transform):
 class TransformPipeline:
     """An ordered list of transforms bound to one env spec: ``init`` the
     per-pool state tuple, ``gather``/``scatter`` the per-lane rows of a
-    served block, ``apply`` the stages in order."""
+    served block, ``apply`` the stages in order.  ``mesh``: the pool's
+    ``EnvMesh`` when it has more than one shard, handed to the stages
+    with global state."""
 
-    def __init__(self, transforms: Sequence[Transform], spec: EnvSpec):
+    def __init__(self, transforms: Sequence[Transform], spec: EnvSpec,
+                 mesh: Any = None):
+        self.mesh = mesh
         self.transforms = tuple(transforms)
         for t in self.transforms:
             if not isinstance(t, Transform):
@@ -327,7 +360,10 @@ class TransformPipeline:
     def apply(self, block: tuple, ts: TimeStep) -> tuple[tuple, TimeStep]:
         new = []
         for t, s, spec in zip(self.transforms, block, self.stage_specs):
-            s, ts = t.apply(s, ts, spec)
+            if self.mesh is None or t.per_lane or not tree_leaves(s):
+                s, ts = t.apply(s, ts, spec)
+            else:
+                s, ts = t.apply(s, ts, spec, mesh=self.mesh)
             new.append(s)
         return tuple(new), ts
 

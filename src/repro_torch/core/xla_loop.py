@@ -16,6 +16,14 @@ later slice (ROADMAP B, "outside the kernels").
 Step ``t`` of a collect draws with ``random.split(key, num_steps)[t]``,
 the key the scan hands its step ``t``.
 
+Over a sharded pool (``MeshEnvPool``) the loops are the same: every
+recv block is the one the process holds, the whole M block in solo and
+the process's M/P rows across processes, so the trajectory is that
+block's.  A policy that draws noise for a block should draw it for the
+global block and take the process's rows (``pool.block_rows``; see
+``rl/nets.py::ActorCritic.sample``), so the draws do not depend on how
+the shards are dealt.
+
 ``collect_init`` and ``build_collect_fn`` are engine-agnostic, as in the
 JAX package: a host engine (thread, forloop, subprocess) gets a loop
 with the same signature and trajectory layout (``ps`` is None), the

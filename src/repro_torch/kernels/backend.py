@@ -32,6 +32,16 @@ def resolve_backend(backend: str, x: torch.Tensor) -> str:
     return backend
 
 
+def launch(x: torch.Tensor, entry, *args) -> int:
+    """``entry(*args, stream)`` with ``x``'s card current and ``stream``
+    that card's current stream; returns the entry's error code.  The
+    ``ctypes`` entry points launch onto the current device, so a launch
+    for a tensor on another card than the current one must switch to
+    it first."""
+    with torch.cuda.device(x.device):
+        return entry(*args, torch.cuda.current_stream(x.device).cuda_stream)
+
+
 def check_launch(name: str, err: int) -> None:
     """Raise if a launch entry returned a CUDA error code."""
     if err != 0:
@@ -78,4 +88,4 @@ def launch_counts() -> dict[str, int]:
 
 
 __all__ = ["BACKENDS", "check_launch", "count_launch", "kernel_ops",
-           "launch_counts", "reset_launches", "resolve_backend"]
+           "launch", "launch_counts", "reset_launches", "resolve_backend"]

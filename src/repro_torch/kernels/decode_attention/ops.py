@@ -26,6 +26,7 @@ import torch
 from repro_torch.kernels.backend import (
     check_launch,
     count_launch,
+    launch,
     resolve_backend,
 )
 from repro_torch.kernels.decode_attention.ref import (
@@ -145,13 +146,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     warps, rows = split_plan(
         B, Hkv, T, _device_rows(q.device, D * q.element_size()))
-    err = library().decode_attention_launch(
+    err = launch(
+        q, library().decode_attention_launch,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), B, H, Hkv, T, D,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), default_scale(D),
-        DTYPES[q.dtype], warps, rows, load_width(k, v),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        DTYPES[q.dtype], warps, rows, load_width(k, v))
     check_launch("decode_attention", err)
     count_launch(decode_attention)
     return out

@@ -13,6 +13,7 @@ import torch
 from repro_torch.kernels.backend import (
     check_launch,
     count_launch,
+    launch,
     resolve_backend,
 )
 from repro_torch.kernels.env_step.ref import (
@@ -75,12 +76,13 @@ def env_multi_step(
 
     out = torch.empty_like(state)
     reward = torch.empty((n,), dtype=torch.float32, device=dev)
-    err = library().env_step_launch(
+    err = launch(
+        state, library().env_step_launch,
         state.data_ptr(), action.data_ptr(),
         None if cost is None else cost.data_ptr(),
         None if reward0 is None else reward0.data_ptr(),
         out.data_ptr(), reward.data_ptr(), n, int(n_sub),
-        env_step_plan(n), torch.cuda.current_stream(dev).cuda_stream,
+        env_step_plan(n),
     )
     check_launch("env_step", err)
     count_launch(env_multi_step)

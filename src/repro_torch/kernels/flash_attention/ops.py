@@ -30,6 +30,7 @@ import torch
 from repro_torch.kernels.backend import (
     check_launch,
     count_launch,
+    launch,
     resolve_backend,
 )
 from repro_torch.kernels.decode_attention.ref import default_scale
@@ -124,14 +125,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out
     scale = default_scale(D) if sm_scale is None else float(sm_scale)
-    err = library().flash_attention_launch(
+    err = launch(
+        q, library().flash_attention_launch,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, H, Hkv, Sq, Skv, D, int(causal), int(window), scale,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         out.stride(0), out.stride(1), out.stride(2),
-        DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        DTYPES[q.dtype])
     check_launch("flash_attention", err)
     count_launch(flash_attention)
     return out

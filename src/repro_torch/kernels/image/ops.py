@@ -17,6 +17,7 @@ import torch
 from repro_torch.kernels.backend import (
     check_launch,
     count_launch,
+    launch,
     resolve_backend,
 )
 from repro_torch.kernels.image.ref import (
@@ -29,10 +30,6 @@ from repro_torch.kernels.image.ref import (
     resize_reference,
     resize_weights,
 )
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
 
 @functools.lru_cache(maxsize=None)
 def _device_sms(device: torch.device) -> int:
@@ -83,10 +80,10 @@ def pong_render(ball_x: torch.Tensor, ball_y: torch.Tensor,
     out = torch.empty((n, RGB_H, RGB_W, 3), dtype=torch.uint8,
                       device=ball_x.device)
     blocks, rows = render_plan(n, _device_sms(ball_x.device))
-    err = library().pong_render_launch(
+    err = launch(
+        ball_x, library().pong_render_launch,
         ball_x.data_ptr(), ball_y.data_ptr(), paddle_y.data_ptr(),
-        enemy_y.data_ptr(), out.data_ptr(), n, rows, blocks,
-        _stream(ball_x))
+        enemy_y.data_ptr(), out.data_ptr(), n, rows, blocks)
     check_launch("pong_render", err)
     count_launch(pong_render)
     return out
@@ -129,9 +126,10 @@ def grayscale(rgb: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
     out = torch.empty(rgb.shape[:-1], dtype=torch.uint8, device=rgb.device)
     n = out.numel()
     vec = vector_pixels(rgb.data_ptr(), out.data_ptr(), n)
-    err = library().grayscale_launch(
+    err = launch(
+        rgb, library().grayscale_launch,
         rgb.data_ptr(), out.data_ptr(), n, int(vec),
-        gray_plan(n, vec, _device_sms(rgb.device)), _stream(rgb))
+        gray_plan(n, vec, _device_sms(rgb.device)))
     check_launch("grayscale", err)
     count_launch(grayscale)
     return out
@@ -181,9 +179,8 @@ def crop(img: torch.Tensor, top: int, left: int, height: int, width: int,
                       device=img.device)
     path = crop_plan(img.data_ptr(), out.data_ptr(), h, w, top, left,
                      height, width)
-    err = library().crop_launch(img.data_ptr(), out.data_ptr(), n, h, w,
-                                top, left, height, width, path,
-                                _stream(img))
+    err = launch(img, library().crop_launch, img.data_ptr(),
+                 out.data_ptr(), n, h, w, top, left, height, width, path)
     check_launch("crop", err)
     count_launch(crop)
     return out
@@ -251,9 +248,10 @@ def resize(img: torch.Tensor, out_h: int, out_w: int, method: str = "area",
     n = img.numel() // (h * w)
     out = torch.empty(lead + (out_h, out_w), dtype=torch.uint8,
                       device=img.device)
-    err = library().resize_launch(
+    err = launch(
+        img, library().resize_launch,
         img.data_ptr(), taps.data_ptr(), out.data_ptr(), n, h, w, out_h,
-        out_w, ka, kb, int(bulk_copies(img.data_ptr(), h, w)), _stream(img))
+        out_w, ka, kb, int(bulk_copies(img.data_ptr(), h, w)))
     check_launch("resize", err)
     count_launch(resize)
     return out

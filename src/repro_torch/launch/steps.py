@@ -2,8 +2,8 @@
 decode steps of a ``Model``, and a synthetic batch for a shape cell.
 
 Only the single-device form is ported: ``mesh=None``.  A mesh (the
-sharded steps of ``repro``) raises and names ROADMAP A12; the train
-step waits with the training slice.
+model-parallel steps of ``repro``) raises and names ROADMAP A19; the
+train step waits with the training slice.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from repro_torch.models.api import Model, ShapeSpec
 def _single_device(mesh: Any) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "sharded steps are not ported: pass mesh=None (ROADMAP A12)")
+            "sharded steps are not ported: pass mesh=None (ROADMAP A19)")
 
 
 def make_prefill_step(model: Model, seq_len: int, mesh: Any = None

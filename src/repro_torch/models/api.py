@@ -24,7 +24,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.registry import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig
 

@@ -22,8 +22,13 @@ Counter semantics (the JAX package's):
   * ``overdue_admits`` — lanes admitted through a scheduler's overdue
     band (0 under fifo and sjf).
 
-Counts are integer adds, exact in any order, so the counters are
-bitwise the JAX package's; like JAX's int32 they wrap.  The JAX package
+A pool of several shards (``core/engine.py::MeshEnvPool``) keeps the
+counters that are not per lane (``PER_SHARD_FIELDS``) with a leading
+shard dim, one partial sum a shard, and ``snapshot_device`` sums them
+on the host: no collective is ever issued for the counters.  Counts are
+integer adds, exact in any order, so the counters are bitwise the JAX
+package's at every shard and process count; like JAX's int32 they
+wrap.  The JAX package
 avoids scatters (XLA:CPU serializes a scatter with duplicate indices)
 with an (M, N) one-hot per recv; here a block's lanes are distinct, so
 the per-lane counts are one ``index_add`` each.
@@ -86,39 +91,43 @@ def _edges(device: torch.device) -> torch.Tensor:
 
 
 def _hist_counts(wait: torch.Tensor) -> torch.Tensor:
-    """Per-bucket counts of one block's waits:
+    """Per-bucket counts of one block's waits over its last dim:
     ``count[b] = #(wait >= edge[b]) - #(wait >= edge[b+1])``."""
-    cum = (wait[:, None] >= _edges(wait.device)).sum(0, dtype=torch.int32)
-    return cum - torch.cat([cum[1:], cum.new_zeros(1)])
+    cum = (wait[..., None] >= _edges(wait.device)).sum(-2, dtype=torch.int32)
+    return cum - torch.cat([cum[..., 1:], cum.new_zeros(
+        cum.shape[:-1] + (1,))], dim=-1)
 
 
 def record_serve(tele: Telemetry, idx: torch.Tensor, wait: torch.Tensor,
                  stepped_mask: torch.Tensor, step_cost: torch.Tensor,
                  overdue_admits: torch.Tensor, full_block: bool = False
                  ) -> Telemetry:
-    """One recv block's update.  ``idx`` (M,) served lanes, distinct;
+    """One recv block's update.  ``idx`` (M,) served lane rows, distinct;
     ``wait`` (M,) ticks each result waited; ``stepped_mask`` (M,) results
     backed by an env step, whose ``step_cost`` is counted;
     ``overdue_admits`` a 0-dim int32.  ``full_block``: the block serves
     every lane and ``wait`` is in lane order (sync mode), so the
-    per-lane counts are whole-vector adds."""
+    per-lane counts are whole-vector adds.  With a leading shard dim the
+    block's tensors are (D, M/D) and ``overdue_admits`` (D,): the
+    per-shard sums then gain one entry a shard."""
     wait = wait.to(torch.int32)
+    flat = wait.reshape(-1)
     if full_block:
         serves = tele.serves + 1
-        wait_ticks = tele.wait_ticks + wait
+        wait_ticks = tele.wait_ticks + flat
     else:
-        ids = idx.long()
-        serves = tele.serves.index_add(0, ids, torch.ones_like(wait))
-        wait_ticks = tele.wait_ticks.index_add(0, ids, wait)
+        ids = idx.reshape(-1).long()
+        serves = tele.serves.index_add(0, ids, torch.ones_like(flat))
+        wait_ticks = tele.wait_ticks.index_add(0, ids, flat)
     return tele.replace(
         serves=serves,
         wait_ticks=wait_ticks,
         wait_hist=tele.wait_hist + _hist_counts(wait),
-        served=tele.served + idx.shape[0],
-        stepped=tele.stepped + stepped_mask.sum(dtype=torch.int32),
+        served=tele.served + idx.shape[-1],
+        stepped=tele.stepped + stepped_mask.sum(-1, dtype=torch.int32),
         cost_sum=tele.cost_sum + torch.where(
             stepped_mask, step_cost.to(torch.int32), 0).sum(
-                dtype=torch.int32),
+                -1, dtype=torch.int32),
         overdue_admits=tele.overdue_admits + overdue_admits.to(torch.int32),
     )
 
@@ -129,9 +138,9 @@ def record_finished(tele: Telemetry, finished: torch.Tensor,
     completed this tick; their serve is recorded later, by
     ``record_serve`` with no stepped lanes."""
     return tele.replace(
-        stepped=tele.stepped + finished.sum(dtype=torch.int32),
+        stepped=tele.stepped + finished.sum(-1, dtype=torch.int32),
         cost_sum=tele.cost_sum + torch.where(
-            finished, cost.to(torch.int32), 0).sum(dtype=torch.int32),
+            finished, cost.to(torch.int32), 0).sum(-1, dtype=torch.int32),
     )
 
 
@@ -158,11 +167,16 @@ def format_stats(recvs: int, serves: Any, wait_ticks: Any, wait_hist: Any,
 
 
 def snapshot_device(tele: Telemetry, tick: torch.Tensor) -> dict:
-    """The host snapshot of ``tele``; ``tick`` is the recv count.  This is
-    the only host transfer telemetry makes."""
+    """The host snapshot of ``tele``; ``tick`` is the recv count (one a
+    shard, all equal).  Per-shard partial sums (a leading shard dim) are
+    summed here, as integers.  This is the only host transfer telemetry
+    makes."""
     host = {k: getattr(tele, k).cpu().numpy() for k in (
-        "serves", "wait_ticks", "wait_hist", *PER_SHARD_FIELDS[1:])}
-    return format_stats(recvs=int(tick), **host)
+        "serves", "wait_ticks", *PER_SHARD_FIELDS)}
+    if host["wait_hist"].ndim == 2:
+        for k in PER_SHARD_FIELDS:
+            host[k] = host[k].astype(np.int64).sum(0)
+    return format_stats(recvs=int(tick.reshape(-1)[0]), **host)
 
 
 def stats_to_jsonable(stats: dict) -> dict:

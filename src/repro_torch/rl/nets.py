@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import random
-from repro_torch.core.registry import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.core.specs import EnvSpec
 
 
@@ -130,19 +130,32 @@ class ActorCritic:
         return logp, ent
 
     # ---------------- distribution ops ----------------------------- #
-    def sample(self, p, obs, key):
+    def sample(self, p, obs, key, rows=None):
         """Returns (action, logp, value, entropy).  Discrete actions are
         ``random.categorical`` draws (Gumbel-max), continuous ones the
-        mean plus ``random.normal`` noise."""
+        mean plus ``random.normal`` noise.  ``rows``: ``(first, M)`` when
+        ``obs`` are rows ``first:first + len(obs)`` of a block of M (a
+        process's part of a sharded pool's block): the noise is drawn
+        for all M and these rows taken, so each row's draw is the one
+        the whole block would get."""
         pi, v = self.forward(p, obs)
+
+        def noise(draw):
+            if rows is None:
+                return draw(key, tuple(pi.shape))
+            lo, total = rows
+            return draw(key, (total,) + tuple(pi.shape[1:]))[
+                lo:lo + pi.shape[0]]
+
         if self.discrete:
-            a = random.categorical(key, pi)
+            a = (random.categorical(key, pi) if rows is None
+                 else torch.argmax(noise(random.gumbel) + pi, dim=-1))
             ls = F.log_softmax(pi, -1)
             logp = ls.gather(1, a[:, None])[:, 0]
             ent = -torch.sum(F.softmax(pi, -1) * ls, -1)
             return a.to(self.spec.act_spec.dtype), logp, v, ent
         std = torch.exp(p["log_std"])
-        a = pi + std * random.normal(key, tuple(pi.shape))
+        a = pi + std * noise(random.normal)
         logp, ent = self._gaussian(p, pi, a)
         return a, logp, v, ent
 

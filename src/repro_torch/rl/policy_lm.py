@@ -26,8 +26,9 @@ writes the new K/V rows into the caches it is given (a qwen3-0.6b cache
 of 32 lanes x 161 positions is 0.6 GB), and ``act``/``act_full`` write
 the served block back into ``lanes``' tensors.  A caller must not reuse
 the caches or lanes it passed in.  Entry points run on ``cuda`` unless
-``device="cpu"`` is asked for; mesh placement (``place_params``) is not
-ported (ROADMAP A).
+``device="cpu"`` is asked for.  ``place_params`` puts the params on a
+sharded pool's mesh: replicated, the only placement the port has (a
+policy sharded across processes is ROADMAP A19).
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch import random
-from repro_torch.core.registry import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.core.specs import EnvSpec, TimeStep
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.models.common import ModelConfig, dense_init
@@ -153,6 +154,28 @@ class LMPolicy:
                              device=self.device),
         }
         return params
+
+    def place_params(self, params: dict[str, Any], pool: Any
+                     ) -> dict[str, Any]:
+        """The Seed-RL placement over the pool's mesh
+        (``distributed/sharding.py::policy_shardings``): replicated below
+        its ``min_shard_params``, and in solo, where every shard shares
+        the process's device, so ``params`` come back on the pool's
+        device.  A policy the rule would shard across processes raises
+        (ROADMAP A19)."""
+        from repro_torch.distributed.sharding import policy_shardings
+        from repro_torch.utils.tree import is_value, tree_leaves, tree_map
+
+        mesh = getattr(pool, "mesh", None)
+        if mesh is None:
+            return params
+        plan = policy_shardings(mesh, params)
+        if mesh.is_multiprocess and tree_leaves(plan, is_leaf=is_value):
+            raise NotImplementedError(
+                f"a policy of {sum(x.numel() for x in tree_leaves(params))}"
+                " params would be sharded across the mesh's processes; only"
+                " replicated placement is ported (ROADMAP A19)")
+        return tree_map(lambda x: x.to(pool.device), params)
 
     def init_lanes(self, num_envs: int) -> LMLaneState:
         cfg = self.cfg

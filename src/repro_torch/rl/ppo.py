@@ -32,11 +32,19 @@ StateBufferQueue`` while the learner takes blocks and runs the same
 update.  ``train`` dispatches on ``is_functional``: ``train_device``
 for the device engine, ``train_host`` for the rest.
 
-The JAX package fuses collect and update into one jitted, donated
-program and places the policy on the env mesh
-(``distributed/sharding.py::policy_shardings``); the port's engine
-holds one device, so there is no placement (the sharded engine is
-ROADMAP A12), and ``train_disaggregated`` raises naming A12.
+The device drivers take a sharded pool (``MeshEnvPool``) as they take
+the one-device engine.  In solo its recv block is the whole M block, so
+nothing changes.  Across processes each collects its own rows, the
+policy drawing its noise for the global block (``ActorCritic.sample``'s
+``rows``), and the update gathers the rollout once an iteration, so
+every process runs the same update on the whole rollout and keeps the
+same params (the JAX package's replicated policy,
+``distributed/sharding.py::policy_shardings`` below its size limit).
+
+``train_disaggregated`` is the actor/learner split across processes:
+the env processes collect on their mesh, the learner process runs the
+V-trace update, and the rollout and params cross by ``host_broadcast``
+each iteration, one policy step stale, as in ``train_pipelined``.
 """
 
 from __future__ import annotations
@@ -54,7 +62,7 @@ from repro_torch import random
 from repro_torch.core.buffers import StateBufferQueue
 from repro_torch.core.host_pool import numpy_dtype
 from repro_torch.core.protocol import is_functional
-from repro_torch.core.registry import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.core.xla_loop import (
     alloc_steps,
     build_pipelined_collect_fn,
@@ -273,13 +281,14 @@ def train_device(pool: Any, cfg: PPOConfig, seed: int = 0,
     opt, update = make_ppo_update(net, cfg, total_updates)
     state = PPOState(params=params, opt=opt.init(params),
                      step=torch.zeros((), dtype=torch.int32, device=dev))
+    rows = getattr(pool, "block_rows", None)
 
     def collect(params, ps, ts, kc):
         """``num_steps`` recvs with the policy sampling: ``(ps, ts,
         traj)``, traj's leaves ``(num_steps, M, ...)``."""
         traj = None
         for t, k in enumerate(random.split(kc, cfg.num_steps)):
-            a, logp, v, _ = net.sample(params, ts.obs, k)
+            a, logp, v, _ = net.sample(params, ts.obs, k, rows=rows)
             ps, new_ts = pool.step(ps, a, ts.env_id)
             data = {"obs": ts.obs, "actions": a, "logp": logp, "values": v,
                     "rewards": new_ts.reward, "dones": new_ts.done,
@@ -294,7 +303,10 @@ def train_device(pool: Any, cfg: PPOConfig, seed: int = 0,
         """One collect and one update; the metrics stay on the device."""
         with torch.no_grad():
             ps, ts, traj = collect(state.params, ps, ts, kc)
-            last_v = net.forward(state.params, ts.obs)[1]
+            traj = dict(traj, last_obs=ts.obs)
+            if rows is not None:
+                traj = _gather_rollout(pool, traj)
+            last_v = net.forward(state.params, traj["last_obs"])[1]
             adv, ret = gae(traj["rewards"], traj["values"], traj["dones"],
                            last_v, cfg.gamma, cfg.lam)
         rollout = {
@@ -322,6 +334,15 @@ def train_device(pool: Any, cfg: PPOConfig, seed: int = 0,
                "time_s": time.time() - t0, **values}
         _record(history, rec, episodes, ep_sum, log_fn)
     return state, net, history
+
+
+def _gather_rollout(pool: Any, traj: dict[str, torch.Tensor]
+                    ) -> dict[str, torch.Tensor]:
+    """Every process's rows of a rollout, gathered across a sharded
+    pool's processes: ``(num_steps, M/P, ...)`` leaves along dim 1,
+    ``last_obs`` ``(M/P, ...)`` along dim 0."""
+    return {k: pool.mesh.gather(v, "rollout", dim=0 if k == "last_obs"
+                                else 1) for k, v in traj.items()}
 
 
 # --------------------------------------------------------------------- #
@@ -399,8 +420,9 @@ def train_pipelined(pool: Any, cfg: PPOConfig, seed: int = 0,
 
     The JAX package places the learner on one device of the env mesh
     and pushes its params back each iteration (``to_mesh``,
-    ``to_learner``); the port's engine holds one device, so both are
-    the identity."""
+    ``to_learner``).  Here a process's shards share its device, so both
+    are the identity; across processes each gathers the rollout and
+    runs the update (see the module docstring)."""
     check_device_pool(pool, "train_pipelined (use train_host_pipelined)")
     dev = pool.device
     net = ActorCritic(pool.spec, hidden=hidden)
@@ -415,14 +437,18 @@ def train_pipelined(pool: Any, cfg: PPOConfig, seed: int = 0,
     state = PPOState(params=params, opt=opt.init(params),
                      step=torch.zeros((), dtype=torch.int32, device=dev))
 
+    rows = getattr(pool, "block_rows", None)
+
     def policy(p, obs, k):
-        a, logp, _, _ = net.sample(p, obs, k)
+        a, logp, _, _ = net.sample(p, obs, k, rows=rows)
         return a, logp
 
     collect = build_pipelined_collect_fn(pool, policy, cfg.num_steps)
 
     def update_step(state, traj, ku):
         """The update and the iteration's scalars, stacked in f64."""
+        if rows is not None:
+            traj = _gather_rollout(pool, traj)
         state, metrics = vupdate(state, traj, ku)
         episodes, ep_sum = _episode_metrics(traj["dones"], traj["ep_ret"])
         metrics = dict(metrics, episodes=episodes, ep_sum=ep_sum)
@@ -725,12 +751,116 @@ def train(pool: Any, cfg: PPOConfig, seed: int = 0,
     return state, net, history
 
 
-def train_disaggregated(*args: Any, **kwargs: Any):
-    """Not ported yet (ROADMAP A12)."""
-    raise NotImplementedError(
-        "train_disaggregated is not ported yet (ROADMAP A12); "
-        "train_device, train_pipelined, train_host and "
-        "train_host_pipelined are")
+def train_disaggregated(pool: Any, cfg: PPOConfig, seed: int = 0,
+                        log_fn: Callable[[dict], None] | None = None,
+                        hidden: tuple[int, ...] = (256, 128, 64),
+                        learner_process: int | None = None):
+    """Actor/learner disaggregation across the processes of a
+    ``torch.distributed`` job (the SRL/Spreeze split).  Every process
+    calls it with the same arguments and its own pool object, made on a
+    mesh that leaves out the learner
+    (``distributed.sharding.disaggregated_env_mesh``); the role decides
+    what a process runs.
+
+    * The env processes (all but ``learner_process``, default the last)
+      drive ``pool``: the pipelined collect of ``train_pipelined``.
+    * The learner runs the V-trace update (``make_vtrace_ppo_update``)
+      on its own device, the pool's device of its process.
+    * They meet at ``host_broadcast``: rollout t crosses env -> learner
+      while the env processes collect t+1 behind the current params,
+      and the updated params (with the metrics) cross back.  The
+      consumed rollout is one policy step stale, as in
+      ``train_pipelined``, with its key flow, split for split.
+
+    Returns ``(state, net, history)``; ``history`` is the same on every
+    process, ``state`` is the learner's (the env processes return the
+    params they last received)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import host_broadcast
+
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() >= 2):
+        raise ValueError("train_disaggregated needs >= 2 processes; join "
+                         "them with launch.mesh.initialize_multihost()")
+    check_device_pool(pool, "train_disaggregated")
+    if learner_process is None:
+        learner_process = dist.get_world_size() - 1
+    is_learner = dist.get_rank() == learner_process
+    mesh = pool.mesh
+    if learner_process in mesh.ranks:
+        raise ValueError("pool mesh overlaps the learner process; build it "
+                         "with distributed.sharding.disaggregated_env_mesh")
+    env_src = mesh.ranks[0]
+    dev = pool.device
+    net = ActorCritic(pool.spec, hidden=hidden)
+    key, k_init, k_pool = random.split(random.PRNGKey(seed, device=dev), 3)
+    # every process starts from the learner's params
+    params = tree_map(lambda x: x.to(dev),
+                      host_broadcast(net.init(k_init), learner_process))
+
+    M = pool.batch_size
+    steps_per_iter = cfg.num_steps * M
+    n_iters = max(1, cfg.total_steps // steps_per_iter)
+    opt, vupdate = make_vtrace_ppo_update(
+        net, cfg, n_iters * cfg.epochs * cfg.minibatches)
+    state = PPOState(params=params, opt=opt.init(params),
+                     step=torch.zeros((), dtype=torch.int32, device=dev))
+    rows = pool.block_rows
+
+    def policy(p, obs, k):
+        a, logp, _, _ = net.sample(p, obs, k, rows=rows)
+        return a, logp
+
+    collect = build_pipelined_collect_fn(pool, policy, cfg.num_steps)
+
+    def fetch(traj):
+        """The env mesh's whole rollout, on the host."""
+        if rows is not None:
+            traj = _gather_rollout(pool, traj)
+        return tree_map(lambda x: x.cpu(), traj)
+
+    traj_host = None
+    key, kc0 = random.split(key)
+    if not is_learner:
+        ps, ts = pool.reset(k_pool)
+        with torch.no_grad():
+            ps, ts, traj = collect(ps, params, ts, kc0)
+        traj_host = fetch(traj)
+    history: list[dict] = []
+    t0 = time.time()
+    for it in range(n_iters):
+        key, kc, ku = random.split(key, 3)
+        traj_rx = host_broadcast(
+            traj_host if dist.get_rank() == env_src else None, env_src)
+        if is_learner:
+            state, metrics = vupdate(
+                state, tree_map(lambda x: x.to(dev), traj_rx), ku)
+            episodes, ep_sum = _episode_metrics(traj_rx["dones"],
+                                                traj_rx["ep_ret"])
+            metrics = dict(metrics, episodes=episodes, ep_sum=ep_sum)
+            names = sorted(metrics)
+            back = (state.params, names, torch.stack(
+                [metrics[k].to(torch.float64).cpu() for k in names]))
+        else:
+            # collect t+1 behind the current params while the learner
+            # updates on rollout t
+            with torch.no_grad():
+                ps, ts, traj = collect(ps, params, ts, kc)
+            back = None
+        new_params, names, scalars = host_broadcast(back, learner_process)
+        if not is_learner:
+            params = tree_map(lambda x: x.to(dev), new_params)
+            traj_host = fetch(traj)
+        values = dict(zip(names, scalars.tolist()))
+        episodes = int(values.pop("episodes"))
+        ep_sum = values.pop("ep_sum")
+        rec = {"iter": it, "env_steps": (it + 1) * steps_per_iter,
+               "time_s": time.time() - t0, **values}
+        _record(history, rec, episodes, ep_sum, log_fn)
+    if not is_learner:
+        state = state.replace(params=params)
+    return state, net, history
 
 
 __all__ = [

@@ -3,7 +3,8 @@ needs — the port's counterpart of ``repro/utils/pytree.py``.
 
 A tree is a tensor (a leaf), ``None``, a ``tree_dataclass`` instance, a
 tuple/list, or a dict; every other value passes through ``tree_map``
-untouched.  Leaves carry a leading lane dim where the helpers below say
+untouched.  ``is_leaf`` widens what counts as a leaf (``is_value``:
+every non-container value but None).  Leaves carry a leading lane dim where the helpers below say
 so (``tree_gather``/``tree_scatter``/``tree_where``).
 """
 
@@ -48,38 +49,49 @@ def _rebuild(tree: Any, values: list[Any]) -> Any:
     return dict(zip(tree.keys(), values))
 
 
-def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
-    """Apply ``fn`` to every tensor leaf of ``tree`` (and the matching
-    leaves of ``rest``, which share its structure)."""
+def _is_tensor(x: Any) -> bool:
+    return isinstance(x, torch.Tensor)
+
+
+def is_value(x: Any) -> bool:
+    return x is not None
+
+
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any,
+             is_leaf: Callable[[Any], bool] = _is_tensor) -> Any:
+    """Apply ``fn`` to every leaf of ``tree`` (and the matching leaves
+    of ``rest``, which share its structure)."""
     kids = _children(tree)
     if kids is None:
-        return fn(tree, *rest) if isinstance(tree, torch.Tensor) else tree
+        return fn(tree, *rest) if is_leaf(tree) else tree
     others = [_children(r) for r in rest]
     values = [
-        tree_map(fn, v, *(o[i][1] for o in others))
+        tree_map(fn, v, *(o[i][1] for o in others), is_leaf=is_leaf)
         for i, (_, v) in enumerate(kids)
     ]
     return _rebuild(tree, values)
 
 
-def tree_leaves_with_path(tree: Any, prefix: str = ""
-                          ) -> Iterator[tuple[str, torch.Tensor]]:
+def tree_leaves_with_path(tree: Any, prefix: str = "",
+                          is_leaf: Callable[[Any], bool] = _is_tensor
+                          ) -> Iterator[tuple[str, Any]]:
     """``(path, leaf)`` pairs; a path joins field names, sequence
     indices and dict keys with dots (``env_states.pos``,
     ``tf_state.0.buf``)."""
     kids = _children(tree)
     if kids is None:
-        if isinstance(tree, torch.Tensor):
+        if is_leaf(tree):
             yield prefix, tree
         return
     for name, v in kids:
-        yield from tree_leaves_with_path(v, f"{prefix}.{name}" if prefix
-                                         else name)
+        yield from tree_leaves_with_path(
+            v, f"{prefix}.{name}" if prefix else name, is_leaf)
 
 
-def tree_leaves(tree: Any) -> list[torch.Tensor]:
-    """The tensor leaves of ``tree``, in ``tree_map``'s order."""
-    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+def tree_leaves(tree: Any, is_leaf: Callable[[Any], bool] = _is_tensor
+                ) -> list[Any]:
+    """The leaves of ``tree``, in ``tree_map``'s order."""
+    return [leaf for _, leaf in tree_leaves_with_path(tree, "", is_leaf)]
 
 
 def tree_map_with_path(fn: Callable[[str, torch.Tensor], Any], tree: Any,
@@ -117,7 +129,7 @@ def tree_where(mask: torch.Tensor, new: Any, old: Any) -> Any:
 
 
 __all__ = [
-    "lane_mask", "tree_dataclass", "tree_gather", "tree_leaves",
+    "is_value", "lane_mask", "tree_dataclass", "tree_gather", "tree_leaves",
     "tree_leaves_with_path", "tree_map", "tree_map_with_path",
     "tree_scatter", "tree_where",
 ]

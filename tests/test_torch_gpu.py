@@ -9,7 +9,9 @@ and one ``train_device`` iteration on the card through the path's
 kernels; ``train_pipelined`` on two streams against a serial run, the
 V-trace update without a host sync, ``train_host_pipelined`` with its
 learner on the card; the host engines on the card against the CPU, their launches
-per env step, and one library build for eight threads.  These need a CUDA device: each test is marked ``gpu`` and
+per env step, one library build for eight threads, and, with two cards,
+every kernel launched for tensors on a card that is not the current
+one.  These need a CUDA device: each test is marked ``gpu`` and
 skips without one.  Run them on the card with
 
     PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
@@ -142,13 +144,14 @@ def test_env_step_kernel_at_the_tick_and_skew_depths(cuda, n_sub):
         assert torch.equal(g, w)
 
 
-def run_pool(task, dev, m, engine="device", schedule="fifo", recvs=12):
+def run_pool(task, dev, m, engine="device", schedule="fifo", recvs=12,
+             **kw):
     """A pool's served (ids, done, cost, reward, obs) on ``dev``, its
     ``stats()`` and the env_step launches it made, from seeded actions
     routed by env_id."""
     pool = repro_torch.make(task, num_envs=16, batch_size=m, engine=engine,
                             schedule=schedule, device=dev,
-                            max_episode_steps=5)
+                            max_episode_steps=5, **kw)
     table = torch.from_numpy(np.random.default_rng(3).uniform(
         -1, 1, (recvs, 16, 8)).astype(np.float32))
     ps, ts = pool.reset(repro_torch.random.PRNGKey(0))
@@ -185,6 +188,29 @@ def test_ant_pools_on_the_card_match_the_cpu(cuda, task, m, engine,
         assert np.array_equal(gstats[k], v), k
 
 
+@pytest.mark.parametrize("task,m,schedule,shards,atol", [
+    ("Ant-v3", None, "fifo", 4, 1e-4),
+    ("AntSkew-v3", 8, "hierarchical", 4, 1e-4),
+    ("AntNorm-v3", 8, "hierarchical", 2, 1e-3),
+])
+def test_sharded_pools_on_the_card_match_the_cpu(cuda, task, m, schedule,
+                                                 shards, atol):
+    """The sharded engine on the card against the CPU, as above; every
+    recv steps all local shards' rows in one env_step launch."""
+    got, gstats, launches = run_pool(task, cuda, m, "device-sharded",
+                                     schedule, num_shards=shards)
+    want, cstats, _ = run_pool(task, "cpu", m, "device-sharded", schedule,
+                               num_shards=shards)
+    assert launches == 12
+    for t, (g, c) in enumerate(zip(got, want)):
+        for x, y in zip(g[:3], c[:3]):
+            assert torch.equal(x, y), t
+        for x, y in zip(g[3:], c[3:]):
+            assert torch.allclose(x, y, rtol=0, atol=atol), t
+    for k, v in cstats.items():
+        assert np.array_equal(gstats[k], v), k
+
+
 def test_masked_recv_on_the_card_launches_env_step(cuda):
     """No plain fallback hides the kernel: a masked recv that ticks
     launches env_step, once a tick."""
@@ -211,6 +237,47 @@ def test_image_kernels_are_bitwise(cuda):
         assert torch.equal(ops.resize(gray, oh, ow, method),
                            ops.resize(gray, oh, ow, method,
                                       backend="reference"))
+
+
+def test_kernels_launch_on_their_tensors_card(cuda):
+    """With card 0 current, inputs on the last card launch there (the
+    launch switches to the tensor's card; each entry point launches onto
+    the current one): env_step, the image kernels, decode and flash
+    attention agree with their plain versions on that card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    last = torch.device(f"cuda:{torch.cuda.device_count() - 1}")
+    torch.cuda.set_device(0)
+    args = [x.to(last) for x in env_inputs(64, 3)]
+    for g, w in zip(env_multi_step(*args, n_sub=9),
+                    env_multi_step(*args, n_sub=9, backend="reference")):
+        assert g.device == last and torch.equal(g, w)
+    rng = np.random.default_rng(2)
+    pos = [torch.from_numpy(p).to(last) for p in
+           rng.uniform(0, 84, (4, 9)).astype(np.float32)]
+    rgb = ops.pong_render(*pos)
+    assert torch.equal(rgb, ops.pong_render(*pos, backend="reference"))
+    gray = ops.grayscale(rgb)
+    assert torch.equal(gray, ops.grayscale(rgb, backend="reference"))
+    assert torch.equal(ops.resize(gray, 84, 84),
+                       ops.resize(gray, 84, 84, backend="reference"))
+    assert torch.equal(ops.crop(gray, 34, 0, 160, 160),
+                       ops.crop(gray, 34, 0, 160, 160, backend="reference"))
+    gen = torch.Generator(device=last).manual_seed(0)
+    q = torch.randn((2, 4, 64), generator=gen, device=last)
+    k = torch.randn((2, 2, 40, 64), generator=gen, device=last)
+    v = torch.randn((2, 2, 40, 64), generator=gen, device=last)
+    lengths = torch.tensor([17, 40], dtype=torch.int32, device=last)
+    torch.testing.assert_close(
+        decode_attention(q, k, v, lengths),
+        decode_attention(q, k, v, lengths, backend="reference"),
+        atol=1e-5, rtol=0)
+    qf = torch.randn((1, 2, 48, 64), generator=gen, device=last)
+    torch.testing.assert_close(
+        flash_attention(qf, qf, qf, causal=True),
+        flash_attention(qf, qf, qf, causal=True, backend="reference"),
+        atol=3e-5, rtol=0)
+    assert torch.cuda.current_device() == 0
 
 
 # (ball_x, ball_y, paddle_y, enemy_y) on the 84-grid: the ball at the

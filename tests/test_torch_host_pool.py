@@ -131,7 +131,7 @@ def test_thread_sjf_schedule_orders_queue_by_cost():
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    ({"schedule": "hierarchical"}, "A12"),
+    ({"schedule": "hierarchical"}, "cross-shard policy"),
     ({"schedule": "random"}, "unknown schedule"),
     ({"cost_ema_alpha": 0.0}, "cost_ema_alpha"),
     ({"batch_size": 8}, "cannot exceed"),

@@ -302,9 +302,9 @@ def test_what_is_not_ported_raises(monkeypatch):
         with pytest.raises(NotImplementedError, match=item):
             build_model(tcfg.replace(family=family), "cpu")
     model = build_model(tcfg, "cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A19"):
         tsteps.make_prefill_step(model, 8, mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A19"):
         tsteps.make_serve_step(model, mesh=object())
     with pytest.raises(ValueError, match="do not fit"):
         model.prefill(model.init(torch.Generator().manual_seed(0)),

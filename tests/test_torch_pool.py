@@ -198,6 +198,19 @@ def test_running_the_port_imports_neither_jax_nor_repro():
         "                        num_threads=1, device='cpu')\n"
         "train_host_pipelined(pool, cfg=cfg, hidden=(8,), device='cpu')\n"
         "pool.close()\n"
+        "from repro_torch.core import sharded_pool\n"
+        "from repro_torch.distributed.sharding import policy_shardings\n"
+        "from repro_torch.launch.mesh import multihost_info\n"
+        "assert multihost_info()['process_count'] == 1\n"
+        "for task, sched in (('AntNorm-v3', 'hierarchical'),\n"
+        "                    ('PongClassic-v5', 'fifo')):\n"
+        "    pool = sharded_pool.ShardedDeviceEnvPool(\n"
+        "        repro_torch.core.registry._registry()[task][0](), 4, 2,\n"
+        "        mesh=2, schedule=sched, device='cpu',\n"
+        "        transforms=repro_torch.core.registry.default_transforms(task))\n"
+        "    train_device(pool, PPOConfig(total_steps=4, num_steps=2,\n"
+        "                                 minibatches=1), hidden=(8,))\n"
+        "    policy_shardings(pool.mesh, {'w': torch.zeros(2)})\n"
         "env = repro_torch.make_py('Ant-v3')\n"
         "env.reset()\n"
         "env.step(np.zeros(8, np.float32))\n"
@@ -252,7 +265,7 @@ def test_make_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("kwargs,error", [
     ({"engine": "forloop"}, None),
-    ({"engine": "device-sharded"}, NotImplementedError),
+    ({"engine": "device-sharded"}, None),
     ({"engine": "thread"}, None),
     ({"engine": "gpu-cluster"}, ValueError),
     ({"engine": "subprocess"}, None),
@@ -260,17 +273,22 @@ def test_make_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
     ({"batch_size": 2, "schedule": "random"}, ValueError),
 ])
 def test_make_refuses_what_is_not_ported(kwargs, error):
-    """The sharded engine and unknown engines and schedules raise; the
-    host engines (``error`` None) are ported: they build and serve a
-    block of every env, tensors on the pool's device."""
+    """Unknown engines and schedules raise, and ``hierarchical`` on the
+    one-device engine; the host engines and the sharded engine (one
+    shard a process by default; ``error`` None) are ported: they build
+    and serve a block of every env, tensors on the pool's device."""
     if error is not None:
         with pytest.raises(error):
             repro_torch.make("Ant-v3", num_envs=4, device="cpu", **kwargs)
         return
     pool = repro_torch.make("Ant-v3", num_envs=4, device="cpu",
                             num_threads=1, **kwargs)
+    if kwargs["engine"] == "device-sharded":
+        assert pool.num_shards == 1
+        out = vars(pool.reset(repro_torch.random.PRNGKey(0))[1])
+        pool.close = lambda: None
     try:
-        out = pool.reset()
+        out = out if kwargs["engine"] == "device-sharded" else pool.reset()
         assert tuple(out["obs"].shape) == (4, 29)
         assert sorted(out["env_id"].tolist()) == [0, 1, 2, 3]
         assert out["obs"].device == torch.device("cpu")
@@ -304,25 +322,40 @@ def test_registered_tasks_and_stats():
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"num_threads": 4}, None),
-    ({"num_shards": 2}, "A12"),
-    ({"mesh": 2}, "A12"),
+    ({"num_shards": 2}, "device-sharded"),
+    ({"mesh": 2}, "device-sharded"),
 ])
 def test_make_names_the_item_of_each_unported_option(kwargs, item):
-    """``num_shards`` and ``mesh`` name the sharded engine's item;
-    ``num_threads`` (``item`` None) is the host engines' thread count,
-    which the device engine ignores, as ``repro.make`` does."""
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            repro_torch.make("Ant-v3", num_envs=4, device="cpu", **kwargs)
-        return
+    """Each option goes to the engine that has it, as in ``repro.make``:
+    ``num_threads`` (``item`` None) to the host engines, ``num_shards``
+    and ``mesh`` to the sharded engine; the device engine ignores all
+    three, and ``hierarchical`` needs the sharded one, whose shard count
+    ``stats()`` and the blocks' ids bear out."""
     assert repro_torch.make("Ant-v3", num_envs=4, device="cpu",
                             **kwargs).num_envs == 4
-    pool = repro_torch.make("Ant-v3", num_envs=4, device="cpu",
-                            engine="thread", **kwargs)
-    try:
-        assert pool.num_threads == 4
-    finally:
-        pool.close()
+    if item is None:
+        pool = repro_torch.make("Ant-v3", num_envs=4, device="cpu",
+                                engine="thread", **kwargs)
+        try:
+            assert pool.num_threads == 4
+        finally:
+            pool.close()
+        return
+    with pytest.raises(ValueError, match=item):
+        repro_torch.make("Ant-v3", num_envs=4, device="cpu",
+                         schedule="hierarchical", **kwargs)
+    pool = repro_torch.make("Ant-v3", num_envs=4, batch_size=2,
+                            device="cpu", engine=item,
+                            schedule="hierarchical", **kwargs)
+    assert (pool.num_shards, pool.mesh.num_shards) == (2, 2)
+    ps, ts = pool.reset(repro_torch.random.PRNGKey(0))
+    for _ in range(3):
+        # one result from each shard's two lanes, shard-major
+        ids = ts.env_id.tolist()
+        assert ids[0] in (0, 1) and ids[1] in (2, 3)
+        ps, ts = pool.step(ps, torch.zeros((2, 8)), ts.env_id)
+    stats = pool.stats(ps)
+    assert (stats["recvs"], stats["served"]) == (4, 8)
 
 
 def test_make_takes_the_options_of_repro_make():
@@ -401,8 +434,8 @@ def test_select_keeps_lax_top_k_tie_order(schedule):
                                       np.asarray(want))
 
 
-# sharded-engine names of repro.core, which wait for ROADMAP A12
-NOT_YET = {"MeshEnvPool", "ShardedDeviceEnvPool", "make_env_mesh"}
+# names of repro.core the port leaves out: none since the sharded engine
+NOT_YET: set[str] = set()
 
 
 def test_import_surface_matches_repro():
@@ -424,6 +457,9 @@ def test_import_surface_matches_repro():
         assert getattr(repro_torch, name) is getattr(tcore, name), name
     assert tcore.DeviceEnvPool is type(repro_torch.make("Ant-v3", 2,
                                                         device="cpu"))
+    assert tcore.MeshEnvPool is type(repro_torch.make(
+        "Ant-v3", 2, engine="device-sharded", num_shards=2, device="cpu"))
+    assert tcore.make_env_mesh(2, "cpu").num_shards == 2
     pool = tcore.make_pool(CartPole(), 4, 2, device="cpu")
     assert (pool.mode, pool.batch_size) == ("async", 2)
     for task in jax_registry.list_envs():

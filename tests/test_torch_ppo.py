@@ -286,7 +286,8 @@ def test_train_device_four_updates_match_repro(task, n, m):
 def test_train_device_refuses_what_is_not_ported():
     """``train_device`` on a host pool names ``train_host``, which runs
     on one (tests/test_torch_train_host.py holds it to ``repro``'s); the
-    disaggregated trainer names its item."""
+    disaggregated trainer needs a job of two processes or more
+    (tests/test_torch_disaggregated.py holds it to ``repro``'s)."""
     host = repro_torch.make("CartPole-v1", num_envs=4, engine="forloop",
                             device="cpu")
     with pytest.raises(ValueError, match="train_host"):
@@ -297,7 +298,7 @@ def test_train_device_refuses_what_is_not_ported():
         hidden=(8,), device="cpu")
     assert int(state.step) == 1 and len(history) == 1
     assert set(prof) == {"env_step", "inference", "train", "other"}
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match=">= 2 processes"):
         tppo.train_disaggregated(None, tppo.PPOConfig())
 
 
