@@ -40,7 +40,19 @@ Phases, in order; any failure exits non-zero:
    the cache and four grayscale batches, as their callers find them)
    with ``of_bound`` = bound_ms / ms_cold; their ``cases``: decode at
    the LM collect's shape (128 lanes, cache 64) with its SDPA time,
-   resize of the cropped 160x160 playfield;
+   resize of the cropped 160x160 playfield.  flash attention's
+   ``gradient`` rows: under autograd the kernel's forward with the plain
+   backward (``_FlashAttentionFn``) must give an output with a
+   ``grad_fn`` in one launch, the output within the flash rows'
+   tolerances of ``mha_reference`` (the kernel at that shape), and dq,
+   dk, dv within 2e-2 (bf16) and 1e-5 (f32) of unchunked autograd
+   through ``mha_reference`` (the wiring: the backward never reads the
+   kernel's output), at the full-width train step's calls (B=8, S=512,
+   qwen3-0.6b's heads, transposed views) in bf16 and f32, qwen3 at
+   B=2, S=4096 in bf16, where the backward runs in two chunks of query
+   rows, a 256 window over 1024 (starcoder2-3b's heads) and GQA 4 with
+   a 64 window in f32, each timed forward and backward beside the plain
+   route and SDPA's;
 3. the main paths on the card, each warmed up, its kernels' launch
    counts set to 0 just before it and read just after; every kernel of
    the path must have launched:
@@ -110,7 +122,10 @@ Phases, in order; any failure exits non-zero:
    LM collect on ``TokenRagged-v0`` N=16/M=8 identical actions, ids and
    dones.  ``Model.prefill`` (blocked) and 8 greedy ``decode_step``s on
    the f32 smoke configs of qwen3-0.6b and sliding starcoder2-3b
-   (window 32): identical tokens, logits within 1e-4.
+   (window 32): identical tokens, logits within 1e-4.  Three
+   ``make_train_step`` steps of the f32 smoke qwen3-0.6b, blocked, full
+   and sliding (window 32 over 64 tokens): losses within 1e-5, one
+   flash launch a layer and step on the card.
 
 5. the host engines (``engine="thread" | "forloop" | "subprocess"``,
    each env one lane of its batched env on the card): the thread and
@@ -156,6 +171,23 @@ Phases, in order; any failure exits non-zero:
    and the seconds in the hand-off (``host_broadcast``, waits
    included).  A rank that fails fails the script.  Last,
    ``train_device`` over a solo D=2 Ant-v3 N=4096 pool, two iterations.
+
+7. the LM trainer on the card: ``make_train_step`` on qwen3-0.6b at full
+   width (28 layers, d_model 1024, 16 query and 8 KV heads of 128, vocab
+   151936, tied embeddings, qk-norm), ``attn_impl="blocked"``, f32
+   parameters, bf16 compute, AdamW, ``SyntheticSource`` batches of B=8,
+   S=512, weights from a seeded generator on the card: 2 warm-up steps,
+   5 timed (tokens/s, ms a step, model TFLOP/s from
+   ``model_flops_per_token``, exactly 28 flash launches a step, the
+   forward's, and no copy; peak memory), 1 under ``torch.profiler``
+   (device busy, idle share, top kernel families, the plain attention
+   backward's device ms by its ``record_function`` ranges; it is also
+   timed alone at the step's shape); every loss and gradient leaf
+   finite, the attention weights' gradients non-zero in every layer,
+   every parameter changed.  Then ``python -m repro_torch.launch.train``
+   on the card: ``repro``'s learning criterion at tests/test_system.py's
+   flags, and 40 steps straight against 20 + restart + 20 (loss within
+   rtol 1e-4, the final parameters compared bitwise).
 
 Then a ``kernels`` JSON line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py turns``
@@ -219,6 +251,25 @@ FLASH_CASES = [
     ("c-end-aligned-noncausal-d16-f32", 2, 4, 2, 100, 300, 16, False, 0,
      "float32", 3e-5, "bhsd"),
 ]
+
+# flash_attention's gradient rows in phase 2: (case, B, H, Hkv, S, D,
+# causal, window, dtype, atol), q, k and v transposed views of (B, S, H,
+# D) tensors; the first is the full-width train step's call of phase 7,
+# the second qwen3 at S=4096, where the plain backward runs in two chunks
+# of query rows (``ops.py::chunk_rows``)
+FLASH_GRAD_CASES = [
+    ("train-qwen3-B8-S512-bf16", 8, 16, 8, 512, 128, True, 0, "bfloat16",
+     2e-2),
+    ("train-qwen3-B2-S4096-bf16-chunked", 2, 16, 8, 4096, 128, True, 0,
+     "bfloat16", 2e-2),
+    ("train-qwen3-B8-S512-f32", 8, 16, 8, 512, 128, True, 0, "float32",
+     1e-5),
+    ("starcoder2-window256-S1024-bf16", 1, 24, 2, 1024, 128, True, 256,
+     "bfloat16", 2e-2),
+    ("gqa4-window64-S300-f32", 2, 8, 2, 300, 64, True, 64, "float32", 1e-5),
+]
+# phase 7's train step: the model at full width, B sequences of S tokens
+TRAIN_MODEL, TRAIN_B, TRAIN_S = "qwen3-0.6b", 8, 512
 
 
 def log(*args) -> None:
@@ -566,6 +617,7 @@ def check_kernels() -> dict[str, dict]:
         library=library, of_bound=True)
     res.update(check_decode_attention(rng, row))
     check_flash_attention(row)
+    check_flash_gradient(res["flash_attention"])
     return res
 
 
@@ -769,6 +821,132 @@ def check_flash_attention(row) -> None:
         torch.cuda.empty_cache()
 
 
+def check_flash_gradient(entry: dict) -> None:
+    """flash_attention under autograd at ``FLASH_GRAD_CASES``, inputs from
+    a seeded generator on the card: the kernel's forward with the plain
+    backward (``ops.py::_FlashAttentionFn``) must return an output with a
+    ``grad_fn``, launch the kernel once, and give dq, dk, dv within 2e-2
+    (bf16) or 1e-5 (f32) of autograd through ``mha_reference``.  The
+    backward recomputes the plain version and never reads the kernel's
+    output, so the gradients check the wiring; the kernel itself is held
+    at each shape by its output, against ``mha_reference`` as in
+    ``check_flash_attention`` (2e-2 and ``BF16_EXCESS_TOL`` of the
+    rounding of the exact value in bf16, 3e-5 in f32).  Where the
+    backward runs in chunks of query rows (``chunk_rows``), the unchunked
+    autograd is the reference.  Each route is timed forward and
+    backward, the kernel's, the plain version's and SDPA's (with GQA;
+    a boolean band mask for a window).  The bound: q, k, v and the output
+    gradient read, the output, dq, dk and dv written, over the HBM rate,
+    and 12 * D operations a visible pair (4 forward, 8 backward) over the
+    peak.  The rows go into ``entry["gradient"]``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import (chunk_rows,
+                                                         flash_attention,
+                                                         mha_reference)
+    from repro_torch.kernels.flash_attention.ref import (BF16_EXCESS_TOL,
+                                                         rounding_excess)
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    rows = []
+    for case, B, H, Hkv, S, D, causal, window, dtype, atol in \
+            FLASH_GRAD_CASES:
+        dtype = getattr(torch, dtype)
+
+        def draw(heads):
+            return torch.randn((B, S, heads, D), generator=gen,
+                               device=DEV).to(dtype).transpose(
+                                   1, 2).requires_grad_()
+
+        q, k, v = draw(H), draw(Hkv), draw(Hkv)
+        dout = torch.randn((B, H, S, D), generator=gen, device=DEV).to(dtype)
+        masks = dict(causal=causal, window=window)
+
+        def fwd_bwd(fn):
+            return lambda: torch.autograd.grad(fn(q, k, v), (q, k, v), dout)
+
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, **masks)
+        if out.grad_fn is None:
+            raise AssertionError(f"flash_attention {case}: no grad_fn "
+                                 "under autograd")
+        got = torch.autograd.grad(out, (q, k, v), dout)
+        if flash_attention.launches != before + 1:
+            raise AssertionError(
+                f"flash_attention gradient {case}: "
+                f"{flash_attention.launches - before} launches, not 1")
+        with torch.no_grad():
+            fwd_err = float((out.float() - mha_reference(
+                q, k, v, **masks).float()).abs().max())
+            fwd_atol, excess = 3e-5, None
+            if dtype == torch.bfloat16:
+                fwd_atol = 2e-2
+                excess = rounding_excess(out, mha_reference(
+                    q.float(), k.float(), v.float(), **masks))
+        if fwd_err > fwd_atol or (excess is not None
+                                  and excess > BF16_EXCESS_TOL):
+            raise AssertionError(
+                f"flash_attention gradient {case}: forward max abs err "
+                f"{fwd_err} (tolerance {fwd_atol}), rounding excess "
+                f"{excess} (tolerance {BF16_EXCESS_TOL})")
+        chunks = -(-S // chunk_rows(B, H, S, S, causal))
+        if case.endswith("-chunked") != (chunks > 1):
+            raise AssertionError(f"flash_attention gradient {case}: the "
+                                 f"backward runs in {chunks} chunk(s)")
+        run_plain = fwd_bwd(lambda q, k, v: mha_reference(q, k, v, **masks))
+        want = run_plain()
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        if err > atol or not all(bool(torch.isfinite(g).all())
+                                 for g in got):
+            raise AssertionError(f"flash_attention gradient {case}: max abs "
+                                 f"err {err}, tolerance {atol}")
+        mask = None
+        if window:
+            pos = torch.arange(S, device=DEV)
+            mask = (pos[None, :] <= pos[:, None]) & (
+                pos[None, :] > pos[:, None] - window)
+
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+
+        library = fwd_bwd(sdpa)
+        try:
+            library()
+        except (TypeError, RuntimeError) as e:       # no GQA SDPA
+            log(f"  flash_attention gradient {case}: no SDPA yardstick "
+                f"({e})")
+            library = None
+        pairs = visible_pairs(S, S, causal, window)
+        b_ms, b_by = bound(
+            q.element_size() * (4 * B * H * S * D + 4 * B * Hkv * S * D),
+            12.0 * D * pairs * H * B,
+            BF16_TENSOR_OPS_PER_S if dtype == torch.bfloat16
+            else F32_OPS_PER_S)
+        row = {"case": case, "max_abs_err": err,
+               "forward_max_abs_err": fwd_err, "rounding_excess": excess,
+               "chunks": chunks,
+               "ms": time_ms(fwd_bwd(lambda q, k, v: flash_attention(
+                   q, k, v, **masks)), reps=5, trials=3),
+               "plain_ms": time_ms(run_plain, reps=3, trials=3),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None if library is None
+               else time_ms(library, reps=5, trials=3)}
+        rows.append(row)
+        log(f"  flash_attention gradient {case}: within {atol} (max abs err "
+            f"{err}; forward {fwd_err}, rounding excess {excess}; "
+            f"{chunks} chunk(s)); kernel forward + plain backward "
+            f"{row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']} "
+            f"ms, bound {b_ms:.4f} ms ({b_by})")
+        del q, k, v, dout, out, got, want
+    entry["gradient"] = rows
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------- #
 # phase 3: the pool on the card
 # ---------------------------------------------------------------------- #
@@ -815,6 +993,13 @@ def kernel_family(name: str) -> str:
     return f"{base}[{ops[-1]}]" if ops else base
 
 
+def user_annotation(event) -> bool:
+    """Whether a kineto event is a ``record_function`` range (on the
+    card's timeline it spans the kernels launched inside it, so it is no
+    kernel of its own)."""
+    return bool(getattr(event, "is_user_annotation", lambda: False)())
+
+
 def device_summary(prof, count: int, unit: str) -> dict:
     """What ``prof`` (a stopped ``torch.profiler.profile``) saw on the
     card, per ``unit`` over ``count`` units: the sum of CUDA kernel
@@ -826,7 +1011,8 @@ def device_summary(prof, count: int, unit: str) -> dict:
 
     kernels = [(e.name(), e.duration_ns() / 1e3)
                for e in prof.profiler.kineto_results.events()
-               if e.device_type() == DeviceType.CUDA]
+               if e.device_type() == DeviceType.CUDA
+               and not user_annotation(e)]
     keys = (f"device_busy_ms_per_{unit}", f"kernels_per_{unit}",
             f"top_kernels_ms_per_{unit}")
     if not kernels:
@@ -997,7 +1183,8 @@ def stream_overlap(prof, path: tuple[str, ...]) -> dict:
     collect_ids = set()
     marks = tuple(f"{k}_kernel" for k in path)
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0:
+        if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0 \
+                or user_annotation(e):
             continue
         sid = e.device_resource_id()
         by_stream.setdefault(sid, []).append((e.start_ns(), e.end_ns()))
@@ -2180,6 +2367,58 @@ def cross_check_model(arch: str, **overrides) -> None:
         f"steps: cuda == cpu tokens, logits within 1e-4 (max abs err {err})")
 
 
+def cross_check_lm_train(**overrides) -> None:
+    """Three ``make_train_step`` steps of the f32 smoke qwen3-0.6b with
+    the blocked branch (``overrides`` on top), on ``cuda`` and on ``cpu``
+    from the same weights and ``SyntheticSource`` batches (B=4, S=64):
+    losses within 1e-5, and on the card one flash_attention launch a
+    layer and step (the forward; the backward is the plain recompute)
+    and no copy."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import BatchSpec, SyntheticSource
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_smoke_config("qwen3-0.6b").replace(
+        compute_dtype=torch.float32, attn_impl="blocked", **overrides)
+    opt = adamw(weight_decay=0.01)
+    start = init_train_state(build_model(cfg, "cpu"), opt,
+                             torch.Generator().manual_seed(SEED))
+    src = SyntheticSource(cfg.vocab, branching=8, seed=1)
+    batches = [src.batch(BatchSpec(4, 64, cfg.vocab), t) for t in range(3)]
+    losses = {}
+    for dev in (DEV, "cpu"):
+        step = make_train_step(build_model(cfg, dev), opt,
+                               linear_warmup_cosine(1e-2, 1, 3))
+        state = tree_map(lambda x: x.to(dev), start)
+        before, copies = flash_attention.launches, flash_attention.copies
+        losses[dev] = []
+        for b in batches:
+            state, m = step(state, {k: torch.from_numpy(v).to(dev)
+                                    for k, v in b.items()})
+            losses[dev].append(float(m["loss"]))
+        if dev == DEV and (flash_attention.launches - before
+                           != len(batches) * cfg.n_layers
+                           or flash_attention.copies != copies):
+            raise AssertionError(
+                f"LM train {overrides}: {flash_attention.launches - before} "
+                f"flash launches in {len(batches)} steps (want "
+                f"{len(batches) * cfg.n_layers}), "
+                f"{flash_attention.copies - copies} copies")
+    err = max(abs(a - b) for a, b in zip(losses[DEV], losses["cpu"]))
+    if err > 1e-5:
+        raise AssertionError(f"LM train {overrides}: losses differ by {err} "
+                             f"> 1e-5: {losses}")
+    log(f"  LM train step, f32 smoke qwen3-0.6b blocked {overrides or ''}: "
+        f"cuda == cpu, 3 steps, losses {losses[DEV]} within 1e-5 (max abs "
+        f"err {err}), {cfg.n_layers} flash launches a step")
+
+
 # ---------------------------------------------------------------------- #
 # phase 6: the sharded engine on the card
 # ---------------------------------------------------------------------- #
@@ -2488,6 +2727,237 @@ def sharded_phase() -> dict:
             "ranks": ranks_phase(), "train": drive_sharded_train()}
 
 
+# ---------------------------------------------------------------------- #
+# phase 7: the LM trainer on the card
+# ---------------------------------------------------------------------- #
+def annotated_kernel_ms(prof, name: str) -> float | None:
+    """Device ms of the kernels launched inside ``record_function(name)``
+    ranges of ``prof``: the CPU events that start inside a range give
+    their correlation ids, the CUDA kernels that carry one of them (as
+    their own or linked id) add up.  None when the profiler saw no such
+    range or no kernel in one."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.profiler.kineto_results.events())
+    spans = sorted((e.start_ns(), e.end_ns()) for e in events
+                   if e.device_type() == DeviceType.CPU
+                   and e.name() == name)
+    if not spans:
+        return None
+    ids = {e.correlation_id() for e in events
+           if e.device_type() == DeviceType.CPU and e.name() != name
+           and any(a <= e.start_ns() <= b for a, b in spans)} - {0}
+    ns = [e.duration_ns() for e in events
+          if e.device_type() == DeviceType.CUDA and not user_annotation(e)
+          and (e.correlation_id() in ids or e.linked_correlation_id() in ids)]
+    return sum(ns) / 1e6 if ns else None
+
+
+def drive_lm_train(warmup: int = 2, timed: int = 5) -> dict:
+    """``make_train_step`` on ``TRAIN_MODEL`` at full width on the card:
+    ``attn_impl="blocked"``, f32 parameters, bf16 compute, AdamW (weight
+    decay 0.01, lr 3e-4 after 2 warm-up steps), ``SyntheticSource``
+    batches of ``TRAIN_B`` x ``TRAIN_S``, the weights from a seeded
+    generator on the card.  ``warmup`` steps, ``timed`` timed ones (one
+    flash_attention launch a layer and step, no copy), one under
+    ``torch.profiler`` (device busy, idle share, top kernel families, the
+    device ms of the plain attention backward: its ``record_function``
+    ranges); the plain backward also timed alone at the step's shape.
+    Every loss and every gradient leaf finite, the attention weights'
+    gradients non-zero in every layer (they reach wq, wk, wv, q_norm and
+    k_norm only through the kernel's call), every parameter changed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import BatchSpec, SyntheticSource
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         plain_grads)
+    from repro_torch.launch.steps import (init_train_state, loss_and_grads,
+                                          make_train_step)
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params, model_flops_per_token
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
+
+    cfg = get_config(TRAIN_MODEL, attn_impl="blocked")
+    model = build_model(cfg, DEV)
+    opt = adamw(weight_decay=0.01)
+    state = init_train_state(model, opt,
+                             torch.Generator(device=DEV).manual_seed(SEED))
+    params0 = state.params
+    n_steps = warmup + timed + 1
+    step = make_train_step(model, opt,
+                           linear_warmup_cosine(3e-4, 2, n_steps))
+    src = SyntheticSource(cfg.vocab, branching=8, seed=1)
+    spec = BatchSpec(TRAIN_B, TRAIN_S, cfg.vocab)
+    batches = [{k: torch.from_numpy(v).to(DEV)
+                for k, v in src.batch(spec, t).items()}
+               for t in range(n_steps)]
+    losses = []
+    for t in range(warmup):
+        state, m = step(state, batches[t])
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    copies = flash_attention.copies
+    reset_counts()
+    t0 = time.perf_counter()
+    for t in range(warmup, warmup + timed):
+        state, m = step(state, batches[t])
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts(f"train {cfg.name}", ("flash_attention",))
+    peak = torch.cuda.max_memory_allocated()
+    if launches["flash_attention"] != timed * cfg.n_layers \
+            or flash_attention.copies != copies:
+        raise AssertionError(
+            f"train {cfg.name}: {launches['flash_attention']} flash launches "
+            f"in {timed} steps (want {timed * cfg.n_layers}), "
+            f"{flash_attention.copies - copies} copies")
+    ms = dt / timed * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, batches[-1])
+        losses.append(m["loss"])
+        torch.cuda.synchronize()
+    dev_prof = device_summary(prof, 1, "step")
+    bwd_ms = annotated_kernel_ms(prof, "flash_attention.backward")
+    del prof
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train {cfg.name}: losses {losses}")
+    changed = [not torch.equal(a, b) for a, b in
+               zip(tree_leaves(params0), tree_leaves(state.params))]
+    if not all(changed):
+        raise AssertionError(f"train {cfg.name}: {changed.count(False)} "
+                             "parameter leaves did not change")
+    del params0
+    _, _, grads = loss_and_grads(model, state.params, batches[0])
+    for path, g in tree_leaves_with_path(grads):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"train {cfg.name}: gradient {path} is not "
+                                 "finite")
+    attn = grads["layers"]["attn"]
+    for name in ("wq", "wk", "wv", "q_norm", "k_norm"):
+        norms = attn[name].float().flatten(1).norm(dim=1)
+        if not bool((norms > 0).all()):
+            raise AssertionError(f"train {cfg.name}: the gradient of {name} "
+                                 f"is zero in some layer: {norms.tolist()}")
+    del grads
+    # the plain backward alone at the step's shape: (B, S, H, D) views
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    q, k, v = (torch.randn((TRAIN_B, TRAIN_S, h, cfg.hd), generator=gen,
+                           device=DEV).to(cfg.compute_dtype).transpose(1, 2)
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    dout = torch.randn(q.shape, generator=gen, device=DEV).to(q.dtype)
+    bwd_alone = time_ms(lambda: plain_grads(q, k, v, dout, True, 0, None),
+                        reps=5, trials=3)
+    del q, k, v, dout
+    busy = dev_prof["device_busy_ms_per_step"]
+    tokens = TRAIN_B * TRAIN_S
+    out = {"model": cfg.name, "params": count_params(state.params),
+           "attn_impl": cfg.attn_impl, "batch": TRAIN_B, "seq_len": TRAIN_S,
+           "compute_dtype": str(cfg.compute_dtype), "timed_steps": timed,
+           "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+           "model_tflops_per_s":
+               model_flops_per_token(cfg) * tokens / ms * 1e-9,
+           "flash_launches_per_step": launches["flash_attention"] / timed,
+           "flash_copies": flash_attention.copies - copies,
+           "losses": losses, "peak_memory_gb": peak / 1e9,
+           "device_busy_ms_per_step": busy,
+           "kernels_per_step": dev_prof["kernels_per_step"],
+           "top3_kernels_ms_per_step": top3(dev_prof, "step"),
+           "device_idle_share": None if busy is None else 1.0 - busy / ms,
+           "attn_backward_ms_per_step": bwd_ms,
+           "attn_backward_share": None if bwd_ms is None else bwd_ms / ms,
+           "attn_backward_alone_ms_per_step": bwd_alone * cfg.n_layers,
+           "attn_backward_alone_share": bwd_alone * cfg.n_layers / ms,
+           "launches": launches, "card": CARD}
+    log(f"  train {cfg.name} blocked B={TRAIN_B} S={TRAIN_S}: "
+        f"{out['tokens_per_s']:.0f} tokens/s, {ms:.2f} ms per step, "
+        f"{out['model_tflops_per_s']:.1f} model TFLOP/s, flash launches "
+        f"per step {out['flash_launches_per_step']}, device busy {busy} ms "
+        f"per step (idle share {out['device_idle_share']}), top "
+        f"{out['top3_kernels_ms_per_step']}, plain attention backward "
+        f"{bwd_ms} ms in the step ({out['attn_backward_share']}), "
+        f"{out['attn_backward_alone_ms_per_step']:.2f} ms alone "
+        f"({out['attn_backward_alone_share']:.3f}), peak "
+        f"{out['peak_memory_gb']:.2f} GB, losses {losses}")
+    del state, model, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_lm_cli() -> dict:
+    """``python -m repro_torch.launch.train`` on the card as a user runs
+    it: ``repro``'s learning criterion (tests/test_system.py's flags: the
+    last loss below the first by more than 1.0), and 40 steps straight
+    against 20, a restart from their checkpoint and 20 more (the step-39
+    loss within rtol 1e-4; the two runs' final parameters compared
+    bitwise)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+
+    def run(*flags) -> tuple[list, float]:
+        out = os.path.join(tmp, f"h{len(os.listdir(tmp))}.json")
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                            *flags, "--out-json", out], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=300)
+        if p.returncode != 0:
+            raise AssertionError(f"train CLI {flags}: exit {p.returncode}: "
+                                 f"{p.stderr[-2000:]}")
+        with open(out) as f:
+            return json.load(f), time.perf_counter() - t0
+
+    def final_params(ckpt: str) -> dict:
+        d = os.path.join(ckpt, "step_40")
+        return {n: np.load(os.path.join(d, n)) for n in os.listdir(d)
+                if n.startswith(".params") and n.endswith(".npy")}
+
+    try:
+        learn, learn_s = run("--arch", "llama3.2-3b", "--smoke", "--d-model",
+                             "128", "--layers", "2", "--steps", "150",
+                             "--batch", "16", "--seq", "64", "--lr", "3e-3",
+                             "--log-every", "25")
+        first, last = learn[0]["loss"], learn[-1]["loss"]
+        if not last < first - 1.0:
+            raise AssertionError(f"train CLI: loss {first} -> {last}, not "
+                                 "below the first by more than 1.0")
+        small = ("--arch", "qwen3-0.6b", "--smoke", "--d-model", "64",
+                 "--layers", "2", "--batch", "4", "--seq", "32",
+                 "--log-every", "1", "--ckpt-every", "20")
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        straight, _ = run(*small, "--steps", "40", "--ckpt-dir", a)
+        run(*small, "--steps", "20", "--ckpt-dir", b)
+        resumed, _ = run(*small, "--steps", "40", "--ckpt-dir", b)
+        la = [h["loss"] for h in straight if h["step"] == 39][0]
+        lb = [h["loss"] for h in resumed if h["step"] == 39][0]
+        if resumed[0]["step"] != 20 or not np.isclose(lb, la, rtol=1e-4,
+                                                      atol=0):
+            raise AssertionError(f"train CLI restart: step-39 loss {lb} "
+                                 f"after a restart, {la} straight")
+        pa, pb = final_params(a), final_params(b)
+        param_err = max(float(np.abs(pa[n] - pb[n]).max()) for n in pa)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"learn_first_loss": first, "learn_last_loss": last,
+           "learn_seconds": learn_s,
+           "learn_tokens_per_s": learn[-1]["tokens_per_s"],
+           "restart_loss_straight": la, "restart_loss_resumed": lb,
+           "restart_params_max_abs_err": param_err,
+           "restart_bitwise": param_err == 0.0}
+    log(f"  train CLI on the card: llama3.2-3b smoke loss {first} -> {last} "
+        f"in 150 steps ({learn_s:.1f} s); restart at 20 of 40: loss {lb} "
+        f"against {la} straight, final params max abs err {param_err}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2578,6 +3048,8 @@ def main() -> int:
     cross_check_collect()
     cross_check_model("qwen3-0.6b")
     cross_check_model("starcoder2-3b", attn_type="sliding")
+    cross_check_lm_train()
+    cross_check_lm_train(attn_type="sliding", window=32)
 
     log(f"phase 5: the host engines {at()}")
     host_runs = host_phase()
@@ -2592,6 +3064,12 @@ def main() -> int:
     for r in sharded["pools"] + [sharded["ranks"], sharded["train"]]:
         for k, v in r["launches"].items():
             kernels[k]["launches"] += v
+
+    log(f"phase 7: the LM trainer on the card {at()}")
+    lm_train = {"step": drive_lm_train(), "cli": drive_lm_cli()}
+    log(json.dumps({"lm_train": lm_train, "card": card}))
+    for k, v in lm_train["step"]["launches"].items():
+        kernels[k]["launches"] += v
 
     log(f"done {at()}")
     print(json.dumps({"kernels": list(kernels.values())}))

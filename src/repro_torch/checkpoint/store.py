@@ -12,7 +12,9 @@ two packages in either direction:
     crash mid-write never leaves a partial ``step_<n>``; the oldest
     steps beyond ``keep`` are then removed;
   * ``save_async`` copies the leaves to host memory at once and writes
-    them on a daemon thread.
+    them on a daemon thread;
+  * ``install_preemption_handler`` makes SIGTERM set ``preempted``, so a
+    trainer saves at its next step boundary and exits.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import threading
 import time
 from typing import Any, Callable
@@ -71,6 +74,14 @@ class CheckpointStore:
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
+        self.preempted = threading.Event()
+
+    def install_preemption_handler(self) -> None:
+        """SIGTERM sets ``preempted`` (call from the main thread)."""
+        def handler(signum, frame):
+            self.preempted.set()
+
+        signal.signal(signal.SIGTERM, handler)
 
     def steps(self) -> list[int]:
         return sorted(int(m.group(1)) for m in (

@@ -18,6 +18,13 @@ with plain loads and takes any such view).  The output has q's layout
 (``torch.empty_like``), so the transposed view comes back as a dense
 (B, S, H, D) tensor.
 
+Under autograd (grad enabled and q, k or v requiring grad) the kernel
+runs inside ``_FlashAttentionFn``: its forward is the same launch, and
+its backward recomputes the function with the plain version on the
+saved inputs and differentiates that (``plain_grads``), as ``repro``
+takes the gradient of its blocked attention by autodiff of plain jnp.
+There is no backward kernel; the backward launches nothing.
+
 ``tile_plan`` is the K-tile plan that the bf16 kernel computes for
 each query tile, in Python so that the CPU tests can hold it against a
 brute-force mask.
@@ -96,7 +103,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """(B, H, Sq, D) x (B, Hkv, Skv, D) -> (B, H, Sq, D) in q's dtype:
     ``mha_reference``'s function (end-aligned query positions, causal
     and sliding-window masks, GQA by ``h // (H / Hkv)``, f32 softmax; a
-    row that sees no key gives 0)."""
+    row that sees no key gives 0).  Differentiable in q, k and v."""
     B, H, Sq, D = q.shape
     _require(k.ndim == 4 and k.shape == v.shape and k.shape[0] == B
              and k.shape[3] == D and H % k.shape[1] == 0,
@@ -106,6 +113,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if resolve_backend(backend, q) == "reference":
         return mha_reference(q, k, v, causal=causal, window=window,
                              sm_scale=sm_scale)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttentionFn.apply(q, k, v, causal, window, sm_scale)
+    return _launch(q, k, v, causal, window, sm_scale)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int, sm_scale: float | None) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors that ``flash_attention`` has
+    checked for shape."""
+    B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     _require(q.dtype in DTYPES and k.dtype == q.dtype
              and v.dtype == q.dtype,
@@ -139,6 +156,76 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+# the most bytes of f32 scores that one step of ``plain_grads`` forms
+BACKWARD_SCORE_BYTES = 1 << 30
+
+
+def chunk_rows(B: int, H: int, Sq: int, Skv: int, causal: bool) -> int:
+    """The query rows of one step of ``plain_grads``: all ``Sq`` unless
+    causal (B, H, Sq, Skv) f32 scores exceed ``BACKWARD_SCORE_BYTES``."""
+    if not causal:
+        return Sq
+    return max(1, min(Sq, BACKWARD_SCORE_BYTES // max(1, 4 * B * H * Skv)))
+
+
+def plain_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                dout: torch.Tensor, causal: bool, window: int,
+                sm_scale: float | None
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``mha_reference(q, k, v)`` against the output
+    gradient ``dout``, by autograd of the plain version.  When the
+    (B, H, Sq, Skv) f32 scores exceed ``BACKWARD_SCORE_BYTES``, causal
+    attention recomputes in chunks of query rows: rows ``[a, b)`` sit at
+    positions ``a + Skv - Sq ...`` and see no key at or past ``b + Skv -
+    Sq``, so the chunk runs against keys ``[0, b + Skv - Sq)``, which
+    keeps ``mha_reference``'s end-aligned positions exact; dk and dv add
+    up over the chunks.  Each chunk runs in f32 (``mha_reference`` takes
+    its scores in f32 whatever the inputs), so dk and dv are rounded to
+    the inputs' dtype once, after the sum, as autograd of the whole
+    function rounds them."""
+    B, H, Sq, _ = q.shape
+    Skv = k.shape[2]
+    off = Skv - Sq
+    rows = chunk_rows(B, H, Sq, Skv, causal)
+    dq = torch.zeros_like(q)
+    dk = torch.zeros_like(k, dtype=torch.float32)
+    dv = torch.zeros_like(v, dtype=torch.float32)
+    with torch.enable_grad():
+        for a in range(0, Sq, rows):
+            b = min(a + rows, Sq)
+            hi = min(Skv, b + off) if causal else Skv
+            if hi <= 0:
+                continue            # rows that see no key: output 0
+            qc = q[:, :, a:b].detach().float().requires_grad_()
+            kc = k[:, :, :hi].detach().float().requires_grad_()
+            vc = v[:, :, :hi].detach().float().requires_grad_()
+            out = mha_reference(qc, kc, vc, causal=causal, window=window,
+                                sm_scale=sm_scale)
+            gq, gk, gv = torch.autograd.grad(out, (qc, kc, vc),
+                                             dout[:, :, a:b].float())
+            dq[:, :, a:b] = gq
+            dk[:, :, :hi] += gk
+            dv[:, :, :hi] += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """The kernel's forward with ``plain_grads`` for its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, sm_scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.masks = (causal, window, sm_scale)
+        return _launch(q, k, v, causal, window, sm_scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        with torch.profiler.record_function("flash_attention.backward"):
+            dq, dk, dv = plain_grads(q, k, v, dout, *ctx.masks)
+        return dq, dk, dv, None, None, None
+
+
 def _tma_ready(t: torch.Tensor) -> torch.Tensor:
     if tma_compatible(t):
         return t
@@ -149,5 +236,5 @@ def _tma_ready(t: torch.Tensor) -> torch.Tensor:
 flash_attention.launches = 0
 flash_attention.copies = 0
 
-__all__ = ["flash_attention", "mha_reference", "tile_plan",
-           "tma_compatible"]
+__all__ = ["BACKWARD_SCORE_BYTES", "chunk_rows", "flash_attention",
+           "mha_reference", "plain_grads", "tile_plan", "tma_compatible"]

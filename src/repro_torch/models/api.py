@@ -1,10 +1,10 @@
 """The model facade (``repro/models/api.py``) for the dense family.
 
-``build_model(cfg)`` returns a ``Model`` with ``init``, ``init_cache``,
-``prefill`` and ``decode_step``, so the serving steps
-(``launch/steps.py``) never dispatch on the config.  Shape cells pair
-an arch with ``train_4k``, ``prefill_32k``, ``decode_32k`` or
-``long_500k``.
+``build_model(cfg)`` returns a ``Model`` with ``init``, ``train_loss``,
+``init_cache``, ``prefill`` and ``decode_step``, so the train and
+serving steps (``launch/steps.py``) never dispatch on the config.
+Shape cells pair an arch with ``train_4k``, ``prefill_32k``,
+``decode_32k`` or ``long_500k``.
 
 Differences from ``repro``, by design: ``init`` draws from a
 ``torch.Generator`` (to run ``repro``'s weights, load them with
@@ -13,8 +13,11 @@ Differences from ``repro``, by design: ``init`` draws from a
 it passed to ``decode_step``; ``prefill`` applies the LM head to the
 last position only, where ``repro`` takes ``logits[:, -1]`` of the
 full-sequence head and XLA drops the rest (eager PyTorch would compute
-all of it: 10 GB and 10 TFLOP at qwen3-0.6b, B=4, S=8192).  Only the
-dense family is ported; ``train_loss`` waits with the training slice.
+all of it: 10 GB and 10 TFLOP at qwen3-0.6b, B=4, S=8192);
+``softmax_xent`` forms the f32 copy of the logits again in the backward
+(``torch.utils.checkpoint``), where XLA decides itself what to keep.
+Only the dense family is ported: ``Model`` refuses the others, naming
+the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import transformer
@@ -54,6 +58,30 @@ def cell_supported(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
     return True, ""
 
 
+def _xent(logits: torch.Tensor, labels: torch.Tensor,
+          mask: torch.Tensor | None) -> torch.Tensor:
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-mean cross entropy of ``logits`` (..., V) at ``labels``,
+    the logsumexp in f32; with ``mask``, the mean over the tokens it
+    marks.  Under autograd only ``logits`` itself is kept for the
+    backward, which forms its f32 copy again: at qwen3-0.6b's vocab
+    that copy is the largest tensor of a train step."""
+    if not (torch.is_grad_enabled() and logits.requires_grad):
+        return _xent(logits, labels, mask)
+    return checkpoint(_xent, logits, labels, mask, use_reentrant=False)
+
+
 class Model:
     """The dense decoder behind one interface, on ``device`` (default
     ``cuda``, which must be present)."""
@@ -69,20 +97,34 @@ class Model:
         device)."""
         return transformer.lm_init(gen, self.cfg, self.device)
 
+    def train_loss(self, params: dict[str, Any], batch: dict[str, Any]
+                   ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """``(loss, {"xent", "aux"})`` of next-token prediction over
+        ``batch["tokens"]`` (B, S) against ``batch["labels"]`` (B, S),
+        masked by ``batch["loss_mask"]`` if given; ``loss = xent + aux``
+        (``aux``, the MoE loss, is a zero f32 for the dense family)."""
+        logits, _, aux = transformer.lm_apply(params, batch["tokens"],
+                                              self.cfg)
+        xent = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+        return xent + aux, {"xent": xent, "aux": aux}
+
     def init_cache(self, batch: int, max_len: int) -> dict[str, Any]:
         return transformer.init_cache(self.cfg, batch, max_len, self.device)
 
     def input_specs(self, shape: ShapeSpec
                     ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
-        """Name -> (shape, dtype) of every model input of this cell.
-        Training cells wait for ``train_loss`` (ROADMAP A17)."""
+        """Name -> (shape, dtype) of every model input of this cell: a
+        train cell's tokens and labels, a prefill's prompt, a decode
+        step's one new token."""
         B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "train":
+            return {"tokens": ((B, S), torch.int32),
+                    "labels": ((B, S), torch.int32)}
         if shape.kind == "prefill":
             return {"tokens": ((B, S), torch.int32)}
         if shape.kind == "decode":
             return {"tokens": ((B, 1), torch.int32)}
-        raise NotImplementedError(f"{shape.kind} cells are not ported "
-                                  "(ROADMAP A17)")
+        raise ValueError(f"unknown cell kind {shape.kind!r}")
 
     def prefill(self, params: dict[str, Any], batch: dict[str, Any],
                 max_len: int) -> tuple[torch.Tensor, dict[str, Any]]:
@@ -111,4 +153,5 @@ def build_model(cfg: ModelConfig,
     return Model(cfg, device)
 
 
-__all__ = ["Model", "SHAPES", "ShapeSpec", "build_model", "cell_supported"]
+__all__ = ["Model", "SHAPES", "ShapeSpec", "build_model", "cell_supported",
+           "softmax_xent"]

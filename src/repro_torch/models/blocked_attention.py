@@ -1,5 +1,5 @@
-"""Blocked attention of the model's prefill (``repro/models/
-blocked_attention.py``), on the flash-attention kernel.
+"""Blocked attention of the model's prefill and train step
+(``repro/models/blocked_attention.py``), on the flash-attention kernel.
 
 ``repro`` computes these two functions in jnp as the XLA analogue of
 its Pallas flash kernel, so that the whole (B, H, S, S) score tensor is
@@ -13,8 +13,12 @@ Here both are one call of ``kernels/flash_attention/ops.py::
 flash_attention`` on (B, H, S, D) views of the (B, S, H, D)
 projections: the kernel takes their strides, so no input is copied, and
 it skips the tiles outside the band as ``repro``'s loops do.  The TPU
-tiling arguments (``block_q``, ``block_k``) and ``differentiable`` (the
-train path, not ported) are dropped: the kernel picks its own tiles.
+tiling arguments (``block_q``, ``block_k``) are dropped: the kernel
+picks its own tiles.  ``online_causal_attention`` takes ``repro``'s
+``differentiable`` and runs the same kernel either way: under autograd
+the kernel call carries its own backward (``kernels/flash_attention/
+ops.py::_FlashAttentionFn``), where ``repro`` has to swap its
+early-exit loop for a fixed-trip scan to be differentiable.
 """
 
 from __future__ import annotations
@@ -40,10 +44,12 @@ def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def online_causal_attention(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, sm_scale: float | None = None
-                            ) -> torch.Tensor:
+                            v: torch.Tensor, sm_scale: float | None = None,
+                            differentiable: bool = False) -> torch.Tensor:
     """Full causal attention over (B, S, Hq, D) queries and (B, S, Hkv,
-    D) keys and values -> (B, S, Hq, D) in q's dtype."""
+    D) keys and values -> (B, S, Hq, D) in q's dtype.  Differentiable
+    whatever ``differentiable`` says."""
+    del differentiable
     out = flash_attention(_heads_major(q), _heads_major(k), _heads_major(v),
                           causal=True, sm_scale=sm_scale)
     return out.transpose(1, 2)

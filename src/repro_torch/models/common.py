@@ -21,6 +21,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.utils.tree import tree_leaves
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -87,4 +89,21 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype,
     return (w * 0.02).to(dtype)
 
 
-__all__ = ["ModelConfig", "dense_init", "embed_init"]
+def count_params(params: Any) -> int:
+    """Elements over every tensor leaf of ``params``."""
+    return sum(p.numel() for p in tree_leaves(params))
+
+
+def model_flops_per_token(cfg: ModelConfig) -> float:
+    """Model FLOPs a trained token, ``repro``'s 6 N convention for the
+    dense family: 2 for the forward and 4 for the backward of each
+    multiply-accumulate with a weight (the q, k, v, o projections, the
+    MLP, the LM head); attention's own products are left out."""
+    d, ff = cfg.d_model, cfg.d_ff
+    attn = d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
+    mlp = (3 if cfg.mlp_type == "swiglu" else 2) * d * ff
+    return 6.0 * (cfg.n_layers * (attn + mlp) + d * cfg.vocab)
+
+
+__all__ = ["ModelConfig", "count_params", "dense_init", "embed_init",
+           "model_flops_per_token"]

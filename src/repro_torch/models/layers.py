@@ -247,6 +247,8 @@ def attention(
     dev = x.device
 
     if cache_kv is None:
+        # the train path: the dense mask, or blocked on the kernel,
+        # whose gradient is the plain recompute of its backward
         if use_blocked:
             out = _blocked_self_attention(q, k, v, win)
         else:
@@ -301,7 +303,8 @@ def _attn_out(p: dict[str, Any], out: torch.Tensor, cfg: ModelConfig
 def _blocked_self_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, win: int) -> torch.Tensor:
     """Banded for sliding layers, full causal otherwise, both on the
-    flash-attention kernel -> (B, S, Hq, D)."""
+    flash-attention kernel -> (B, S, Hq, D), differentiable in q, k and
+    v."""
     if win and win < q.shape[1]:
         return banded_attention(q, k, v, win)
     return online_causal_attention(q, k, v)

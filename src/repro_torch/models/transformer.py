@@ -70,10 +70,19 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def layer_params(layers: dict[str, Any], i: int) -> dict[str, Any]:
-    """Layer ``i``'s slice of the stacked layer parameters (views)."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in layers.items()}
+def unstack_layers(layers: dict[str, Any], n: int) -> list[dict[str, Any]]:
+    """The stacked layer parameters as ``n`` per-layer dicts of views,
+    each leaf split once (``torch.unbind``).  Under autograd the slices'
+    gradients then go into the stacked leaf's gradient in one stack,
+    where ``n`` separate index views (``v[i]``) would each add a
+    zero-filled gradient of the whole stacked leaf into it (``n`` times
+    the traffic of the leaf, in every train step)."""
+    out: list[dict[str, Any]] = [{} for _ in range(n)]
+    for k, v in layers.items():
+        parts = unstack_layers(v, n) if isinstance(v, dict) else v.unbind(0)
+        for layer, part in zip(out, parts):
+            layer[k] = part
+    return out
 
 
 def lm_head(params: dict[str, Any], x: torch.Tensor,
@@ -128,12 +137,12 @@ def lm_hidden(params: dict[str, Any], tokens: torch.Tensor,
         if cache is not None:
             positions = positions + cache_len
     rope = rope_tables(positions, cfg)
+    layers = unstack_layers(params["layers"], cfg.n_layers)
     for i, w in enumerate(static_layer_windows(cfg)):
         layer_cache = None
         if cache is not None:
             layer_cache = {k: v[i] for k, v in cache.items() if k != "len"}
-        x = decoder_layer(layer_params(params["layers"], i), x, cfg, rope, w,
-                          layer_cache, cache_len)
+        x = decoder_layer(layers[i], x, cfg, rope, w, layer_cache, cache_len)
     new_cache = None
     if cache is not None:
         # the layer caches are views of the stacked tensors, written in
@@ -172,6 +181,5 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 __all__ = ["NOT_PORTED", "check_dense", "decoder_layer", "init_cache",
-           "layer_params",
            "lm_apply", "lm_head", "lm_hidden", "lm_init",
-           "static_layer_windows"]
+           "static_layer_windows", "unstack_layers"]

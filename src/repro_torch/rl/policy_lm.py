@@ -52,10 +52,10 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.transformer import (
     check_dense,
-    layer_params,
     lm_apply,
     lm_head,
     lm_init,
+    unstack_layers,
 )
 from repro_torch.utils.tree import (
     tree_dataclass,
@@ -227,8 +227,8 @@ class LMPolicy:
         rope = rope_tables(pos[:, None], cfg)
         x = params["embed"][tokens.long()].to(cd)          # (B, d)
 
-        for i in range(cfg.n_layers):
-            lp = layer_params(params["layers"], i)
+        for i, lp in enumerate(unstack_layers(params["layers"],
+                                              cfg.n_layers)):
             ap = lp["attn"]
             normed = apply_norm(lp["attn_norm"], x, cfg)
             q = (normed @ ap["wq"].to(cd)).reshape(

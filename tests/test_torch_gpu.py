@@ -6,7 +6,9 @@ order; in bf16 also within ``BF16_EXCESS_TOL`` of the rounding of the
 exact value, ``kernels/flash_attention/ref.py::rounding_excess``), and
 a pool and a decode server on the card against the same on the CPU,
 and one ``train_device`` iteration on the card through the path's
-kernels; ``train_pipelined`` on two streams against a serial run, the
+kernels; the flash-attention kernel under autograd (its backward the
+plain recompute) and a blocked LM train step on the card against the
+CPU; ``train_pipelined`` on two streams against a serial run, the
 V-trace update without a host sync, ``train_host_pipelined`` with its
 learner on the card; the host engines on the card against the CPU, their launches
 per env step, one library build for eight threads, and, with two cards,
@@ -645,6 +647,118 @@ def test_flash_attention_without_keys_is_zero(cuda, dtype):
     for causal in (True, False):
         out = flash_attention(q, k, k, causal=causal)
         assert out.shape == q.shape and torch.all(out == 0)
+
+
+# (B, H, Hkv, S, D, causal, window, dtype, chunks): the train step's
+# calls (qwen3-0.6b's heads at a short S), the same with the plain
+# backward in 4 chunks of query rows, a sliding layer, GQA 4, f32
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window,dtype,chunks", [
+    (2, 16, 8, 256, 128, True, 0, torch.bfloat16, 1),
+    (2, 16, 8, 256, 128, True, 0, torch.bfloat16, 4),
+    (2, 16, 8, 256, 128, True, 0, torch.float32, 1),
+    (1, 8, 2, 300, 64, True, 64, torch.bfloat16, 1),
+    (1, 4, 1, 130, 32, True, 37, torch.float32, 1),
+])
+def test_flash_attention_gradient(cuda, monkeypatch, B, H, Hkv, S, D,
+                                  causal, window, dtype, chunks):
+    """Under autograd the kernel's output has a ``grad_fn``, the forward
+    launches the kernel once and the backward does not launch it; the
+    output is the kernel's (within 2e-2 and ``BF16_EXCESS_TOL`` of the
+    rounding of the exact value in bf16, 3e-5 in f32, of
+    ``mha_reference``), and dq, dk and dv are those of unchunked
+    autograd through ``mha_reference`` (within 2e-2 in bf16 and 1e-5 in
+    f32, relative to each gradient's largest entry).  The backward never
+    reads the kernel's output, so the gradients check the wiring and
+    the output checks the kernel."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    monkeypatch.setattr(flash_ops, "BACKWARD_SCORE_BYTES",
+                        4 * B * H * S * -(-S // chunks))
+    assert -(-S // flash_ops.chunk_rows(B, H, S, S, causal)) == chunks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(S + D)
+
+    def view(h):
+        return torch.from_numpy(rng.normal(0, 1, (B, S, h, D)).astype(
+            np.float32)).to(cuda, dtype).transpose(1, 2).requires_grad_()
+
+    q, k, v = view(H), view(Hkv), view(Hkv)
+    dout = torch.from_numpy(rng.normal(0, 1, (B, H, S, D)).astype(
+        np.float32)).to(cuda, dtype)
+    masks = dict(causal=causal, window=window)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, **masks)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert flash_attention.launches == before + 1
+    with torch.no_grad():
+        fwd_err = float((out.float() - mha_reference(
+            q, k, v, **masks).float()).abs().max())
+        if dtype == torch.bfloat16:
+            assert fwd_err <= 2e-2
+            assert rounding_excess(out, mha_reference(
+                q.float(), k.float(), v.float(),
+                **masks)) <= BF16_EXCESS_TOL
+        else:
+            assert fwd_err <= 3e-5
+    want = torch.autograd.grad(mha_reference(q, k, v, **masks), (q, k, v),
+                               dout)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == dtype
+        assert torch.isfinite(g).all()
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), err
+
+
+def test_flash_attention_without_grad_is_the_plain_launch(cuda):
+    q = torch.randn((1, 4, 64, 32), device=cuda, requires_grad=True)
+    k = torch.randn((1, 2, 64, 32), device=cuda)
+    before = flash_attention.launches
+    with torch.no_grad():
+        assert flash_attention(q, k, k).grad_fn is None
+    assert flash_attention(q.detach(), k, k).grad_fn is None
+    assert flash_attention.launches == before + 2
+    out = flash_attention(q, k, k)
+    assert out.grad_fn is not None and flash_attention.launches == before + 3
+    (out.float().sum()).backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+    assert flash_attention.launches == before + 3
+
+
+def test_blocked_train_step_on_the_card_matches_the_cpu(cuda):
+    """Three train steps of the f32 smoke qwen3 with the blocked branch:
+    losses within 1e-5 of the CPU's, one flash launch per layer a step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import BatchSpec, SyntheticSource
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    from repro_torch.utils.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("qwen3-0.6b").replace(compute_dtype=torch.float32,
+                                                 attn_impl="blocked")
+    opt = adamw(weight_decay=0.01)
+    start = init_train_state(build_model(cfg, "cpu"), opt,
+                             torch.Generator().manual_seed(0))
+    src = SyntheticSource(cfg.vocab, branching=8, seed=1)
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        step = make_train_step(build_model(cfg, dev), opt,
+                               linear_warmup_cosine(1e-2, 1, 3))
+        state = tree_map(lambda x: x.to(dev), start)
+        before = flash_attention.launches
+        losses[dev] = []
+        for t in range(3):
+            batch = src.batch(BatchSpec(4, 64, cfg.vocab), t)
+            state, m = step(state, {k: torch.from_numpy(v).to(dev)
+                                    for k, v in batch.items()})
+            losses[dev].append(float(m["loss"]))
+        if dev == "cuda":
+            assert flash_attention.launches - before == 3 * cfg.n_layers
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_decode_pool_on_the_card_matches_the_cpu(cuda):

@@ -291,9 +291,11 @@ def test_shapes_and_synth_batch():
     d = tsteps.synth_batch(model, SHAPES["decode_32k"],
                            torch.Generator().manual_seed(0))
     assert d["tokens"].shape == (128, 1)
-    with pytest.raises(NotImplementedError, match="A17"):
-        tsteps.synth_batch(model, SHAPES["train_4k"],
+    t = tsteps.synth_batch(model, SHAPES["train_4k"],
                            torch.Generator().manual_seed(0))
+    assert set(t) == {"tokens", "labels"}
+    assert t["tokens"].shape == t["labels"].shape == (256, 4096)
+    assert t["labels"].dtype == torch.int32
 
 
 def test_what_is_not_ported_raises(monkeypatch):

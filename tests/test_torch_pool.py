@@ -214,6 +214,28 @@ def test_running_the_port_imports_neither_jax_nor_repro():
         "env = repro_torch.make_py('Ant-v3')\n"
         "env.reset()\n"
         "env.step(np.zeros(8, np.float32))\n"
+        "from repro_torch.data import BatchSpec, SyntheticSource\n"
+        "from repro_torch.launch import train as train_cli\n"
+        "from repro_torch.launch.steps import (init_train_state,\n"
+        "    make_train_step, train_state_shapes)\n"
+        "from repro_torch.models.common import model_flops_per_token\n"
+        "from repro_torch.optim import adamw, constant\n"
+        "cfg = get_smoke_config('qwen3-0.6b').replace(attn_impl='blocked')\n"
+        "model = build_model(cfg, 'cpu')\n"
+        "state = init_train_state(model, adamw(),\n"
+        "                         torch.Generator().manual_seed(0))\n"
+        "train_state_shapes(model, adamw())\n"
+        "batch = SyntheticSource(cfg.vocab).batch(BatchSpec(2, 8, cfg.vocab), 0)\n"
+        "make_train_step(model, adamw(), constant(1e-3), microbatches=2)(\n"
+        "    state, {k: torch.from_numpy(v) for k, v in batch.items()})\n"
+        "model_flops_per_token(cfg)\n"
+        "import contextlib, io\n"
+        "ck = tempfile.mkdtemp()\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    for steps in ('2', '3'):\n"
+        "        train_cli.main(['--arch', 'qwen3-0.6b', '--smoke', '--steps',\n"
+        "                        steps, '--batch', '2', '--seq', '8',\n"
+        "                        '--device', 'cpu', '--ckpt-dir', ck])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
@@ -231,7 +253,8 @@ def test_running_the_port_imports_neither_jax_nor_repro():
 def test_port_sources_import_neither_jax_nor_repro():
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
                          r"(\.|\s))", re.MULTILINE)
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "examples", "train_lm_torch.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(d, f) for f in names if f.endswith(".py")]
     assert len(files) > 10
@@ -245,7 +268,9 @@ def test_port_sources_import_neither_jax_nor_repro():
                  ("envs", "classic.py"), ("core", "host_pool.py"),
                  ("core", "baselines.py"), ("core", "buffers.py"),
                  ("envs", "host_numpy.py"), ("rl", "vtrace.py"),
-                 ("core", "__init__.py")):
+                 ("core", "__init__.py"), ("data", "__init__.py"),
+                 ("data", "pipeline.py"), ("launch", "train.py"),
+                 ("models", "common.py")):
         assert os.path.join(ROOT, "src", "repro_torch", *part) in files
     offenders = []
     for path in files:
