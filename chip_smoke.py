@@ -250,6 +250,12 @@ FLASH_CASES = [
      "bfloat16", 2e-2, "bshd"),
     ("c-end-aligned-noncausal-d16-f32", 2, 4, 2, 100, 300, 16, False, 0,
      "float32", 3e-5, "bhsd"),
+    ("prefill-hymba-B1-S8192-window1024-bf16", 1, 25, 5, 8192, 8192, 64,
+     True, 1024, "bfloat16", 2e-2, "bshd"),
+    ("prefill-hymba-global-B1-S8192-bf16", 1, 25, 5, 8192, 8192, 64, True,
+     0, "bfloat16", 2e-2, "bshd"),
+    ("prefill-granite-B4-S4096-bf16", 4, 24, 8, 4096, 4096, 64, True, 0,
+     "bfloat16", 2e-2, "bshd"),
 ]
 
 # flash_attention's gradient rows in phase 2: (case, B, H, Hkv, S, D,
@@ -268,6 +274,10 @@ FLASH_GRAD_CASES = [
      "bfloat16", 2e-2),
     ("gqa4-window64-S300-f32", 2, 8, 2, 300, 64, True, 64, "float32", 1e-5),
 ]
+# phase 3's MoE and hybrid rows at full width: (arch, prefill batch,
+# prefill length); each is also served as qwen3-0.6b is (8 prompts of
+# 1024 tokens, cache 1056, 32 steps)
+FAMILY_MODELS = [("granite-moe-3b-a800m", 4, 4096), ("hymba-1.5b", 1, 8192)]
 # phase 7's train step: the model at full width, B sequences of S tokens
 TRAIN_MODEL, TRAIN_B, TRAIN_S = "qwen3-0.6b", 8, 512
 
@@ -729,7 +739,13 @@ def check_flash_attention(row) -> None:
         B=1, H=24, Hkv=2, S=8192, D=128, bf16, transposed views; SDPA
         with a boolean band mask;
     (c) Sq=100 end-aligned against Skv=300, non-causal, D=16, f32; SDPA
-        without a mask (alignment does not matter then).
+        without a mask (alignment does not matter then);
+    (d) hymba-1.5b's prefill calls of phase 3, B=1, S=8192, H=25 over
+        Hkv=5 (a GQA group of 5), D=64, bf16, transposed views: its 1024
+        window (29 of its 32 layers; SDPA with a band mask) and causal
+        (layers 0, 15, 31);
+    (e) granite-moe-3b-a800m's, B=4, S=4096, H=24, Hkv=8, D=64, causal,
+        bf16, transposed views.
 
     bf16 within 2e-2 of the plain version and within ``BF16_EXCESS_TOL``
     of the rounding of the exact value (``mha_reference`` on f32 copies),
@@ -1613,8 +1629,15 @@ def drive_prefill(model, params, batch: int, seq: int, calls: int = 3
     if tuple(cache["k"].shape) != want or int(cache["len"]) != seq:
         raise AssertionError(f"prefill {cfg.name}: cache {tuple(cache['k'].shape)}"
                              f" len {int(cache['len'])}, want {want}, {seq}")
+    if cfg.ssm is not None and not (
+            bool(torch.isfinite(cache["ssm_h"]).all())
+            and bool(cache["ssm_h"].any())
+            and bool(torch.isfinite(cache["ssm_tail"]).all())):
+        raise AssertionError(f"prefill {cfg.name}: SSM state zero or not "
+                             "finite")
     del logits, cache
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     for _ in range(calls):
@@ -1640,6 +1663,7 @@ def drive_prefill(model, params, batch: int, seq: int, calls: int = 3
            "ms_per_call": dt / calls * 1e3,
            "flash_launches_per_call": launches["flash_attention"] / calls,
            "flash_copies": flash_attention.copies - copies,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches}
     prof = profile_device(lambda: step(params, inputs), 1, unit="call")
     busy = prof["device_busy_ms_per_call"]
@@ -1651,8 +1675,43 @@ def drive_prefill(model, params, batch: int, seq: int, calls: int = 3
     log(f"  prefill {cfg.name} {cfg.attn_type} B={batch} S={seq}: "
         f"{out['tokens_per_s']:.0f} tokens/s, {out['ms_per_call']:.1f} ms "
         f"per call, device busy {busy} ms per call, flash launches per call "
-        f"{out['flash_launches_per_call']}, top "
-        f"{out['top3_kernels_ms_per_call']}")
+        f"{out['flash_launches_per_call']}, peak {out['peak_gb']:.2f} GB, "
+        f"top {out['top3_kernels_ms_per_call']}")
+    return out
+
+
+def branch_ms(model, params, row: dict) -> dict:
+    """The MoE FFN (``apply_moe``) and the SSM branch (``apply_ssm``) of
+    layer 0 alone, at ``row``'s prefill shape, on a (B, S, d) input in
+    the compute dtype from a seeded generator (CUDA events, no grad):
+    ms a layer and, over ``n_layers``, the share of the prefill's ms a
+    call.  Neither has a kernel of its own: ``repro`` computes both in
+    jnp, and these times rank them as candidates for one."""
+    import torch
+
+    from repro_torch.models.moe import apply_moe
+    from repro_torch.models.ssm import apply_ssm
+    from repro_torch.models.transformer import unstack_layers
+
+    cfg = model.cfg
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    x = torch.randn((row["batch"], row["seq_len"], cfg.d_model),
+                    generator=gen, device=DEV).to(cfg.compute_dtype)
+    layer = unstack_layers(params["layers"], cfg.n_layers)[0]
+    parts = {}
+    with torch.no_grad():
+        if cfg.moe is not None:
+            parts["moe"] = lambda: apply_moe(layer["moe"], x, cfg)
+        if cfg.ssm is not None:
+            parts["ssm"] = lambda: apply_ssm(layer["ssm"], x, cfg)
+        out = {}
+        for name, fn in parts.items():
+            ms = time_ms(fn, reps=3, trials=3)
+            out[f"{name}_ms_per_layer"] = ms
+            out[f"{name}_share_of_call"] = ms * cfg.n_layers / row[
+                "ms_per_call"]
+            log(f"  {cfg.name} {name} alone: {ms:.3f} ms a layer, "
+                f"{out[f'{name}_share_of_call']:.3f} of a prefill call")
     return out
 
 
@@ -1692,6 +1751,8 @@ def drive_model_serve(model, params, batch: int, prompt: int,
         return torch.stack(toks, 1), cache, t
 
     run(2)                                              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     toks, cache, (t0, t1, t2) = run(steps)
     launches = read_counts(f"serve {cfg.name}", ())
@@ -1706,6 +1767,7 @@ def drive_model_serve(model, params, batch: int, prompt: int,
            "prefill_ms": (t1 - t0) * 1e3,
            "ms_per_step": (t2 - t1) / steps * 1e3,
            "tokens_per_s": batch * steps / (t2 - t1),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches}
     state = [cache, toks[:, -1]]
 
@@ -1723,7 +1785,8 @@ def drive_model_serve(model, params, batch: int, prompt: int,
     log(f"  serve {cfg.name} B={batch} prompt {prompt} cache {max_len}: "
         f"prefill {out['prefill_ms']:.1f} ms, {out['tokens_per_s']:.1f} "
         f"tokens/s, {out['ms_per_step']:.2f} ms per step, device busy "
-        f"{busy} ms per step, top {out['top3_kernels_ms_per_step']}")
+        f"{busy} ms per step, peak {out['peak_gb']:.2f} GB, top "
+        f"{out['top3_kernels_ms_per_step']}")
     return out
 
 
@@ -2318,11 +2381,13 @@ def cross_check_train(task: str, n: int, atol: float | None,
         f"(max abs err {err})")
 
 
-def cross_check_model(arch: str, **overrides) -> None:
+def cross_check_model(arch: str, prompt_len: int = 100, **overrides
+                      ) -> None:
     """The f32 smoke config of ``arch``: ``Model.prefill`` with the
-    blocked branch (a 100-token prompt filling the cache) and 8 greedy
-    ``decode_step``s on ``cuda`` and on ``cpu``: identical tokens, logits
-    within 1e-4.  The decode steps write the cache's last slot, clamped as
+    blocked branch (a ``prompt_len``-token prompt filling the cache; a
+    hybrid's must be whole SSM chunks) and 8 greedy ``decode_step``s on
+    ``cuda`` and on ``cpu``: identical tokens, logits within 1e-4.  The
+    decode steps write the cache's last slot, clamped as
     ``dynamic_update_slice`` clamps, the same on both devices."""
     import torch
 
@@ -2335,14 +2400,15 @@ def cross_check_model(arch: str, **overrides) -> None:
         compute_dtype=torch.float32, attn_impl="blocked", **overrides)
     params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(SEED))
     prompt = np.random.default_rng(SEED + 4).integers(
-        0, cfg.vocab, (2, 100)).astype(np.int32)
+        0, cfg.vocab, (2, prompt_len)).astype(np.int32)
     runs = {}
     for dev in (DEV, "cpu"):
         model = build_model(cfg, dev)
         before, copies = flash_attention.launches, flash_attention.copies
         p = tree_map(lambda x: x.to(dev), params)
         logits, cache = model.prefill(
-            p, {"tokens": torch.from_numpy(prompt).to(dev)}, max_len=100)
+            p, {"tokens": torch.from_numpy(prompt).to(dev)},
+            max_len=prompt_len)
         toks, logs = [], [logits.cpu()]
         for _ in range(8):
             nxt = logits.argmax(-1).to(torch.int32)
@@ -2367,13 +2433,14 @@ def cross_check_model(arch: str, **overrides) -> None:
         f"steps: cuda == cpu tokens, logits within 1e-4 (max abs err {err})")
 
 
-def cross_check_lm_train(**overrides) -> None:
-    """Three ``make_train_step`` steps of the f32 smoke qwen3-0.6b with
-    the blocked branch (``overrides`` on top), on ``cuda`` and on ``cpu``
-    from the same weights and ``SyntheticSource`` batches (B=4, S=64):
-    losses within 1e-5, and on the card one flash_attention launch a
-    layer and step (the forward; the backward is the plain recompute)
-    and no copy."""
+def cross_check_lm_train(arch: str = "qwen3-0.6b", **overrides) -> None:
+    """Three ``make_train_step`` steps of the f32 smoke config of
+    ``arch`` with the blocked branch (``overrides`` on top), on ``cuda``
+    and on ``cpu`` from the same weights and ``SyntheticSource`` batches
+    (B=4, S=64): losses and ``aux`` (an MoE config's routers' loss)
+    within 1e-5, and on the card one flash_attention launch a layer and
+    step (the forward; the backward is the plain recompute) and no
+    copy."""
     import torch
 
     from repro_torch.configs import get_smoke_config
@@ -2384,7 +2451,7 @@ def cross_check_lm_train(**overrides) -> None:
     from repro_torch.optim import adamw, linear_warmup_cosine
     from repro_torch.utils.tree import tree_map
 
-    cfg = get_smoke_config("qwen3-0.6b").replace(
+    cfg = get_smoke_config(arch).replace(
         compute_dtype=torch.float32, attn_impl="blocked", **overrides)
     opt = adamw(weight_decay=0.01)
     start = init_train_state(build_model(cfg, "cpu"), opt,
@@ -2401,22 +2468,25 @@ def cross_check_lm_train(**overrides) -> None:
         for b in batches:
             state, m = step(state, {k: torch.from_numpy(v).to(dev)
                                     for k, v in b.items()})
-            losses[dev].append(float(m["loss"]))
+            losses[dev] += [float(m["loss"]), float(m["aux"])]
         if dev == DEV and (flash_attention.launches - before
                            != len(batches) * cfg.n_layers
                            or flash_attention.copies != copies):
             raise AssertionError(
-                f"LM train {overrides}: {flash_attention.launches - before} "
-                f"flash launches in {len(batches)} steps (want "
-                f"{len(batches) * cfg.n_layers}), "
-                f"{flash_attention.copies - copies} copies")
+                f"LM train {arch} {overrides}: "
+                f"{flash_attention.launches - before} flash launches in "
+                f"{len(batches)} steps (want {len(batches) * cfg.n_layers}),"
+                f" {flash_attention.copies - copies} copies")
+    if (cfg.moe is not None) != (losses["cpu"][1] > 0.0):
+        raise AssertionError(f"LM train {arch}: aux {losses['cpu'][1::2]}")
     err = max(abs(a - b) for a, b in zip(losses[DEV], losses["cpu"]))
     if err > 1e-5:
-        raise AssertionError(f"LM train {overrides}: losses differ by {err} "
-                             f"> 1e-5: {losses}")
-    log(f"  LM train step, f32 smoke qwen3-0.6b blocked {overrides or ''}: "
-        f"cuda == cpu, 3 steps, losses {losses[DEV]} within 1e-5 (max abs "
-        f"err {err}), {cfg.n_layers} flash launches a step")
+        raise AssertionError(f"LM train {arch} {overrides}: losses or aux "
+                             f"differ by {err} > 1e-5: {losses}")
+    log(f"  LM train step, f32 smoke {arch} blocked {overrides or ''}: "
+        f"cuda == cpu, 3 steps, losses {losses[DEV][::2]} and aux "
+        f"{losses[DEV][1::2]} within 1e-5 (max abs err {err}), "
+        f"{cfg.n_layers} flash launches a step")
 
 
 # ---------------------------------------------------------------------- #
@@ -3029,7 +3099,15 @@ def main() -> int:
     model_runs.append(drive_prefill(model, params, 1, 8192))
     del model, params
     torch.cuda.empty_cache()
-    log(json.dumps({"model_runs": model_runs}))
+    for arch, batch, seq in FAMILY_MODELS:
+        model, params = model_params(arch, attn_impl="blocked")
+        row = drive_prefill(model, params, batch, seq)
+        row.update(branch_ms(model, params, row))
+        model_runs += [row, drive_model_serve(model, params, 8, 1024, 1056,
+                                              32)]
+        del model, params, row
+        torch.cuda.empty_cache()
+    log(json.dumps({"model_runs": model_runs, "card": card}))
     for r in runs + train_runs + lm_runs + model_runs:
         for k, v in r["launches"].items():
             kernels[k]["launches"] += v
@@ -3050,6 +3128,10 @@ def main() -> int:
     cross_check_model("starcoder2-3b", attn_type="sliding")
     cross_check_lm_train()
     cross_check_lm_train(attn_type="sliding", window=32)
+    cross_check_model("granite-moe-3b-a800m")
+    cross_check_model("hymba-1.5b", prompt_len=96)
+    cross_check_lm_train("granite-moe-3b-a800m")
+    cross_check_lm_train("hymba-1.5b")
 
     log(f"phase 5: the host engines {at()}")
     host_runs = host_phase()

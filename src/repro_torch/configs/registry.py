@@ -1,13 +1,18 @@
-"""Architecture registry (``repro/configs/registry.py``), the dense
-entries only: ``get_config(arch)`` and the reduced same-family
+"""Architecture registry (``repro/configs/registry.py``), the dense, MoE
+and hybrid entries: ``get_config(arch)`` and the reduced same-family
 ``get_smoke_config(arch)`` for CPU tests."""
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import qwen3_0_6b
-from repro_torch.models.common import ModelConfig
+from repro_torch.configs import (
+    dbrx_132b,
+    granite_moe_3b,
+    hymba_1_5b,
+    qwen3_0_6b,
+)
+from repro_torch.models.common import ModelConfig, MoEConfig, SSMConfig
 
 
 def _qwen3_14b() -> ModelConfig:
@@ -43,6 +48,9 @@ ARCHS = {
     "llama3.2-3b": _llama3_2_3b,
     "starcoder2-3b": _starcoder2_3b,
     "qwen3-0.6b": qwen3_0_6b.get_config,
+    "hymba-1.5b": hymba_1_5b.get_config,
+    "dbrx-132b": dbrx_132b.get_config,
+    "granite-moe-3b-a800m": granite_moe_3b.get_config,
 }
 
 
@@ -61,13 +69,18 @@ def get_config(arch: str, **overrides) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     """Reduced same-family config for CPU tests: 2 layers, d_model 64,
-    4 query and 2 kv heads of width 16, vocab 512, window 32 (as
-    ``repro``'s)."""
+    4 query and 2 kv heads of width 16, vocab 512, window 32, 4 experts
+    top-2, an SSM of state 4 in chunks of 8 (as ``repro``'s)."""
     cfg = get_config(arch)
-    return dataclasses.replace(
-        cfg, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+    kw: dict = dict(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
         vocab=512, head_dim=16, window=32,
         global_attn_layers=(0,) if cfg.global_attn_layers else ())
+    if cfg.moe is not None:
+        kw["moe"] = MoEConfig(num_experts=4, top_k=2)
+    if cfg.ssm is not None:
+        kw["ssm"] = SSMConfig(state_dim=4, conv_width=4, expand=1, chunk=8)
+    return dataclasses.replace(cfg, **kw)
 
 
 __all__ = ["ARCHS", "get_config", "get_smoke_config", "list_archs"]

@@ -47,7 +47,10 @@ def loss_and_grads(model: Model, params: Any, batch: dict[str, Any],
     batch is cut into that many contiguous slices of its leading dim,
     each slice's gradients are summed in f32 and the sums divided by the
     count, and the loss averaged alike (``metrics``: ``xent`` the mean
-    loss, ``aux`` zero, as ``repro`` reports them)."""
+    loss, ``aux`` included, and ``aux`` reported as zero, as ``repro``
+    reports them; the MoE loss stays in the loss and its gradients).
+    With one microbatch ``metrics`` are the model's ``xent`` and
+    ``aux``."""
     def one(mb_batch):
         with torch.enable_grad():
             leaves = tree_leaves(params)

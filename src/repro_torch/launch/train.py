@@ -1,5 +1,6 @@
-"""The LM trainer (``repro/launch/train.py``): any dense ``--arch`` on
-one device, with checkpoints and restart.
+"""The LM trainer (``repro/launch/train.py``): any ``--arch`` of the
+families the port runs (dense, MoE, hybrid) on one device, with
+checkpoints and restart.
 
 Checkpoints are atomic and written on a thread (``CheckpointStore``);
 SIGTERM flushes one at the next step boundary and exits 0; a run
@@ -18,6 +19,7 @@ It runs on the card unless ``--device`` names another device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -73,6 +75,9 @@ def main(argv: list[str] | None = None) -> None:
         overrides["n_layers"] = args.layers
     if overrides:
         cfg = cfg.replace(**overrides)
+    if cfg.ssm is not None and args.seq % cfg.ssm.chunk:
+        cfg = cfg.replace(ssm=dataclasses.replace(
+            cfg.ssm, chunk=min(cfg.ssm.chunk, args.seq)))
 
     model = build_model(cfg, device)
     opt = adamw(weight_decay=0.01)

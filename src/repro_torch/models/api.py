@@ -1,4 +1,5 @@
-"""The model facade (``repro/models/api.py``) for the dense family.
+"""The model facade (``repro/models/api.py``) for the dense, MoE and
+hybrid decoder families.
 
 ``build_model(cfg)`` returns a ``Model`` with ``init``, ``train_loss``,
 ``init_cache``, ``prefill`` and ``decode_step``, so the train and
@@ -16,8 +17,8 @@ full-sequence head and XLA drops the rest (eager PyTorch would compute
 all of it: 10 GB and 10 TFLOP at qwen3-0.6b, B=4, S=8192);
 ``softmax_xent`` forms the f32 copy of the logits again in the backward
 (``torch.utils.checkpoint``), where XLA decides itself what to keep.
-Only the dense family is ported: ``Model`` refuses the others, naming
-the ROADMAP item that brings them.
+The ``ssm``, ``encdec`` and ``vlm`` families are not ported: ``Model``
+refuses them, naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -51,8 +52,9 @@ SHAPES: dict[str, ShapeSpec] = {
 
 def cell_supported(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
     """Is (arch x shape) runnable?  ``long_500k`` needs sub-quadratic
-    attention state, which no ported family (dense) has."""
-    if shape.name == "long_500k":
+    attention state (``ModelConfig.sub_quadratic``: a hybrid with sliding
+    attention among the ported families)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
         return False, ("long_500k needs sub-quadratic attention state; "
                        f"{cfg.name} is full-attention")
     return True, ""
@@ -83,12 +85,12 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
 
 
 class Model:
-    """The dense decoder behind one interface, on ``device`` (default
-    ``cuda``, which must be present)."""
+    """A dense, MoE or hybrid decoder behind one interface, on
+    ``device`` (default ``cuda``, which must be present)."""
 
     def __init__(self, cfg: ModelConfig,
                  device: torch.device | str | None = None):
-        transformer.check_dense(cfg)
+        transformer.check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -102,7 +104,8 @@ class Model:
         """``(loss, {"xent", "aux"})`` of next-token prediction over
         ``batch["tokens"]`` (B, S) against ``batch["labels"]`` (B, S),
         masked by ``batch["loss_mask"]`` if given; ``loss = xent + aux``
-        (``aux``, the MoE loss, is a zero f32 for the dense family)."""
+        (``aux``, the MoE routers' loss summed over layers, is a zero f32
+        without experts)."""
         logits, _, aux = transformer.lm_apply(params, batch["tokens"],
                                               self.cfg)
         xent = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
@@ -134,8 +137,8 @@ class Model:
         flash-attention kernel."""
         tokens = batch["tokens"]
         cache = self.init_cache(tokens.shape[0], max_len)
-        x, cache = transformer.lm_hidden(params, tokens, self.cfg,
-                                         cache=cache)
+        x, cache, _ = transformer.lm_hidden(params, tokens, self.cfg,
+                                            cache=cache)
         return transformer.lm_head(params, x[:, -1], self.cfg), cache
 
     def decode_step(self, params: dict[str, Any], tokens: torch.Tensor,

@@ -1,5 +1,6 @@
 """Model configuration and parameter initialisers
-(``repro/models/common.py``), for the dense decoder family only.
+(``repro/models/common.py``), for the decoder families the port runs:
+dense, MoE (``moe``) and hybrid attention + SSM (``hybrid``).
 
 ``repro``'s execution fields ``scan_layers``, ``remat`` and
 ``use_pallas`` are left out: they steer XLA tracing (one layer traced
@@ -25,14 +26,32 @@ from repro_torch.utils.tree import tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-style selective SSM branch (hymba's parallel heads)."""
+
+    state_dim: int = 16
+    conv_width: int = 4
+    expand: int = 1          # d_inner = expand * d_model
+    chunk: int = 256         # chunked scan for memory
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The fields of ``repro``'s ``ModelConfig`` that a dense decoder
-    reads, sliding-window and serving fields included.  The MoE, SSM,
-    xLSTM, encoder-decoder and RoPE-variant fields are not ported
-    (ROADMAP A)."""
+    """The fields of ``repro``'s ``ModelConfig`` that the dense, MoE and
+    hybrid decoders read, sliding-window and serving fields included.
+    The xLSTM, encoder-decoder and RoPE-variant fields are not ported
+    (ROADMAP A13)."""
 
     name: str
-    family: str              # dense only
+    family: str              # dense | moe | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -47,6 +66,8 @@ class ModelConfig:
     attn_type: str = "full"          # full | sliding
     window: int = 1024
     global_attn_layers: tuple[int, ...] = ()   # these layers use full attn
+    moe: MoEConfig | None = None
+    ssm: SSMConfig | None = None
     tie_embeddings: bool = False
     # numerics
     param_dtype: torch.dtype = torch.float32
@@ -67,6 +88,14 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.hd
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch decode against a 500k context?  An SSM, or a
+        hybrid whose attention is a sliding window."""
+        if self.family == "ssm":
+            return True
+        return self.family == "hybrid" and self.attn_type == "sliding"
 
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -95,15 +124,22 @@ def count_params(params: Any) -> int:
 
 
 def model_flops_per_token(cfg: ModelConfig) -> float:
-    """Model FLOPs a trained token, ``repro``'s 6 N convention for the
-    dense family: 2 for the forward and 4 for the backward of each
-    multiply-accumulate with a weight (the q, k, v, o projections, the
-    MLP, the LM head); attention's own products are left out."""
+    """Model FLOPs a trained token, ``repro``'s 6 N convention: 2 for the
+    forward and 4 for the backward of each multiply-accumulate with a
+    weight (the q, k, v, o projections, the MLP or the ``top_k`` experts
+    a token runs and the router, the SSM branch's projections, the LM
+    head); attention's own products are left out."""
     d, ff = cfg.d_model, cfg.d_ff
     attn = d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
     mlp = (3 if cfg.mlp_type == "swiglu" else 2) * d * ff
-    return 6.0 * (cfg.n_layers * (attn + mlp) + d * cfg.vocab)
+    if cfg.moe is not None:
+        mlp = mlp * cfg.moe.top_k + d * cfg.moe.num_experts  # router
+    per_layer = attn + mlp
+    if cfg.ssm is not None:  # parallel SSM branch
+        di = cfg.ssm.expand * d
+        per_layer += 2 * d * di + di * d + di * cfg.ssm.state_dim * 3
+    return 6.0 * (cfg.n_layers * per_layer + d * cfg.vocab)
 
 
-__all__ = ["ModelConfig", "count_params", "dense_init", "embed_init",
-           "model_flops_per_token"]
+__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "count_params",
+           "dense_init", "embed_init", "model_flops_per_token"]

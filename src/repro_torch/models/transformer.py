@@ -1,16 +1,21 @@
-"""Dense decoder-only LM (``repro/models/transformer.py``): stacked-layer
-parameters, the forward with and without a KV cache, and the cache.
+"""Decoder-only LM of the dense, MoE and hybrid families
+(``repro/models/transformer.py``): stacked-layer parameters, the forward
+with and without a cache, and the cache.
 
-``lm_apply`` is the JAX package's forward for the dense family: embed,
-``n_layers`` of pre-norm attention + MLP over the stacked layer weights,
-final norm, logits.  It returns ``(logits, new_cache, aux)`` as
-``repro``'s does (``aux`` is the MoE loss, a zero f32 here).  Layers run
-one after another in Python, each with its static window
+``lm_apply`` is the JAX package's forward: embed, ``n_layers`` of
+pre-norm attention + FFN over the stacked layer weights, final norm,
+logits.  The FFN is the MLP, or the routed experts of ``models/moe.py``
+for ``cfg.moe``; a hybrid (``cfg.ssm``) runs attention and the SSM of
+``models/ssm.py`` side by side on the same normed input.  It returns
+``(logits, new_cache, aux)`` as ``repro``'s does, ``aux`` the MoE
+routers' loss summed over layers (a zero f32 without experts).  Layers
+run one after another in Python, each with its static window
 (``static_layer_windows``), as ``repro`` runs them with
 ``scan_layers=False``.  The cache is ``repro``'s: ``k``/``v`` (layers,
 B, L, Hkv, hd), ``len`` a 0-d int32 (plus ``k_scale``/``v_scale`` for
-the int8 cache), written in place (``models/layers.py::attention``).
-The LM policy's own cached decode lives in ``rl/policy_lm.py``.
+the int8 cache, ``ssm_h``/``ssm_tail`` for a hybrid), written in place
+(``models/layers.py::attention``, ``decoder_layer``).  The LM policy's
+own cached decode lives in ``rl/policy_lm.py``.
 """
 
 from __future__ import annotations
@@ -30,38 +35,51 @@ from repro_torch.models.layers import (
     norm_init,
     rope_tables,
 )
+from repro_torch.models.moe import apply_moe, moe_init
+from repro_torch.models.ssm import apply_ssm, init_ssm_state, ssm_init
 
 
 # families not ported yet -> the ROADMAP item that brings them
-NOT_PORTED = {"moe": "A16", "hybrid": "A16", "ssm": "A13", "encdec": "A13",
-              "vlm": "A13"}
+NOT_PORTED = {"ssm": "A13", "encdec": "A13", "vlm": "A13"}
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def check_ported(cfg: ModelConfig) -> None:
+    """Refuse a family the port has no forward for, naming the ROADMAP
+    item that brings it."""
+    if cfg.family in NOT_PORTED:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported; only dense "
-            f"decoders are (ROADMAP {NOT_PORTED.get(cfg.family, 'A')})")
+            f"{cfg.name}: family {cfg.family!r} is not ported; the dense, "
+            f"moe and hybrid decoders are (ROADMAP {NOT_PORTED[cfg.family]})")
 
 
 def lm_init(gen: torch.Generator, cfg: ModelConfig,
             device: torch.device | str) -> dict[str, Any]:
     """Parameters drawn from ``gen`` on ``device``: ``embed`` (V, d),
-    ``layers`` with every leaf stacked on a leading ``n_layers`` dim,
+    ``layers`` with every leaf stacked on a leading ``n_layers`` dim
+    (``moe`` in place of ``mlp`` for an MoE config; ``ssm``,
+    ``attn_out_norm`` and ``ssm_out_norm`` for a hybrid),
     ``final_norm``, and ``lm_head`` unless embeddings are tied.  The
     draws are torch's, not ``jax.random``'s; to run the JAX package's
     weights, load them with ``rl/policy_lm.py::params_from_jax``."""
-    check_dense(cfg)
+    check_ported(cfg)
     lead = (cfg.n_layers,)
+    layers = {
+        "attn_norm": norm_init(cfg, device, lead),
+        "attn": attn_init(gen, cfg, device, lead),
+        "mlp_norm": norm_init(cfg, device, lead),
+    }
+    if cfg.moe is not None:
+        layers["moe"] = moe_init(gen, cfg, device, lead)
+    else:
+        layers["mlp"] = mlp_init(gen, cfg, device, lead)
+    if cfg.ssm is not None:
+        layers["ssm"] = ssm_init(gen, cfg, device, lead)
+        layers["attn_out_norm"] = norm_init(cfg, device, lead)
+        layers["ssm_out_norm"] = norm_init(cfg, device, lead)
     p = {
         "embed": embed_init(gen, cfg.vocab, cfg.d_model, cfg.param_dtype,
                             device),
-        "layers": {
-            "attn_norm": norm_init(cfg, device, lead),
-            "attn": attn_init(gen, cfg, device, lead),
-            "mlp_norm": norm_init(cfg, device, lead),
-            "mlp": mlp_init(gen, cfg, device, lead),
-        },
+        "layers": layers,
         "final_norm": norm_init(cfg, device),
     }
     if not cfg.tie_embeddings:
@@ -106,28 +124,49 @@ def static_layer_windows(cfg: ModelConfig) -> list[int]:
 def decoder_layer(p: dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
                   rope: tuple[torch.Tensor, torch.Tensor], layer_window: int,
                   cache: dict[str, torch.Tensor] | None,
-                  cache_len: torch.Tensor | None) -> torch.Tensor:
-    """One pre-norm layer; ``cache`` is this layer's slice of the cache
-    (without ``len``), written in place."""
+                  cache_len: torch.Tensor | None
+                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One pre-norm layer -> (x, the MoE aux loss or None without
+    experts); ``cache`` is this layer's slice of the cache (without
+    ``len``), written in place."""
     cache_kv = cache_scales = None
     if cache is not None:
         cache_kv = (cache["k"], cache["v"])
         if "k_scale" in cache:
             cache_scales = (cache["k_scale"], cache["v_scale"])
-    x = x + attention(p["attn"], apply_norm(p["attn_norm"], x, cfg), cfg,
-                      rope, layer_window=layer_window, cache_kv=cache_kv,
-                      cache_scales=cache_scales, cache_len=cache_len)
-    return x + apply_mlp(p["mlp"], apply_norm(p["mlp_norm"], x, cfg), cfg)
+    normed = apply_norm(p["attn_norm"], x, cfg)
+    attn_out = attention(p["attn"], normed, cfg, rope,
+                         layer_window=layer_window, cache_kv=cache_kv,
+                         cache_scales=cache_scales, cache_len=cache_len)
+    if cfg.ssm is not None:
+        # hymba: parallel attention + SSM heads, normed-mean fusion
+        state = None if cache is None else (cache["ssm_h"],
+                                            cache["ssm_tail"])
+        ssm_out, (h, tail) = apply_ssm(p["ssm"], normed, cfg, state)
+        if cache is not None:
+            cache["ssm_h"].copy_(h)
+            cache["ssm_tail"].copy_(tail)
+        x = x + 0.5 * (apply_norm(p["attn_out_norm"], attn_out, cfg)
+                       + apply_norm(p["ssm_out_norm"], ssm_out, cfg))
+    else:
+        x = x + attn_out
+    normed = apply_norm(p["mlp_norm"], x, cfg)
+    if cfg.moe is not None:
+        out, aux = apply_moe(p["moe"], normed, cfg)
+        return x + out, aux
+    return x + apply_mlp(p["mlp"], normed, cfg), None
 
 
 def lm_hidden(params: dict[str, Any], tokens: torch.Tensor,
               cfg: ModelConfig, *, positions: torch.Tensor | None = None,
               cache: dict[str, torch.Tensor] | None = None
-              ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None]:
-    """The final-normed hidden state (B, S, d) and the new cache: every
-    step of ``lm_apply`` but the LM head, which ``Model.prefill`` applies
-    to the last position only."""
-    check_dense(cfg)
+              ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None,
+                         torch.Tensor]:
+    """The final-normed hidden state (B, S, d), the new cache and the
+    aux loss summed over layers (a 0-dim f32): every step of
+    ``lm_apply`` but the LM head, which ``Model.prefill`` applies to the
+    last position only."""
+    check_ported(cfg)
     cd = cfg.compute_dtype
     x = params["embed"][tokens.long()].to(cd)
     B, S, _ = x.shape
@@ -138,18 +177,22 @@ def lm_hidden(params: dict[str, Any], tokens: torch.Tensor,
             positions = positions + cache_len
     rope = rope_tables(positions, cfg)
     layers = unstack_layers(params["layers"], cfg.n_layers)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, w in enumerate(static_layer_windows(cfg)):
         layer_cache = None
         if cache is not None:
             layer_cache = {k: v[i] for k, v in cache.items() if k != "len"}
-        x = decoder_layer(layers[i], x, cfg, rope, w, layer_cache, cache_len)
+        x, layer_aux = decoder_layer(layers[i], x, cfg, rope, w, layer_cache,
+                                     cache_len)
+        if layer_aux is not None:
+            aux = aux + layer_aux
     new_cache = None
     if cache is not None:
         # the layer caches are views of the stacked tensors, written in
         # place: the stacked tensors are the new cache
         new_cache = {k: v for k, v in cache.items() if k != "len"}
         new_cache["len"] = cache_len + S
-    return apply_norm(params["final_norm"], x, cfg), new_cache
+    return apply_norm(params["final_norm"], x, cfg), new_cache, aux
 
 
 def lm_apply(params: dict[str, Any], tokens: torch.Tensor,
@@ -160,26 +203,31 @@ def lm_apply(params: dict[str, Any], tokens: torch.Tensor,
     """(B, S) int tokens -> ``(logits (B, S, V) in the compute dtype,
     new_cache, aux)``.  Positions default to ``cache["len"] + 0..S-1``
     (``0..S-1`` without a cache); ``new_cache`` is None without a
-    cache."""
-    x, new_cache = lm_hidden(params, tokens, cfg, positions=positions,
-                             cache=cache)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    cache; ``aux`` is the MoE loss summed over layers, a 0-dim f32."""
+    x, new_cache, aux = lm_hidden(params, tokens, cfg, positions=positions,
+                                  cache=cache)
     return lm_head(params, x, cfg), new_cache, aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device | str) -> dict[str, torch.Tensor]:
-    """``init_kv_cache`` over every layer; the ring cache is sized to the
-    window only when every layer is a sliding one."""
-    check_dense(cfg)
+    """``init_kv_cache`` over every layer, plus a hybrid's zero SSM state
+    ``ssm_h`` (layers, B, di, n) and ``ssm_tail`` (layers, B, W-1, di)
+    in the compute dtype; the ring cache is sized to the window only
+    when every layer is a sliding one."""
+    check_ported(cfg)
     window = None
     if (cfg.windowed_cache and cfg.attn_type == "sliding"
             and not cfg.global_attn_layers):
         window = cfg.window
-    return init_kv_cache(cfg, batch, max_len, cfg.n_layers, device,
-                         window=window)
+    cache = init_kv_cache(cfg, batch, max_len, cfg.n_layers, device,
+                          window=window)
+    if cfg.ssm is not None:
+        cache["ssm_h"], cache["ssm_tail"] = init_ssm_state(
+            cfg, batch, cfg.n_layers, device)
+    return cache
 
 
-__all__ = ["NOT_PORTED", "check_dense", "decoder_layer", "init_cache",
+__all__ = ["NOT_PORTED", "check_ported", "decoder_layer", "init_cache",
            "lm_apply", "lm_head", "lm_hidden", "lm_init",
            "static_layer_windows", "unstack_layers"]

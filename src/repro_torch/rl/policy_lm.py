@@ -51,7 +51,7 @@ from repro_torch.models.layers import (
     rope_tables,
 )
 from repro_torch.models.transformer import (
-    check_dense,
+    check_ported,
     lm_apply,
     lm_head,
     lm_init,
@@ -97,10 +97,12 @@ def params_from_jax(params_np: dict[str, Any], cfg: ModelConfig,
                     device: torch.device | str | None = None
                     ) -> dict[str, Any]:
     """The port's parameters from the numpy leaves of a ``repro``
-    ``LMPolicy.init`` pytree (``jax.tree.map(np.asarray, params)``): the
-    same nested dict, layer leaves stacked on their leading ``n_layers``
-    dim, ``value_head`` included, so both packages compute with the same
-    weights."""
+    ``LMPolicy.init`` or stacked ``lm_init`` pytree
+    (``jax.tree.map(np.asarray, params)``): the same nested dict, layer
+    leaves stacked on their leading ``n_layers`` dim (the experts'
+    ``moe.wi`` (L, E, d, ff) and a hybrid's ``ssm.A_log``, ``ssm.conv``
+    and the rest alike), ``value_head`` included, so both packages
+    compute with the same weights."""
     device = resolve_device(device)
 
     def load(x: Any) -> Any:
@@ -132,7 +134,10 @@ class LMPolicy:
                  device: torch.device | str | None = None):
         vocab = int(spec.act_spec.maximum) + 1
         self.cfg = cfg or default_policy_config(vocab, max_len)
-        check_dense(self.cfg)
+        if self.cfg.moe is not None or self.cfg.ssm is not None:
+            raise ValueError("LMPolicy supports dense transformer "
+                             "backbones only")
+        check_ported(self.cfg)
         self.spec = spec
         self.max_len = int(max_len)
         if obs_slot is None:

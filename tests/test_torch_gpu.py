@@ -576,6 +576,9 @@ def test_resize_kernel_unaligned_image(cuda):
     (1, 8, 2, 1000, 1000, 128, True, 300, torch.bfloat16),
     (2, 4, 1, 384, 640, 64, True, 0, torch.bfloat16),
     (1, 2, 2, 129, 129, 32, False, 0, torch.bfloat16),
+    # hymba-1.5b's layout: 25 query heads over 5 kv heads (a GQA group
+    # of 5), D = 64, its 1024-token window, bf16
+    (2, 25, 5, 1300, 1300, 64, True, 1024, torch.bfloat16),
 ])
 def test_flash_attention_kernel(cuda, B, H, Hkv, Sq, Skv, D, causal, window,
                                 dtype):

@@ -33,6 +33,7 @@ from repro.serving import DecodePool as JDecodePool  # noqa: E402
 import repro_torch  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.specs import ArraySpec, EnvSpec  # noqa: E402
+from repro_torch.models.common import MoEConfig, SSMConfig  # noqa: E402
 from repro_torch.obs.metrics import MetricsRegistry  # noqa: E402
 from repro_torch.rl import policy_lm as tlm  # noqa: E402
 from repro_torch.serving import DecodePool  # noqa: E402
@@ -237,5 +238,18 @@ def test_lm_init_shapes_and_refusals():
     cast = pol.cast_params(params)
     assert cast["embed"].dtype == torch.bfloat16
     assert cast["layers"]["attn_norm"]["scale"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="dense"):
-        tlm.LMPolicy(tspec, cfg.replace(family="moe"), device="cpu")
+    # repro's refusal of the MoE and SSM backbones, message and all
+    jspec, _ = specs(cfg.vocab)
+    for arch in ("granite-moe-3b-a800m", "hymba-1.5b", "dbrx-132b"):
+        with pytest.raises(ValueError, match="dense transformer") as want:
+            jlm.LMPolicy(jspec, j_smoke(arch))
+        with pytest.raises(ValueError, match="dense transformer") as got:
+            tlm.LMPolicy(tspec, get_smoke_config(arch), device="cpu")
+        assert str(got.value) == str(want.value)
+    for bad in (cfg.replace(moe=MoEConfig(4, 2)),
+                cfg.replace(ssm=SSMConfig())):
+        with pytest.raises(ValueError, match="dense transformer"):
+            tlm.LMPolicy(tspec, bad, device="cpu")
+    # a family the port has no forward for
+    with pytest.raises(NotImplementedError, match="A13"):
+        tlm.LMPolicy(tspec, cfg.replace(family="ssm"), device="cpu")

@@ -2,15 +2,21 @@
 one process with the same weights (``params_from_jax`` loads the numpy
 leaves of ``repro``'s ``lm_init``):
 
-* ``lm_apply``, dense and blocked, on smoke qwen3-0.6b and on smoke
-  starcoder2-3b with ``attn_type="sliding", window=8``;
+* ``lm_apply``, dense and blocked, on smoke qwen3-0.6b, on smoke
+  starcoder2-3b with ``attn_type="sliding", window=8``, and on the MoE
+  and hybrid smoke configs (granite-moe-3b-a800m, dbrx-132b: 4 experts
+  top-2; hymba-1.5b: window 32 with layer 0 global, SSM chunk 8), the
+  MoE aux loss included;
 * ``Model.prefill`` + 4 ``decode_step``s: logits and the cache leaves,
   for the exact, int8 and ring (``windowed_cache``) caches and for a
-  blocked prefill that fills the whole cache; a second prompt chunk
-  against a cache that holds history;
+  blocked prefill that fills the whole cache (hymba's past its window:
+  the banded branch); a second prompt chunk against a cache that holds
+  history, the hybrid's SSM state included;
 * ``make_prefill_step`` / ``make_serve_step`` tokens;
 * the conformance pin: ``LMPolicy``'s greedy collect picks the tokens
-  ``Model.decode_step`` picks replaying each lane alone.
+  ``Model.decode_step`` picks replaying each lane alone;
+* the cache layout, smoke configs, ``cell_supported`` and
+  ``model_flops_per_token`` of every ported arch against ``repro``'s.
 
 Everything runs in f32.  ``repro`` runs with ``scan_layers=False``, its
 static per-layer windows, as the port does (under ``lax.scan`` its int8
@@ -18,6 +24,8 @@ cache ignores the sliding window).  Tolerance 2e-4 on logits and
 caches (the products and sums run in another order); int8 cache values
 within one quantum, ``len`` exact, tokens identical.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -27,25 +35,34 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+import repro.configs as jconfigs  # noqa: E402
 from repro.configs.registry import get_smoke_config as j_smoke  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import build_model as j_build  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.models.api import SHAPES as J_SHAPES  # noqa: E402
+from repro.models.api import cell_supported as j_cell_supported  # noqa: E402
+from repro.models.common import (  # noqa: E402
+    model_flops_per_token as j_flops,
+)
 
 import repro_torch  # noqa: E402
+import repro_torch.configs as tconfigs  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.models import SHAPES, build_model  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.api import cell_supported  # noqa: E402
+from repro_torch.models.common import model_flops_per_token  # noqa: E402
 from repro_torch.models.transformer import NOT_PORTED  # noqa: E402
 from repro_torch.rl import policy_lm as tlm  # noqa: E402
 
 TOL = 2e-4
 SLIDING = dict(attn_type="sliding", window=8)
 ARCHS = {"qwen3": ("qwen3-0.6b", {}), "starcoder2-sliding":
-         ("starcoder2-3b", SLIDING)}
+         ("starcoder2-3b", SLIDING),
+         "granite-moe": ("granite-moe-3b-a800m", {}),
+         "hymba": ("hymba-1.5b", {}), "dbrx": ("dbrx-132b", {})}
 
 
 def configs(arch: str, **variant):
@@ -100,10 +117,16 @@ def test_lm_apply_matches_repro(arch, impl):
     jcfg, tcfg = configs(arch, attn_impl=impl)
     jparams, tparams = weights(jcfg, tcfg)
     tok = tokens(tcfg.vocab, (2, 40))
-    want, jcache, _ = JT.lm_apply(jparams, jnp.asarray(tok), jcfg)
+    want, jcache, jaux = JT.lm_apply(jparams, jnp.asarray(tok), jcfg)
     got, tcache, aux = TT.lm_apply(tparams, torch.from_numpy(tok), tcfg)
     assert tcache is None and jcache is None
-    assert aux.dtype == torch.float32 and float(aux) == 0.0
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    if tcfg.moe is None:
+        assert float(aux) == 0.0
+    else:
+        assert float(aux) > 0.0
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=TOL,
+                                   atol=TOL)
     assert got.shape == (2, 40, tcfg.vocab)
     np.testing.assert_allclose(f32(got), f32(want), rtol=TOL, atol=TOL)
 
@@ -118,6 +141,14 @@ SERVE_CASES = [
     ("starcoder2-sliding", dict(kv_cache_dtype="int8"), 12, 16),
     ("starcoder2-sliding", dict(windowed_cache=True), 6, 16),  # L = 8
     ("starcoder2-sliding", dict(attn_impl="blocked"), 12, 12),  # banded
+    ("granite-moe", {}, 12, 16),
+    ("granite-moe", dict(kv_cache_dtype="int8"), 12, 16),
+    ("granite-moe", dict(attn_impl="blocked"), 12, 12),
+    ("dbrx", {}, 12, 16),
+    # hymba's prompts are whole SSM chunks of 8
+    ("hymba", {}, 16, 20),
+    ("hymba", dict(kv_cache_dtype="int8"), 16, 20),
+    ("hymba", dict(attn_impl="blocked"), 40, 40),   # banded past window 32
 ]
 
 
@@ -142,24 +173,27 @@ def test_prefill_and_decode_match_repro(arch, variant, S, max_len):
                                   tc)
 
 
-@pytest.mark.parametrize("arch,variant", [
-    ("qwen3", {}), ("starcoder2-sliding", {}),
-    ("starcoder2-sliding", dict(kv_cache_dtype="int8"))])
-def test_chunked_prefill_matches_repro(arch, variant):
+@pytest.mark.parametrize("arch,variant,first,second", [
+    ("qwen3", {}, 6, 11), ("starcoder2-sliding", {}, 6, 11),
+    ("starcoder2-sliding", dict(kv_cache_dtype="int8"), 6, 11),
+    ("granite-moe", {}, 6, 11), ("hymba", {}, 8, 16)])
+def test_chunked_prefill_matches_repro(arch, variant, first, second):
     """A second prompt chunk against a cache that holds history: S > 1
-    tokens written at ``len``, causal over the history."""
+    tokens written at ``len``, causal over the history (hymba's SSM
+    scan starting from the state the first chunk left)."""
     jcfg, tcfg = configs(arch, **variant)
     jparams, tparams = weights(jcfg, tcfg, seed=3)
     jm, tm = j_build(jcfg), build_model(tcfg, "cpu")
-    tok = tokens(tcfg.vocab, (2, 17), seed=6)
-    _, jc = jm.prefill(jparams, {"tokens": jnp.asarray(tok[:, :6])},
-                       max_len=20)
-    _, tc = tm.prefill(tparams, {"tokens": torch.from_numpy(tok[:, :6])},
-                       max_len=20)
-    jlog, jc, _ = JT.lm_apply(jparams, jnp.asarray(tok[:, 6:17]), jcfg,
+    end = first + second
+    tok = tokens(tcfg.vocab, (2, end), seed=6)
+    _, jc = jm.prefill(jparams, {"tokens": jnp.asarray(tok[:, :first])},
+                       max_len=end + 3)
+    _, tc = tm.prefill(tparams, {"tokens": torch.from_numpy(tok[:, :first])},
+                       max_len=end + 3)
+    jlog, jc, _ = JT.lm_apply(jparams, jnp.asarray(tok[:, first:end]), jcfg,
                               cache=jc)
-    tlog, tc, _ = TT.lm_apply(tparams, torch.from_numpy(tok[:, 6:17]), tcfg,
-                              cache=tc)
+    tlog, tc, _ = TT.lm_apply(tparams, torch.from_numpy(tok[:, first:end]),
+                              tcfg, cache=tc)
     np.testing.assert_allclose(f32(tlog), f32(jlog), rtol=TOL, atol=TOL)
     assert_caches_match(tc, jc)
 
@@ -252,7 +286,10 @@ def test_policy_decode_matches_model_decode():
 def test_init_cache_matches_repro_layout():
     for arch, variant in (("qwen3", {}), ("qwen3", dict(kv_cache_dtype=
                                                        "int8")),
-                          ("starcoder2-sliding", dict(windowed_cache=True))):
+                          ("starcoder2-sliding", dict(windowed_cache=True)),
+                          ("granite-moe", {}), ("hymba", {}),
+                          ("hymba", dict(kv_cache_dtype="int8",
+                                         windowed_cache=True))):
         jcfg, tcfg = configs(arch, **variant)
         jc = j_build(jcfg).init_cache(3, 20)
         tc = build_model(tcfg, "cpu").init_cache(3, 20)
@@ -262,15 +299,46 @@ def test_init_cache_matches_repro_layout():
         assert all(not bool(v.any()) for v in tc.values())
 
 
+CONFIG_FIELDS = ("family", "n_layers", "d_model", "n_heads", "n_kv_heads",
+                 "d_ff", "vocab", "hd", "qk_norm", "mlp_type", "norm_type",
+                 "rope_theta", "attn_type", "window", "global_attn_layers",
+                 "tie_embeddings", "windowed_cache", "attn_impl",
+                 "kv_cache_dtype", "sub_quadratic")
+
+
+def assert_configs_equal(tcfg, jcfg, name: str) -> None:
+    for field in CONFIG_FIELDS:
+        assert getattr(tcfg, field) == getattr(jcfg, field), (name, field)
+    for part in ("moe", "ssm"):
+        t, j = getattr(tcfg, part), getattr(jcfg, part)
+        assert (t is None) == (j is None), (name, part)
+        if t is not None:
+            assert dataclasses.asdict(t) == dataclasses.asdict(j), (name,
+                                                                   part)
+
+
 def test_smoke_configs_match_repro():
-    for name in ("qwen3-0.6b", "starcoder2-3b", "llama3.2-3b", "qwen3-14b"):
-        jcfg, tcfg = j_smoke(name), get_smoke_config(name)
-        for field in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
-                      "vocab", "hd", "qk_norm", "mlp_type", "norm_type",
-                      "rope_theta", "attn_type", "window",
-                      "global_attn_layers", "tie_embeddings",
-                      "windowed_cache", "attn_impl", "kv_cache_dtype"):
-            assert getattr(tcfg, field) == getattr(jcfg, field), (name, field)
+    assert set(tconfigs.list_archs()) == set(jconfigs.list_archs()) - {
+        "whisper-large-v3", "qwen2-vl-72b", "xlstm-125m"}
+    for name in tconfigs.list_archs():
+        assert_configs_equal(get_smoke_config(name), j_smoke(name), name)
+        assert_configs_equal(tconfigs.get_config(name),
+                             jconfigs.get_config(name), name)
+
+
+def test_cell_supported_and_flops_match_repro():
+    """Every ported arch x every shape cell, at full width and smoke
+    size: ``long_500k`` only for hymba (sliding attention + SSM)."""
+    for name in tconfigs.list_archs():
+        for tcfg, jcfg in ((tconfigs.get_config(name),
+                            jconfigs.get_config(name)),
+                           (get_smoke_config(name), j_smoke(name))):
+            for cell in SHAPES:
+                assert cell_supported(tcfg, SHAPES[cell]) == \
+                    j_cell_supported(jcfg, J_SHAPES[cell]), (name, cell)
+            assert model_flops_per_token(tcfg) == j_flops(jcfg), name
+    assert cell_supported(tconfigs.get_config("hymba-1.5b"),
+                          SHAPES["long_500k"]) == (True, "")
 
 
 def test_shapes_and_synth_batch():
@@ -300,9 +368,13 @@ def test_shapes_and_synth_batch():
 
 def test_what_is_not_ported_raises(monkeypatch):
     _, tcfg = configs("qwen3")
+    assert set(NOT_PORTED) == {"ssm", "encdec", "vlm"}
     for family, item in NOT_PORTED.items():
+        assert item == "A13"
         with pytest.raises(NotImplementedError, match=item):
             build_model(tcfg.replace(family=family), "cpu")
+    for arch in ("granite-moe", "hymba", "dbrx"):
+        build_model(configs(arch)[1], "cpu")
     model = build_model(tcfg, "cpu")
     with pytest.raises(NotImplementedError, match="A19"):
         tsteps.make_prefill_step(model, 8, mesh=object())

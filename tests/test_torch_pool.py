@@ -236,6 +236,18 @@ def test_running_the_port_imports_neither_jax_nor_repro():
         "        train_cli.main(['--arch', 'qwen3-0.6b', '--smoke', '--steps',\n"
         "                        steps, '--batch', '2', '--seq', '8',\n"
         "                        '--device', 'cpu', '--ckpt-dir', ck])\n"
+        "from repro_torch.configs import (dbrx_132b, granite_moe_3b,\n"
+        "                                 hymba_1_5b)\n"
+        "from repro_torch.models import moe, ssm\n"
+        "for arch in ('granite-moe-3b-a800m', 'hymba-1.5b', 'dbrx-132b'):\n"
+        "    cfg = get_smoke_config(arch).replace(attn_impl='blocked')\n"
+        "    model = build_model(cfg, 'cpu')\n"
+        "    params = model.init(torch.Generator().manual_seed(0))\n"
+        "    batch = synth_batch(model, ShapeSpec('p', 'prefill', 8, 2),\n"
+        "                        torch.Generator().manual_seed(1))\n"
+        "    nxt, cache = make_prefill_step(model, 8)(params, batch)\n"
+        "    make_serve_step(model)(params, cache, {'tokens': nxt[:, None]})\n"
+        "    model.train_loss(params, dict(batch, labels=batch['tokens']))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"

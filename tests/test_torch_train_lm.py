@@ -5,9 +5,13 @@ leaves of ``repro``'s ``lm_init``):
 * ``Model.train_loss`` and its gradients against ``jax.value_and_grad``
   of ``repro``'s, on the smoke configs of qwen3-0.6b, llama3.2-3b and
   starcoder2-3b, dense and blocked, full and sliding (window 32 over 48
-  tokens: the banded branch);
+  tokens: the banded branch), and of granite-moe-3b-a800m, dbrx-132b
+  (the loss with the routers' aux loss) and hymba-1.5b (attention and
+  SSM in parallel);
 * three ``make_train_step`` steps on ``SyntheticSource`` batches, with
-  ``microbatches`` 1 and 2: losses, learning rates and parameters;
+  ``microbatches`` 1 and 2: losses, ``aux`` (the MoE loss with one
+  microbatch, zero with two, as ``repro`` reports it), learning rates
+  and parameters;
 * ``input_specs`` / ``synth_batch`` of train cells, ``train_state_shapes``
   against the real state, the data pipeline bitwise against
   ``repro.data``, and the checkpoint of a train state restored;
@@ -128,7 +132,8 @@ def tokens(vocab: int, shape, seed: int) -> np.ndarray:
 @pytest.mark.parametrize("impl", ["dense", "blocked"])
 @pytest.mark.parametrize("name,variant", [
     ("qwen3-0.6b", {}), ("llama3.2-3b", {}), ("starcoder2-3b", {}),
-    ("qwen3-0.6b", SLIDING), ("starcoder2-3b", SLIDING)])
+    ("qwen3-0.6b", SLIDING), ("starcoder2-3b", SLIDING),
+    ("granite-moe-3b-a800m", {}), ("dbrx-132b", {}), ("hymba-1.5b", {})])
 def test_train_loss_and_grads_match_repro(name, variant, impl):
     jcfg, tcfg = configs(name, attn_impl=impl, **variant)
     jparams, tparams = weights(jcfg, tcfg)
@@ -142,11 +147,16 @@ def test_train_loss_and_grads_match_repro(name, variant, impl):
     tbatch = {k: torch.from_numpy(np.array(v)) for k, v in jbatch.items()}
     loss, metrics, grads = tsteps.loss_and_grads(build_model(tcfg, "cpu"),
                                                  tparams, tbatch)
-    assert set(metrics) == {"xent", "aux"} and float(metrics["aux"]) == 0.0
+    assert set(metrics) == {"xent", "aux"}
+    if tcfg.moe is None:
+        assert float(metrics["aux"]) == 0.0
+    else:
+        assert float(metrics["aux"]) > 0.0
     np.testing.assert_allclose(float(loss), float(jloss), rtol=LOSS_TOL,
                                atol=LOSS_TOL)
-    np.testing.assert_allclose(float(metrics["xent"]), float(jmet["xent"]),
-                               rtol=LOSS_TOL, atol=LOSS_TOL)
+    for k in ("xent", "aux"):
+        np.testing.assert_allclose(float(metrics[k]), float(jmet[k]),
+                                   rtol=LOSS_TOL, atol=LOSS_TOL, err_msg=k)
     assert_leaves_close(by_path(grads), by_path(jgrads), GRAD_TOL)
     for p in tree_leaves_with_path(tparams):
         assert p[1].grad is None and not p[1].requires_grad
@@ -189,7 +199,10 @@ def test_softmax_xent_matches_repro():
 @pytest.mark.parametrize("name,impl,variant,microbatches", [
     ("qwen3-0.6b", "blocked", {}, 1),
     ("qwen3-0.6b", "blocked", {}, 2),
-    ("starcoder2-3b", "dense", SLIDING, 2)])
+    ("starcoder2-3b", "dense", SLIDING, 2),
+    ("granite-moe-3b-a800m", "blocked", {}, 1),
+    ("granite-moe-3b-a800m", "dense", {}, 2),
+    ("hymba-1.5b", "blocked", {}, 1)])
 def test_train_steps_match_repro(name, impl, variant, microbatches):
     jcfg, tcfg = configs(name, attn_impl=impl, **variant)
     jparams, tparams = weights(jcfg, tcfg, seed=1)
@@ -216,6 +229,8 @@ def test_train_steps_match_repro(name, impl, variant, microbatches):
         tstate, tmet = tstep(tstate, {k: torch.from_numpy(v)
                                       for k, v in tb.items()})
         assert set(tmet) == {"xent", "aux", "loss", "lr"}
+        if tcfg.moe is not None:    # repro reports 0 over microbatches
+            assert (float(tmet["aux"]) > 0.0) == (microbatches == 1)
         for k in tmet:
             np.testing.assert_allclose(float(tmet[k]), float(jmet[k]),
                                        rtol=LOSS_TOL, atol=LOSS_TOL,
@@ -301,7 +316,9 @@ def test_train_state_shapes_match_the_state():
 
 
 @pytest.mark.parametrize("name", ["qwen3-0.6b", "llama3.2-3b",
-                                  "starcoder2-3b", "qwen3-14b"])
+                                  "starcoder2-3b", "qwen3-14b",
+                                  "granite-moe-3b-a800m", "hymba-1.5b",
+                                  "dbrx-132b"])
 def test_model_flops_per_token_matches_repro(name):
     from repro.configs import get_config as j_get
 
