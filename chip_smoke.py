@@ -20,7 +20,9 @@ Phases, in order; any failure exits non-zero:
    value, at the qwen3-0.6b prefill's own calls (B=4, S=8192, the
    transposed (B, S, H, D) projections), qwen3-0.6b's causal layer at
    B=1, S=4096, starcoder2-3b's sliding one as its prefill passes it
-   (S=8192, window 4096) and an end-aligned non-causal D=16 case.  Each
+   (S=8192, window 4096), an end-aligned non-causal D=16 case, the
+   hymba-1.5b and granite-moe-3b-a800m prefills' D = 64 calls and
+   qwen2-vl-72b's (B=2, S=4096, 64 over 8 heads, D=128).  Each
    kernel, its plain version and, where one exists, the one PyTorch
    call that computes the same function are timed with CUDA events, the
    calls queued behind a sleep on the card so that host launch gaps
@@ -100,10 +102,18 @@ Phases, in order; any failure exits non-zero:
      and cache memory), then a qwen3-0.6b serve of 8 prompts of 1024
      tokens into a 1056-long cache (the dense cached branch) and 32
      greedy tokens, then starcoder2-3b with a 4096 sliding window,
-     prefill B=1, S=8192 (30 flash launches per call); each with one
-     call or step under ``torch.profiler``; neither prefill may copy a
-     flash input (``flash_attention.copies``, nor phase 4's model
-     checks);
+     prefill B=1, S=8192 (30 flash launches per call); granite-moe-
+     3b-a800m B=4 S=4096 and hymba-1.5b B=1 S=8192 prefills (32 each)
+     and serves; qwen2-vl-72b at full width and 8 of its 80 layers,
+     prefill B=2 of 1024 patch embeddings (a 32 x 32 grid, Qwen2-VL's
+     (t, h, w) positions) and 3072 tokens into a 4096 cache (8 flash
+     launches a call), then served from a 4096 + 32 cache, 32 steps;
+     whisper-large-v3 whole served (8 clips of 1500 frames, the encoder
+     timed alone, a 16-token prompt into a 64 cache, 48 steps);
+     xlstm-125m whole, prefill B=8 S=2048 and served 32 steps, and 32
+     steps at B=1 (the ``long_500k`` cell's decode step); each with one
+     call or step under ``torch.profiler``; no prefill may copy a flash
+     input (``flash_attention.copies``, nor phase 4's model checks);
 4. the card against the CPU: 20 recvs of PongClassic-v5 and Ant-v3 at
    N=16 (async M=8), masked Ant-v3 (M=8), AntSkew-v3 (M=8, sjf) and
    AntNorm-v3 (sync) from one key on ``cuda`` and on ``cpu``: ids,
@@ -120,12 +130,18 @@ Phases, in order; any failure exits non-zero:
    ``DecodePool.serve`` on the f32 ``lm-policy`` config (4 lanes, 8
    requests) gives identical token lists, and 16 recvs of the sampled
    LM collect on ``TokenRagged-v0`` N=16/M=8 identical actions, ids and
-   dones.  ``Model.prefill`` (blocked) and 8 greedy ``decode_step``s on
-   the f32 smoke configs of qwen3-0.6b and sliding starcoder2-3b
-   (window 32): identical tokens, logits within 1e-4.  Three
-   ``make_train_step`` steps of the f32 smoke qwen3-0.6b, blocked, full
-   and sliding (window 32 over 64 tokens): losses within 1e-5, one
-   flash launch a layer and step on the card.
+   dones.  ``Model.prefill`` (blocked, 64 positions filling the cache:
+   one flash launch a layer where the family has attention through it)
+   and 8 greedy ``decode_step``s, then one ``train_loss`` and backward,
+   on the f32 smoke configs of qwen3-0.6b, sliding starcoder2-3b
+   (window 32), granite-moe-3b-a800m, hymba-1.5b, xlstm-125m,
+   whisper-large-v3 (its frames encoded first) and qwen2-vl-72b (its
+   patch embeddings before the tokens, M-RoPE positions): identical
+   tokens, logits within 1e-4, the loss within 1e-5, gradients within
+   1e-4 of each leaf's largest entry.  Three ``make_train_step`` steps
+   of the f32 smoke qwen3-0.6b, blocked, full and sliding (window 32
+   over 64 tokens), granite-moe-3b-a800m and hymba-1.5b: losses within
+   1e-5, one flash launch a layer and step on the card.
 
 5. the host engines (``engine="thread" | "forloop" | "subprocess"``,
    each env one lane of its batched env on the card): the thread and
@@ -256,6 +272,8 @@ FLASH_CASES = [
      0, "bfloat16", 2e-2, "bshd"),
     ("prefill-granite-B4-S4096-bf16", 4, 24, 8, 4096, 4096, 64, True, 0,
      "bfloat16", 2e-2, "bshd"),
+    ("prefill-qwen2-vl-B2-S4096-bf16", 2, 64, 8, 4096, 4096, 128, True, 0,
+     "bfloat16", 2e-2, "bshd"),
 ]
 
 # flash_attention's gradient rows in phase 2: (case, B, H, Hkv, S, D,
@@ -278,6 +296,10 @@ FLASH_GRAD_CASES = [
 # prefill length); each is also served as qwen3-0.6b is (8 prompts of
 # 1024 tokens, cache 1056, 32 steps)
 FAMILY_MODELS = [("granite-moe-3b-a800m", 4, 4096), ("hymba-1.5b", 1, 8192)]
+# phase 3's qwen2-vl-72b row: VLM_LAYERS of its 80 layers at full width
+# (f32 weights: ~3.5 GB a layer and 10 GB of embedding and head), a
+# VLM_GRID x VLM_GRID grid of patch embeddings before VLM_TEXT tokens
+VLM_LAYERS, VLM_GRID, VLM_TEXT = 8, 32, 3072
 # phase 7's train step: the model at full width, B sequences of S tokens
 TRAIN_MODEL, TRAIN_B, TRAIN_S = "qwen3-0.6b", 8, 512
 
@@ -745,7 +767,10 @@ def check_flash_attention(row) -> None:
         window (29 of its 32 layers; SDPA with a band mask) and causal
         (layers 0, 15, 31);
     (e) granite-moe-3b-a800m's, B=4, S=4096, H=24, Hkv=8, D=64, causal,
-        bf16, transposed views.
+        bf16, transposed views;
+    (f) qwen2-vl-72b's prefill calls of phase 3, B=2, S=4096 (1024
+        patch positions and 3072 of text), H=64 over Hkv=8, D=128,
+        causal, bf16, transposed views.
 
     bf16 within 2e-2 of the plain version and within ``BF16_EXCESS_TOL``
     of the rounding of the exact value (``mha_reference`` on f32 copies),
@@ -1603,11 +1628,13 @@ def top3(prof: dict, unit: str) -> dict:
     return None if top is None else dict(list(top.items())[:3])
 
 
-def drive_prefill(model, params, batch: int, seq: int, calls: int = 3
-                  ) -> dict:
+def drive_prefill(model, params, batch: int, seq: int, calls: int = 3,
+                  inputs: dict | None = None) -> dict:
     """``make_prefill_step(model, seq)`` on ``batch`` synthetic prompts of
-    ``seq`` tokens, the cache exactly as long as the prompt (the blocked
-    branch: one flash_attention launch per layer and call)."""
+    ``seq`` positions (``inputs``, if given: a vlm's patch embeddings,
+    tokens and positions), the cache exactly as long as the prompt (the
+    blocked branch: one flash_attention launch per layer and call; none
+    in an xLSTM, whose cache is its per-layer states)."""
     import torch
 
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -1617,25 +1644,30 @@ def drive_prefill(model, params, batch: int, seq: int, calls: int = 3
     cfg = model.cfg
     copies = flash_attention.copies
     step = make_prefill_step(model, seq)
-    shape = ShapeSpec("prefill", "prefill", seq, batch)
-    inputs = synth_batch(model, shape,
-                         torch.Generator(device=DEV).manual_seed(SEED))
+    if inputs is None:
+        inputs = synth_batch(model, ShapeSpec("prefill", "prefill", seq,
+                                              batch),
+                             torch.Generator(device=DEV).manual_seed(SEED))
     logits, cache = model.prefill(params, inputs, max_len=seq)  # warm-up
     if logits.shape != (batch, cfg.vocab) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError(f"prefill {cfg.name}: logits "
                              f"{tuple(logits.shape)}, or not finite")
     want = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.hd)
-    if tuple(cache["k"].shape) != want or int(cache["len"]) != seq:
-        raise AssertionError(f"prefill {cfg.name}: cache {tuple(cache['k'].shape)}"
-                             f" len {int(cache['len'])}, want {want}, {seq}")
-    if cfg.ssm is not None and not (
-            bool(torch.isfinite(cache["ssm_h"]).all())
-            and bool(cache["ssm_h"].any())
-            and bool(torch.isfinite(cache["ssm_tail"]).all())):
-        raise AssertionError(f"prefill {cfg.name}: SSM state zero or not "
-                             "finite")
+    if int(cache["len"]) != seq or ("k" in cache and tuple(
+            cache["k"].shape) != want):
+        raise AssertionError(f"prefill {cfg.name}: cache len "
+                             f"{int(cache['len'])}, want {seq}, k {want}")
+    states = cache.get("states", [])
+    if cfg.ssm is not None:
+        states = [(cache["ssm_h"], cache["ssm_tail"])]
+    for st in states:
+        if not (all(bool(torch.isfinite(t).all()) for t in st)
+                and bool(st[0].any())):
+            raise AssertionError(f"prefill {cfg.name}: a recurrent state "
+                                 "is zero or not finite")
     del logits, cache
+    flash = cfg.attn_impl == "blocked" and cfg.family != "ssm"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1645,18 +1677,20 @@ def drive_prefill(model, params, batch: int, seq: int, calls: int = 3
         del cache
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = read_counts(f"prefill {cfg.name}", ("flash_attention",))
-    if launches["flash_attention"] != calls * cfg.n_layers:
+    launches = read_counts(f"prefill {cfg.name}",
+                           ("flash_attention",) if flash else ())
+    if launches["flash_attention"] != calls * cfg.n_layers * flash:
         raise AssertionError(f"prefill {cfg.name}: "
                              f"{launches['flash_attention']} flash_attention "
-                             f"launches, want {calls * cfg.n_layers}")
+                             f"launches, want {calls * cfg.n_layers * flash}")
     if nxt.shape != (batch,) or int(nxt.min()) < 0 \
             or int(nxt.max()) >= cfg.vocab:
         raise AssertionError(f"prefill {cfg.name}: next tokens out of range")
     if flash_attention.copies != copies:
         raise AssertionError(f"prefill {cfg.name}: flash_attention copied "
                              f"{flash_attention.copies - copies} inputs")
-    out = {"model": cfg.name, "attn_type": cfg.attn_type,
+    out = {"model": cfg.name, "layers": cfg.n_layers,
+           "attn_type": cfg.attn_type,
            "window": cfg.window if cfg.attn_type == "sliding" else 0,
            "batch": batch, "seq_len": seq, "calls": calls, "seconds": dt,
            "tokens_per_s": calls * batch * seq / dt,
@@ -1716,12 +1750,16 @@ def branch_ms(model, params, row: dict) -> dict:
 
 
 def drive_model_serve(model, params, batch: int, prompt: int,
-                      max_len: int, steps: int) -> dict:
-    """``make_prefill_step`` of ``batch`` prompts of ``prompt`` tokens into
-    a ``max_len`` cache (the dense cached branch: S < L), then ``steps``
-    greedy ``make_serve_step`` tokens."""
+                      max_len: int, steps: int, inputs: dict | None = None,
+                      positions=None) -> dict:
+    """``make_prefill_step`` of ``batch`` prompts of ``prompt`` positions
+    into a ``max_len`` cache (the dense cached branch: S < L; an encdec
+    model encodes its frames first; ``inputs``, if given, is the prompt),
+    then ``steps`` greedy ``make_serve_step`` tokens (``positions(t)``,
+    if given, the (B, 1, 3) M-RoPE positions of step t)."""
     import torch
 
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.launch.steps import (
         make_prefill_step,
         make_serve_step,
@@ -1732,8 +1770,16 @@ def drive_model_serve(model, params, batch: int, prompt: int,
     cfg = model.cfg
     prefill = make_prefill_step(model, max_len)
     serve = make_serve_step(model)
-    inputs = synth_batch(model, ShapeSpec("serve", "prefill", prompt, batch),
-                         torch.Generator(device=DEV).manual_seed(SEED + 1))
+    if inputs is None:
+        inputs = synth_batch(model, ShapeSpec("serve", "prefill", prompt,
+                                              batch),
+                             torch.Generator(device=DEV).manual_seed(SEED + 1))
+
+    def step_batch(t, nxt):
+        b = {"tokens": nxt[:, None]}
+        if positions is not None:
+            b["positions"] = positions(t)
+        return b
 
     def run(n):
         """Prefill, then ``n`` greedy steps; the tokens, the cache and
@@ -1743,8 +1789,8 @@ def drive_model_serve(model, params, batch: int, prompt: int,
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         toks = [nxt]
-        for _ in range(n):
-            nxt, cache = serve(params, cache, {"tokens": nxt[:, None]})
+        for i in range(n):
+            nxt, cache = serve(params, cache, step_batch(i, nxt))
             toks.append(nxt)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
@@ -1754,6 +1800,7 @@ def drive_model_serve(model, params, batch: int, prompt: int,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    copies = flash_attention.copies
     toks, cache, (t0, t1, t2) = run(steps)
     launches = read_counts(f"serve {cfg.name}", ())
     if toks.shape != (batch, steps + 1) or int(toks.min()) < 0 \
@@ -1762,18 +1809,19 @@ def drive_model_serve(model, params, batch: int, prompt: int,
     if int(cache["len"]) != prompt + steps:
         raise AssertionError(f"serve {cfg.name}: cache len "
                              f"{int(cache['len'])}, want {prompt + steps}")
-    out = {"model": cfg.name, "batch": batch, "prompt": prompt,
-           "max_len": max_len, "steps": steps,
+    out = {"model": cfg.name, "layers": cfg.n_layers, "batch": batch,
+           "prompt": prompt, "max_len": max_len, "steps": steps,
            "prefill_ms": (t1 - t0) * 1e3,
            "ms_per_step": (t2 - t1) / steps * 1e3,
            "tokens_per_s": batch * steps / (t2 - t1),
+           "flash_copies": flash_attention.copies - copies,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches}
     state = [cache, toks[:, -1]]
 
     def one():
         state[1], state[0] = serve(params, state[0],
-                                   {"tokens": state[1][:, None]})
+                                   step_batch(steps, state[1]))
 
     prof = profile_device(one, 1, unit="step")
     busy = prof["device_busy_ms_per_step"]
@@ -1785,9 +1833,93 @@ def drive_model_serve(model, params, batch: int, prompt: int,
     log(f"  serve {cfg.name} B={batch} prompt {prompt} cache {max_len}: "
         f"prefill {out['prefill_ms']:.1f} ms, {out['tokens_per_s']:.1f} "
         f"tokens/s, {out['ms_per_step']:.2f} ms per step, device busy "
-        f"{busy} ms per step, peak {out['peak_gb']:.2f} GB, top "
+        f"{busy} ms per step, {out['kernels_per_step']} kernels a step, "
+        f"peak {out['peak_gb']:.2f} GB, top "
         f"{out['top3_kernels_ms_per_step']}")
     return out
+
+
+def vlm_inputs(cfg, batch: int, grid: int, text: int, seed: int) -> dict:
+    """A qwen2-vl prompt on the card: ``grid`` x ``grid`` patch embeddings
+    (normals x 0.02 from a seeded generator, in the compute dtype), then
+    ``text`` seeded tokens; Qwen2-VL's positions: the patches at (0,
+    row, col), the text from the grid's largest id + 1 with t = h = w.
+    Returns the prefill batch and ``positions(t)``, the (B, 1, 3) ids
+    of decode step t."""
+    import torch
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    idx = torch.arange(grid * grid, device=DEV)
+    patches = torch.stack([torch.zeros_like(idx), idx // grid, idx % grid],
+                          -1)
+    t = grid + torch.arange(text, device=DEV)
+    pos = torch.cat([patches, torch.stack([t, t, t], -1)])
+    batch_in = {
+        "patch_embeds": (torch.randn((batch, grid * grid, cfg.d_model),
+                                     generator=gen, device=DEV) * 0.02
+                         ).to(cfg.compute_dtype),
+        "tokens": torch.randint(0, cfg.vocab, (batch, text), generator=gen,
+                                device=DEV, dtype=torch.int32),
+        "positions": pos.to(torch.int32).expand(batch, -1, -1)}
+
+    def positions(step: int):
+        return torch.full((batch, 1, 3), grid + text + step,
+                          dtype=torch.int32, device=DEV)
+
+    return batch_in, positions
+
+
+def family_phase() -> list[dict]:
+    """Phase 3's xLSTM, Whisper and vlm rows at full width, each also
+    served: qwen2-vl-72b at ``VLM_LAYERS`` of its 80 layers (blocked
+    prefill of 2 x (1024 patches + 3072 tokens) into a cache of 4096,
+    ``VLM_LAYERS`` flash launches a call; then a 4096 + 32 cache and 32
+    decode steps); whisper-large-v3 whole (8 clips of 1500 frames, the
+    encoder alone timed, a 16-token prompt into a cache of 64, 48
+    steps); xlstm-125m whole (prefill B=8 S=2048, 8 chunks of 256; 32
+    steps; then B=1, the ``long_500k`` cell's decode step)."""
+    import torch
+
+    from repro_torch.launch.steps import synth_batch
+    from repro_torch.models import ShapeSpec
+    from repro_torch.models.whisper import encode
+
+    rows = []
+    model, params = model_params("qwen2-vl-72b", n_layers=VLM_LAYERS,
+                                 attn_impl="blocked")
+    seq = VLM_GRID * VLM_GRID + VLM_TEXT
+    inputs, positions = vlm_inputs(model.cfg, 2, VLM_GRID, VLM_TEXT,
+                                   SEED + 2)
+    rows.append(drive_prefill(model, params, 2, seq, inputs=inputs))
+    rows.append(drive_model_serve(model, params, 2, seq, seq + 32, 32,
+                                  inputs=inputs, positions=positions))
+    del model, params, inputs
+    torch.cuda.empty_cache()
+
+    model, params = model_params("whisper-large-v3")
+    inputs = synth_batch(model, ShapeSpec("serve", "prefill", 16, 8),
+                         torch.Generator(device=DEV).manual_seed(SEED + 3))
+    row = drive_model_serve(model, params, 8, 16, 64, 48, inputs=inputs)
+    with torch.no_grad():
+        ms = time_ms(lambda: encode(params, inputs["frames"], model.cfg),
+                     reps=1, trials=3)
+    row.update(encode_ms=ms, encode_share_of_prefill=ms / row["prefill_ms"])
+    log(f"  {model.cfg.name} encoder alone ({len(inputs['frames'])} x "
+        f"{model.cfg.enc_seq} frames): {ms:.2f} ms, "
+        f"{row['encode_share_of_prefill']:.3f} of the prompt's prefill")
+    rows.append(row)
+    del model, params, inputs, row
+    torch.cuda.empty_cache()
+
+    model, params = model_params("xlstm-125m")
+    rows.append(drive_prefill(model, params, 8, 2048, calls=2))
+    rows.append(drive_model_serve(model, params, 8, 2048, 2048, 32))
+    row = drive_model_serve(model, params, 1, 256, 256, 32)
+    row["cell"] = "long_500k decode step (B=1; O(1) in the context)"
+    rows.append(row)
+    del model, params
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------- #
@@ -2381,56 +2513,89 @@ def cross_check_train(task: str, n: int, atol: float | None,
         f"(max abs err {err})")
 
 
-def cross_check_model(arch: str, prompt_len: int = 100, **overrides
+def cross_check_model(arch: str, prompt_len: int = 64, **overrides
                       ) -> None:
-    """The f32 smoke config of ``arch``: ``Model.prefill`` with the
-    blocked branch (a ``prompt_len``-token prompt filling the cache; a
-    hybrid's must be whole SSM chunks) and 8 greedy ``decode_step``s on
-    ``cuda`` and on ``cpu``: identical tokens, logits within 1e-4.  The
-    decode steps write the cache's last slot, clamped as
-    ``dynamic_update_slice`` clamps, the same on both devices."""
+    """The f32 smoke config of ``arch`` (``overrides`` on top) on
+    ``cuda`` and on ``cpu`` from the same weights: ``Model.prefill``
+    with the blocked branch (a ``prompt_len``-position prompt filling
+    the cache: one flash launch a layer on the card and no copy, but in
+    the xLSTM, which has no attention, and Whisper, which runs ``mha``;
+    a vlm's patch embeddings before its tokens; Whisper's frames
+    encoded first; a hybrid's or the xLSTM's prompt whole chunks of 8)
+    and 8 greedy ``decode_step``s (a vlm's at (B, 1, 3) positions; the
+    steps write the cache's last slot, clamped as
+    ``dynamic_update_slice`` clamps, the same on both devices):
+    identical tokens, logits within 1e-4; then one ``train_loss`` and
+    its backward on a ``synth_batch`` train cell of ``prompt_len``
+    positions: the loss within 1e-5, each gradient leaf within 1e-4 of
+    its largest entry."""
     import torch
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.models import build_model
-    from repro_torch.utils.tree import tree_map
+    from repro_torch.launch.steps import loss_and_grads, synth_batch
+    from repro_torch.models import ShapeSpec, build_model
+    from repro_torch.utils.tree import tree_leaves_with_path, tree_map
 
     cfg = get_smoke_config(arch).replace(
         compute_dtype=torch.float32, attn_impl="blocked", **overrides)
-    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(SEED))
-    prompt = np.random.default_rng(SEED + 4).integers(
-        0, cfg.vocab, (2, prompt_len)).astype(np.int32)
+    cpu = build_model(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED + 5)
+    train = synth_batch(cpu, ShapeSpec("t", "train", prompt_len, 2), gen)
+    prompt = synth_batch(cpu, ShapeSpec("p", "prefill", prompt_len, 2), gen)
+    if cfg.family == "vlm":       # the train cell's patches, then text
+        P = train["patch_embeds"].shape[1]
+        prompt = {"patch_embeds": train["patch_embeds"],
+                  "tokens": prompt["tokens"][:, P:],
+                  "positions": train["positions"]}
     runs = {}
     for dev in (DEV, "cpu"):
         model = build_model(cfg, dev)
-        before, copies = flash_attention.launches, flash_attention.copies
         p = tree_map(lambda x: x.to(dev), params)
+        before, copies = flash_attention.launches, flash_attention.copies
         logits, cache = model.prefill(
-            p, {"tokens": torch.from_numpy(prompt).to(dev)},
+            p, {k: v.to(dev) for k, v in prompt.items()},
             max_len=prompt_len)
+        flash = flash_attention.launches - before
         toks, logs = [], [logits.cpu()]
-        for _ in range(8):
+        for t in range(8):
             nxt = logits.argmax(-1).to(torch.int32)
             toks.append(nxt.cpu())
-            logits, cache = model.decode_step(p, nxt[:, None], cache)
+            pos = None
+            if cfg.family == "vlm":
+                pos = torch.full((2, 1, 3), prompt_len + t,
+                                 dtype=torch.int32, device=dev)
+            logits, cache = model.decode_step(p, nxt[:, None], cache,
+                                              positions=pos)
             logs.append(logits.cpu())
-        runs[dev] = (torch.stack(toks), torch.stack(logs))
-        if dev == DEV and flash_attention.launches - before != cfg.n_layers:
+        loss, _, grads = loss_and_grads(model, p, {
+            k: v.to(dev) for k, v in train.items()})
+        runs[dev] = (torch.stack(toks), torch.stack(logs), float(loss),
+                     {k: g.cpu() for k, g in tree_leaves_with_path(grads)})
+        want = 0 if cfg.family in ("ssm", "encdec") else cfg.n_layers
+        if dev == DEV and (flash != want
+                           or flash_attention.copies != copies):
             raise AssertionError(f"{arch}: the card's prefill launched "
-                                 f"{flash_attention.launches - before} "
-                                 f"flash kernels, want {cfg.n_layers}")
-        if flash_attention.copies != copies:
-            raise AssertionError(f"{arch}: flash_attention copied "
-                                 f"{flash_attention.copies - copies} inputs")
+                                 f"{flash} flash kernels (want {want}), "
+                                 f"{flash_attention.copies - copies} "
+                                 "copies")
     if not torch.equal(runs[DEV][0], runs["cpu"][0]):
         raise AssertionError(f"{arch}: greedy tokens differ between cuda "
                              "and cpu")
     err = float((runs[DEV][1] - runs["cpu"][1]).abs().max())
-    if err > 1e-4:
-        raise AssertionError(f"{arch}: logits differ by {err} > 1e-4")
+    loss_err = abs(runs[DEV][2] - runs["cpu"][2])
+    grad_err = max(float((g - runs["cpu"][3][k]).abs().max())
+                   / max(float(runs["cpu"][3][k].abs().max()), 1e-30)
+                   for k, g in runs[DEV][3].items())
+    if err > 1e-4 or loss_err > 1e-5 or grad_err > 1e-4:
+        raise AssertionError(f"{arch}: logits differ by {err} (1e-4), the "
+                             f"loss by {loss_err} (1e-5), a gradient by "
+                             f"{grad_err} of its largest entry (1e-4)")
     log(f"  model {arch} {overrides or ''} blocked prefill + 8 decode "
-        f"steps: cuda == cpu tokens, logits within 1e-4 (max abs err {err})")
+        f"steps and a train loss + backward: cuda == cpu tokens, logits within 1e-4 (max abs "
+        f"err {err}), loss {runs[DEV][2]:.6f} within 1e-5 ({loss_err}), "
+        f"gradients within 1e-4 of their largest entry ({grad_err})")
 
 
 def cross_check_lm_train(arch: str = "qwen3-0.6b", **overrides) -> None:
@@ -3107,6 +3272,7 @@ def main() -> int:
                                               32)]
         del model, params, row
         torch.cuda.empty_cache()
+    model_runs += family_phase()
     log(json.dumps({"model_runs": model_runs, "card": card}))
     for r in runs + train_runs + lm_runs + model_runs:
         for k, v in r["launches"].items():
@@ -3128,8 +3294,9 @@ def main() -> int:
     cross_check_model("starcoder2-3b", attn_type="sliding")
     cross_check_lm_train()
     cross_check_lm_train(attn_type="sliding", window=32)
-    cross_check_model("granite-moe-3b-a800m")
-    cross_check_model("hymba-1.5b", prompt_len=96)
+    for arch in ("granite-moe-3b-a800m", "hymba-1.5b", "xlstm-125m",
+                 "whisper-large-v3", "qwen2-vl-72b"):
+        cross_check_model(arch)
     cross_check_lm_train("granite-moe-3b-a800m")
     cross_check_lm_train("hymba-1.5b")
 

@@ -1,5 +1,5 @@
-"""Architecture registry (``repro/configs/registry.py``), the dense, MoE
-and hybrid entries: ``get_config(arch)`` and the reduced same-family
+"""Architecture registry (``repro/configs/registry.py``), every arch of
+the JAX package: ``get_config(arch)`` and the reduced same-family
 ``get_smoke_config(arch)`` for CPU tests."""
 
 from __future__ import annotations
@@ -10,9 +10,17 @@ from repro_torch.configs import (
     dbrx_132b,
     granite_moe_3b,
     hymba_1_5b,
+    qwen2_vl_72b,
     qwen3_0_6b,
+    whisper_large_v3,
+    xlstm_125m,
 )
-from repro_torch.models.common import ModelConfig, MoEConfig, SSMConfig
+from repro_torch.models.common import (
+    ModelConfig,
+    MoEConfig,
+    SSMConfig,
+    XLSTMConfig,
+)
 
 
 def _qwen3_14b() -> ModelConfig:
@@ -51,6 +59,9 @@ ARCHS = {
     "hymba-1.5b": hymba_1_5b.get_config,
     "dbrx-132b": dbrx_132b.get_config,
     "granite-moe-3b-a800m": granite_moe_3b.get_config,
+    "whisper-large-v3": whisper_large_v3.get_config,
+    "qwen2-vl-72b": qwen2_vl_72b.get_config,
+    "xlstm-125m": xlstm_125m.get_config,
 }
 
 
@@ -69,17 +80,27 @@ def get_config(arch: str, **overrides) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     """Reduced same-family config for CPU tests: 2 layers, d_model 64,
-    4 query and 2 kv heads of width 16, vocab 512, window 32, 4 experts
-    top-2, an SSM of state 4 in chunks of 8 (as ``repro``'s)."""
+    4 query and 2 kv heads of width 16, vocab 512, max_seq 256, window
+    32, 4 experts top-2, an SSM of state 4 in chunks of 8; an xLSTM of
+    an mLSTM and an sLSTM layer in chunks of 8 over 4 heads; a 2-layer
+    encoder over 16 frames with 4 kv heads; M-RoPE sections (2, 3, 3)
+    (as ``repro``'s)."""
     cfg = get_config(arch)
     kw: dict = dict(
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
-        vocab=512, head_dim=16, window=32,
+        vocab=512, head_dim=16, max_seq=256, window=32,
         global_attn_layers=(0,) if cfg.global_attn_layers else ())
     if cfg.moe is not None:
         kw["moe"] = MoEConfig(num_experts=4, top_k=2)
     if cfg.ssm is not None:
         kw["ssm"] = SSMConfig(state_dim=4, conv_width=4, expand=1, chunk=8)
+    if cfg.xlstm is not None:
+        kw.update(xlstm=XLSTMConfig(slstm_every=2, slstm_offset=1, chunk=8),
+                  n_kv_heads=4, d_ff=0)
+    if cfg.family == "encdec":
+        kw.update(enc_layers=2, enc_seq=16, n_kv_heads=4)  # whisper is MHA
+    if cfg.rope_type == "mrope":
+        kw["mrope_sections"] = (2, 3, 3)
     return dataclasses.replace(cfg, **kw)
 
 

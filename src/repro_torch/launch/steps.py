@@ -153,12 +153,20 @@ def make_serve_step(model: Model, mesh: Any = None) -> Callable:
 
 def synth_batch(model: Model, shape: ShapeSpec, gen: torch.Generator
                 ) -> dict[str, torch.Tensor]:
-    """Uniform tokens (and, for a train cell, labels) for ``shape``,
-    drawn from ``gen`` on its device, input by input in name order."""
+    """Every model input of ``shape``, drawn from ``gen`` on its device,
+    input by input in name order, by ``repro``'s rules: ``tokens`` and
+    ``labels`` uniform in ``[0, vocab)``, other int inputs (the M-RoPE
+    ``positions``) in ``[0, 4)``, float inputs (frames, patch
+    embeddings) normals x 0.02 in their dtype."""
     batch = {}
     for name, (shp, dtype) in sorted(model.input_specs(shape).items()):
-        batch[name] = torch.randint(0, model.cfg.vocab, shp, generator=gen,
-                                    dtype=dtype, device=gen.device)
+        if dtype.is_floating_point:
+            batch[name] = torch.randn(shp, generator=gen, dtype=dtype,
+                                      device=gen.device) * 0.02
+        else:
+            hi = model.cfg.vocab if name in ("tokens", "labels") else 4
+            batch[name] = torch.randint(0, hi, shp, generator=gen,
+                                        dtype=dtype, device=gen.device)
     return batch
 
 

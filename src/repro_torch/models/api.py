@@ -1,24 +1,25 @@
-"""The model facade (``repro/models/api.py``) for the dense, MoE and
-hybrid decoder families.
+"""The model facade (``repro/models/api.py``) over every architecture
+family: the dense, MoE, hybrid and vlm decoders
+(``models/transformer.py``), the xLSTM (``ssm``, ``models/xlstm.py``)
+and the Whisper encoder-decoder (``encdec``, ``models/whisper.py``).
 
 ``build_model(cfg)`` returns a ``Model`` with ``init``, ``train_loss``,
-``init_cache``, ``prefill`` and ``decode_step``, so the train and
-serving steps (``launch/steps.py``) never dispatch on the config.
-Shape cells pair an arch with ``train_4k``, ``prefill_32k``,
+``init_cache``, ``prefill``, ``decode_step`` and ``input_specs``, so the
+train and serving steps (``launch/steps.py``) never dispatch on the
+family.  Shape cells pair an arch with ``train_4k``, ``prefill_32k``,
 ``decode_32k`` or ``long_500k``.
 
 Differences from ``repro``, by design: ``init`` draws from a
 ``torch.Generator`` (to run ``repro``'s weights, load them with
 ``rl/policy_lm.py::params_from_jax``); caches are written in place
-(``models/layers.py::attention``), so a caller must not reuse a cache
-it passed to ``decode_step``; ``prefill`` applies the LM head to the
-last position only, where ``repro`` takes ``logits[:, -1]`` of the
-full-sequence head and XLA drops the rest (eager PyTorch would compute
-all of it: 10 GB and 10 TFLOP at qwen3-0.6b, B=4, S=8192);
+(``models/layers.py::attention``, ``models/whisper.py``), so a caller
+must not reuse a cache it passed to ``decode_step``; ``prefill``
+applies the LM head to the last position only, and a vlm's
+``train_loss`` to the text region only, where ``repro`` slices the
+full-sequence head's logits and XLA drops the rest (eager PyTorch would
+compute all of it: 10 GB and 10 TFLOP at qwen3-0.6b, B=4, S=8192);
 ``softmax_xent`` forms the f32 copy of the logits again in the backward
 (``torch.utils.checkpoint``), where XLA decides itself what to keep.
-The ``ssm``, ``encdec`` and ``vlm`` families are not ported: ``Model``
-refuses them, naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import transformer, whisper, xlstm
 from repro_torch.models.common import ModelConfig
 
 
@@ -49,11 +50,20 @@ SHAPES: dict[str, ShapeSpec] = {
     "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
 }
 
+# the stub vision frontend's patch count at full shapes
+VLM_PATCHES = 1024
+
+
+def vlm_patches(seq_len: int) -> int:
+    """Image-patch prefix length: 1024 at full shapes, scaled down for
+    short smoke sequences."""
+    return min(VLM_PATCHES, max(seq_len // 4, 1))
+
 
 def cell_supported(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
     """Is (arch x shape) runnable?  ``long_500k`` needs sub-quadratic
-    attention state (``ModelConfig.sub_quadratic``: a hybrid with sliding
-    attention among the ported families)."""
+    attention state (``ModelConfig.sub_quadratic``: the xLSTM, or a
+    hybrid with sliding attention)."""
     if shape.name == "long_500k" and not cfg.sub_quadratic:
         return False, ("long_500k needs sub-quadratic attention state; "
                        f"{cfg.name} is full-attention")
@@ -85,69 +95,151 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
 
 
 class Model:
-    """A dense, MoE or hybrid decoder behind one interface, on
-    ``device`` (default ``cuda``, which must be present)."""
+    """Any family's model behind one interface, on ``device`` (default
+    ``cuda``, which must be present)."""
 
     def __init__(self, cfg: ModelConfig,
                  device: torch.device | str | None = None):
-        transformer.check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
 
     def init(self, gen: torch.Generator) -> dict[str, Any]:
         """Weights drawn from ``gen`` (a generator on the model's
         device)."""
-        return transformer.lm_init(gen, self.cfg, self.device)
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return whisper.whisper_init(gen, cfg, self.device)
+        if cfg.family == "ssm":
+            return xlstm.xlstm_lm_init(gen, cfg, self.device)
+        return transformer.lm_init(gen, cfg, self.device)
 
     def train_loss(self, params: dict[str, Any], batch: dict[str, Any]
                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """``(loss, {"xent", "aux"})`` of next-token prediction over
-        ``batch["tokens"]`` (B, S) against ``batch["labels"]`` (B, S),
-        masked by ``batch["loss_mask"]`` if given; ``loss = xent + aux``
-        (``aux``, the MoE routers' loss summed over layers, is a zero f32
-        without experts)."""
-        logits, _, aux = transformer.lm_apply(params, batch["tokens"],
-                                              self.cfg)
+        ``batch["tokens"]`` (B, S) against ``batch["labels"]``, masked by
+        ``batch["loss_mask"]`` if given; ``loss = xent + aux`` (``aux``,
+        the MoE routers' loss summed over layers, is a zero f32 without
+        experts).  An encdec model also reads ``frames`` (B, enc_seq,
+        d); a vlm ``patch_embeds`` (B, P, d) before the tokens and
+        ``positions`` (B, P + S, 3), its loss over the text region."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        if cfg.family == "encdec":
+            enc = whisper.encode(params, batch["frames"], cfg)
+            logits, _ = whisper.decode(params, batch["tokens"], enc, cfg)
+        elif cfg.family == "ssm":
+            logits, _ = xlstm.xlstm_lm_apply(params, batch["tokens"], cfg)
+        elif cfg.family == "vlm":
+            x, _, aux = transformer.lm_hidden(
+                params, batch["tokens"], cfg,
+                input_embeds=batch["patch_embeds"],
+                positions=batch["positions"])
+            # the loss only over the text region, after the patch prefix
+            logits = transformer.lm_head(
+                params, x[:, batch["patch_embeds"].shape[1]:], cfg)
+        else:
+            logits, _, aux = transformer.lm_apply(params, batch["tokens"],
+                                                  cfg)
         xent = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
         return xent + aux, {"xent": xent, "aux": aux}
 
     def init_cache(self, batch: int, max_len: int) -> dict[str, Any]:
-        return transformer.init_cache(self.cfg, batch, max_len, self.device)
+        """A fresh cache for ``batch`` sequences of up to ``max_len``:
+        the KV cache (``repro``'s layout); the Whisper cache with its
+        cross K/V; an xLSTM's per-layer states (``max_len`` unused)."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return whisper.init_whisper_cache(cfg, batch, max_len,
+                                              self.device)
+        if cfg.family == "ssm":
+            return {"states": xlstm.init_xlstm_states(cfg, batch,
+                                                      self.device),
+                    "len": torch.zeros((), dtype=torch.int32,
+                                       device=self.device)}
+        return transformer.init_cache(cfg, batch, max_len, self.device)
 
     def input_specs(self, shape: ShapeSpec
                     ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
         """Name -> (shape, dtype) of every model input of this cell: a
         train cell's tokens and labels, a prefill's prompt, a decode
-        step's one new token."""
+        step's one new token; an encdec model's ``frames`` (train and
+        prefill), a vlm's M-RoPE ``positions`` and, to train, its
+        ``patch_embeds`` of ``vlm_patches(S)`` positions of the S."""
+        cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
+        i32, cd = torch.int32, cfg.compute_dtype
+        frames = ((B, cfg.enc_seq, cfg.d_model), cd)
         if shape.kind == "train":
-            return {"tokens": ((B, S), torch.int32),
-                    "labels": ((B, S), torch.int32)}
+            if cfg.family == "encdec":
+                return {"frames": frames, "tokens": ((B, S), i32),
+                        "labels": ((B, S), i32)}
+            if cfg.family == "vlm":
+                P = vlm_patches(S)
+                return {"tokens": ((B, S - P), i32),
+                        "patch_embeds": ((B, P, cfg.d_model), cd),
+                        "positions": ((B, S, 3), i32),
+                        "labels": ((B, S - P), i32)}
+            return {"tokens": ((B, S), i32), "labels": ((B, S), i32)}
         if shape.kind == "prefill":
-            return {"tokens": ((B, S), torch.int32)}
+            specs = {"tokens": ((B, S), i32)}
+            if cfg.family == "encdec":
+                specs["frames"] = frames
+            if cfg.family == "vlm":
+                specs["positions"] = ((B, S, 3), i32)
+            return specs
         if shape.kind == "decode":
-            return {"tokens": ((B, 1), torch.int32)}
+            specs = {"tokens": ((B, 1), i32)}
+            if cfg.family == "vlm":
+                specs["positions"] = ((B, 1, 3), i32)
+            return specs
         raise ValueError(f"unknown cell kind {shape.kind!r}")
 
     def prefill(self, params: dict[str, Any], batch: dict[str, Any],
                 max_len: int) -> tuple[torch.Tensor, dict[str, Any]]:
         """The prompt ``batch["tokens"]`` (B, S) into a fresh cache of
-        ``max_len`` -> (last-position logits (B, V), cache).  With
-        ``attn_impl="blocked"`` and ``max_len == S`` every layer runs the
-        flash-attention kernel."""
+        ``max_len`` -> (last-position logits (B, V), cache).  An encdec
+        model encodes ``batch["frames"]`` first; a vlm takes an optional
+        ``patch_embeds`` (B, P, d) before the tokens and ``positions``
+        (B, P + S, 3).  With ``attn_impl="blocked"`` and a prompt that
+        fills the cache, every decoder layer runs the flash-attention
+        kernel; an xLSTM keeps no cache of positions (``max_len``
+        unused)."""
+        cfg = self.cfg
         tokens = batch["tokens"]
-        cache = self.init_cache(tokens.shape[0], max_len)
-        x, cache, _ = transformer.lm_hidden(params, tokens, self.cfg,
-                                            cache=cache)
-        return transformer.lm_head(params, x[:, -1], self.cfg), cache
+        B = tokens.shape[0]
+        if cfg.family == "encdec":
+            enc = whisper.encode(params, batch["frames"], cfg)
+            x, cache = whisper.decode_hidden(params, tokens, enc, cfg,
+                                             self.init_cache(B, max_len))
+            return x[:, -1] @ params["lm_head"].to(cfg.compute_dtype), cache
+        if cfg.family == "ssm":
+            x, states = xlstm.xlstm_hidden(params, tokens, cfg)
+            cache = {"states": states,
+                     "len": torch.tensor(tokens.shape[1], dtype=torch.int32,
+                                         device=self.device)}
+            return x[:, -1] @ params["embed"].T.to(cfg.compute_dtype), cache
+        x, cache, _ = transformer.lm_hidden(
+            params, tokens, cfg, input_embeds=batch.get("patch_embeds"),
+            positions=batch.get("positions"),
+            cache=self.init_cache(B, max_len))
+        return transformer.lm_head(params, x[:, -1], cfg), cache
 
     def decode_step(self, params: dict[str, Any], tokens: torch.Tensor,
                     cache: dict[str, Any],
                     positions: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, dict[str, Any]]:
-        """tokens (B, 1) -> (logits (B, V), new cache)."""
-        logits, cache, _ = transformer.lm_apply(
-            params, tokens, self.cfg, positions=positions, cache=cache)
+        """tokens (B, 1) -> (logits (B, V), new cache); a vlm needs its
+        ``positions`` (B, 1, 3)."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            logits, cache = whisper.decode(params, tokens, None, cfg, cache)
+        elif cfg.family == "ssm":
+            logits, states = xlstm.xlstm_lm_apply(params, tokens, cfg,
+                                                  cache["states"])
+            cache = {"states": states, "len": cache["len"] + 1}
+        else:
+            logits, cache, _ = transformer.lm_apply(
+                params, tokens, cfg, positions=positions, cache=cache)
         return logits[:, -1], cache
 
 
@@ -156,5 +248,5 @@ def build_model(cfg: ModelConfig,
     return Model(cfg, device)
 
 
-__all__ = ["Model", "SHAPES", "ShapeSpec", "build_model", "cell_supported",
-           "softmax_xent"]
+__all__ = ["Model", "SHAPES", "ShapeSpec", "VLM_PATCHES", "build_model",
+           "cell_supported", "softmax_xent", "vlm_patches"]

@@ -1,6 +1,8 @@
 """Model configuration and parameter initialisers
-(``repro/models/common.py``), for the decoder families the port runs:
-dense, MoE (``moe``) and hybrid attention + SSM (``hybrid``).
+(``repro/models/common.py``), for every family of the JAX package:
+dense, MoE (``moe``), hybrid attention + SSM (``hybrid``), xLSTM
+(``ssm``), the Whisper encoder-decoder (``encdec``) and the M-RoPE
+vision-language decoder (``vlm``).
 
 ``repro``'s execution fields ``scan_layers``, ``remat`` and
 ``use_pallas`` are left out: they steer XLA tracing (one layer traced
@@ -11,7 +13,9 @@ Python int here, exactly as in ``repro`` with ``scan_layers=False``.
 Parameters are nested dicts of tensors in the JAX package's layout: the
 decoder layers are stacked on a leading ``n_layers`` dim, so the
 numpy leaves of a ``repro`` parameter pytree load as they are
-(``rl/policy_lm.py::params_from_jax``).
+(``rl/policy_lm.py::params_from_jax``).  The xLSTM keeps ``repro``'s
+list of per-layer dicts (its layers are of two kinds); Whisper stacks
+its encoder and decoder layers each on their own leading dim.
 """
 
 from __future__ import annotations
@@ -44,14 +48,20 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    slstm_every: int = 8     # xLSTM[7:1]
+    slstm_offset: int = 7
+    chunk: int = 256
+    proj_factor: float = 2.0  # mLSTM up-projection
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The fields of ``repro``'s ``ModelConfig`` that the dense, MoE and
-    hybrid decoders read, sliding-window and serving fields included.
-    The xLSTM, encoder-decoder and RoPE-variant fields are not ported
-    (ROADMAP A13)."""
+    """The fields of ``repro``'s ``ModelConfig`` that its models read,
+    sliding-window and serving fields included."""
 
     name: str
-    family: str              # dense | moe | hybrid
+    family: str              # dense | moe | hybrid | ssm | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -63,12 +73,19 @@ class ModelConfig:
     mlp_type: str = "swiglu"         # swiglu | gelu
     norm_type: str = "rmsnorm"       # rmsnorm | layernorm
     rope_theta: float = 1_000_000.0
+    rope_type: str = "standard"      # standard | mrope | none
+    mrope_sections: tuple[int, ...] = (16, 24, 24)
     attn_type: str = "full"          # full | sliding
     window: int = 1024
     global_attn_layers: tuple[int, ...] = ()   # these layers use full attn
     moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
+    xlstm: XLSTMConfig | None = None
+    enc_layers: int = 0              # encdec: encoder depth
+    enc_seq: int = 1500              # stub frontend sequence (frames)
+    frontend: str | None = None      # audio | vision (precomputed embeds)
     tie_embeddings: bool = False
+    max_seq: int = 8192
     # numerics
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
@@ -127,19 +144,25 @@ def model_flops_per_token(cfg: ModelConfig) -> float:
     """Model FLOPs a trained token, ``repro``'s 6 N convention: 2 for the
     forward and 4 for the backward of each multiply-accumulate with a
     weight (the q, k, v, o projections, the MLP or the ``top_k`` experts
-    a token runs and the router, the SSM branch's projections, the LM
-    head); attention's own products are left out."""
+    a token runs and the router, the SSM branch's projections, an
+    encoder-decoder's encoder layers and cross-attention projections,
+    the LM head); attention's own products are left out."""
     d, ff = cfg.d_model, cfg.d_ff
     attn = d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
     mlp = (3 if cfg.mlp_type == "swiglu" else 2) * d * ff
     if cfg.moe is not None:
         mlp = mlp * cfg.moe.top_k + d * cfg.moe.num_experts  # router
-    per_layer = attn + mlp
+    per_layer = attn_mlp = attn + mlp
     if cfg.ssm is not None:  # parallel SSM branch
         di = cfg.ssm.expand * d
         per_layer += 2 * d * di + di * d + di * cfg.ssm.state_dim * 3
-    return 6.0 * (cfg.n_layers * per_layer + d * cfg.vocab)
+    total = cfg.n_layers * per_layer
+    if cfg.enc_layers:
+        total += cfg.enc_layers * attn_mlp      # once per sequence
+        total += cfg.n_layers * d * (cfg.q_dim + 2 * cfg.kv_dim)  # cross
+    return 6.0 * (total + d * cfg.vocab)
 
 
-__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "count_params",
-           "dense_init", "embed_init", "model_flops_per_token"]
+__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "XLSTMConfig",
+           "count_params", "dense_init", "embed_init",
+           "model_flops_per_token"]

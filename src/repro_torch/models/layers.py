@@ -1,5 +1,5 @@
-"""Transformer layers of the dense decoder (``repro/models/layers.py``):
-norms, RoPE, GQA attention with and without a KV cache, MLPs.
+"""Transformer layers (``repro/models/layers.py``): norms, RoPE and
+M-RoPE, GQA attention with and without a KV cache, MLPs.
 
 Plain functions over parameter dicts, in the JAX package's layout and
 with its casts: every weight is cast to the compute dtype at use, norms
@@ -77,19 +77,42 @@ def rope_freqs(cfg: ModelConfig, device=None) -> torch.Tensor:
 
 
 def rope_tables(positions: torch.Tensor, cfg: ModelConfig
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(cos, sin)`` of the rotary angles at ``positions`` (B, S), each
-    (B, S, 1, hd / 2) f32.  They depend on positions only, so a forward
-    forms them once and every layer's q and k reuse them: XLA shares
-    them between layers by common-subexpression elimination, eager
-    PyTorch would recompute them for each of the 2 * n_layers calls."""
-    angles = positions.float()[..., None] * rope_freqs(cfg, positions.device)
+                ) -> tuple[torch.Tensor, torch.Tensor] | None:
+    """``(cos, sin)`` of the rotary angles at ``positions``, each (B, S,
+    1, hd / 2) f32, or None for ``rope_type="none"``.  ``positions`` is
+    (B, S), or (B, S, 3) for M-RoPE (qwen2-vl), where frequency ``j``
+    turns by the t, h or w component as ``mrope_sections`` assigns the
+    ``hd / 2`` frequencies to them in turn.  The tables depend on
+    positions only, so a forward forms them once and every layer's q and
+    k reuse them: XLA shares them between layers by
+    common-subexpression elimination, eager PyTorch would recompute them
+    for each of the 2 * n_layers calls."""
+    if cfg.rope_type == "none":
+        return None
+    inv = rope_freqs(cfg, positions.device)
+    if cfg.rope_type == "mrope":
+        half, secs = cfg.hd // 2, cfg.mrope_sections
+        if positions.dim() != 3:
+            raise ValueError("mrope needs (B, S, 3) position ids; got "
+                             f"{tuple(positions.shape)}")
+        if sum(secs) != half:
+            raise ValueError(f"mrope_sections {secs} do not sum to "
+                             f"hd / 2 = {half}")
+        sec_id = torch.tensor([i for i, n in enumerate(secs)
+                               for _ in range(n)], device=positions.device)
+        angles = positions.float()[..., sec_id] * inv
+    else:
+        angles = positions.float()[..., None] * inv
     return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
 
 
-def apply_rope(x: torch.Tensor, tables: tuple[torch.Tensor, torch.Tensor],
+def apply_rope(x: torch.Tensor,
+               tables: tuple[torch.Tensor, torch.Tensor] | None,
                cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, H, D) rotated by ``rope_tables(positions, cfg)``."""
+    """x: (B, S, H, D) rotated by ``rope_tables(positions, cfg)``; as it
+    is without tables (``rope_type="none"``)."""
+    if tables is None:
+        return x
     cos, sin = tables
     half = cfg.hd // 2
     x1, x2 = x[..., :half], x[..., half:]
@@ -212,7 +235,7 @@ def attention(
     p: dict[str, Any],
     x: torch.Tensor,
     cfg: ModelConfig,
-    rope: tuple[torch.Tensor, torch.Tensor],
+    rope: tuple[torch.Tensor, torch.Tensor] | None,
     *,
     layer_window: int | None = None,
     cache_kv: tuple[torch.Tensor, torch.Tensor] | None = None,

@@ -1,4 +1,4 @@
-"""Decoder-only LM of the dense, MoE and hybrid families
+"""Decoder-only LM of the dense, MoE, hybrid and vlm families
 (``repro/models/transformer.py``): stacked-layer parameters, the forward
 with and without a cache, and the cache.
 
@@ -39,29 +39,16 @@ from repro_torch.models.moe import apply_moe, moe_init
 from repro_torch.models.ssm import apply_ssm, init_ssm_state, ssm_init
 
 
-# families not ported yet -> the ROADMAP item that brings them
-NOT_PORTED = {"ssm": "A13", "encdec": "A13", "vlm": "A13"}
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Refuse a family the port has no forward for, naming the ROADMAP
-    item that brings it."""
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported; the dense, "
-            f"moe and hybrid decoders are (ROADMAP {NOT_PORTED[cfg.family]})")
-
-
 def lm_init(gen: torch.Generator, cfg: ModelConfig,
             device: torch.device | str) -> dict[str, Any]:
     """Parameters drawn from ``gen`` on ``device``: ``embed`` (V, d),
     ``layers`` with every leaf stacked on a leading ``n_layers`` dim
-    (``moe`` in place of ``mlp`` for an MoE config; ``ssm``,
+    (``moe`` in place of ``mlp`` for an MoE config, neither for
+    ``d_ff == 0``; ``ssm``,
     ``attn_out_norm`` and ``ssm_out_norm`` for a hybrid),
     ``final_norm``, and ``lm_head`` unless embeddings are tied.  The
     draws are torch's, not ``jax.random``'s; to run the JAX package's
     weights, load them with ``rl/policy_lm.py::params_from_jax``."""
-    check_ported(cfg)
     lead = (cfg.n_layers,)
     layers = {
         "attn_norm": norm_init(cfg, device, lead),
@@ -70,7 +57,7 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig,
     }
     if cfg.moe is not None:
         layers["moe"] = moe_init(gen, cfg, device, lead)
-    else:
+    elif cfg.d_ff > 0:
         layers["mlp"] = mlp_init(gen, cfg, device, lead)
     if cfg.ssm is not None:
         layers["ssm"] = ssm_init(gen, cfg, device, lead)
@@ -122,7 +109,8 @@ def static_layer_windows(cfg: ModelConfig) -> list[int]:
 
 
 def decoder_layer(p: dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
-                  rope: tuple[torch.Tensor, torch.Tensor], layer_window: int,
+                  rope: tuple[torch.Tensor, torch.Tensor] | None,
+                  layer_window: int,
                   cache: dict[str, torch.Tensor] | None,
                   cache_len: torch.Tensor | None
                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -154,11 +142,15 @@ def decoder_layer(p: dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     if cfg.moe is not None:
         out, aux = apply_moe(p["moe"], normed, cfg)
         return x + out, aux
-    return x + apply_mlp(p["mlp"], normed, cfg), None
+    if cfg.d_ff > 0:
+        x = x + apply_mlp(p["mlp"], normed, cfg)
+    return x, None
 
 
-def lm_hidden(params: dict[str, Any], tokens: torch.Tensor,
-              cfg: ModelConfig, *, positions: torch.Tensor | None = None,
+def lm_hidden(params: dict[str, Any], tokens: torch.Tensor | None,
+              cfg: ModelConfig, *,
+              input_embeds: torch.Tensor | None = None,
+              positions: torch.Tensor | None = None,
               cache: dict[str, torch.Tensor] | None = None
               ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None,
                          torch.Tensor]:
@@ -166,9 +158,13 @@ def lm_hidden(params: dict[str, Any], tokens: torch.Tensor,
     aux loss summed over layers (a 0-dim f32): every step of
     ``lm_apply`` but the LM head, which ``Model.prefill`` applies to the
     last position only."""
-    check_ported(cfg)
     cd = cfg.compute_dtype
-    x = params["embed"][tokens.long()].to(cd)
+    parts = []
+    if input_embeds is not None:
+        parts.append(input_embeds.to(cd))
+    if tokens is not None:
+        parts.append(params["embed"][tokens.long()].to(cd))
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     B, S, _ = x.shape
     cache_len = cache["len"] if cache is not None else None
     if positions is None:
@@ -195,17 +191,23 @@ def lm_hidden(params: dict[str, Any], tokens: torch.Tensor,
     return apply_norm(params["final_norm"], x, cfg), new_cache, aux
 
 
-def lm_apply(params: dict[str, Any], tokens: torch.Tensor,
-             cfg: ModelConfig, *, positions: torch.Tensor | None = None,
+def lm_apply(params: dict[str, Any], tokens: torch.Tensor | None,
+             cfg: ModelConfig, *,
+             input_embeds: torch.Tensor | None = None,
+             positions: torch.Tensor | None = None,
              cache: dict[str, torch.Tensor] | None = None
              ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None,
                         torch.Tensor]:
     """(B, S) int tokens -> ``(logits (B, S, V) in the compute dtype,
-    new_cache, aux)``.  Positions default to ``cache["len"] + 0..S-1``
-    (``0..S-1`` without a cache); ``new_cache`` is None without a
+    new_cache, aux)``.  ``input_embeds`` (B, P, d), if given, come
+    before the token embeddings (``tokens`` may then be None), and
+    ``positions`` must cover the P + S entries.  Positions default to
+    ``cache["len"] + 0..S-1`` (``0..S-1`` without a cache); M-RoPE
+    needs them given, (B, S, 3).  ``new_cache`` is None without a
     cache; ``aux`` is the MoE loss summed over layers, a 0-dim f32."""
-    x, new_cache, aux = lm_hidden(params, tokens, cfg, positions=positions,
-                                  cache=cache)
+    x, new_cache, aux = lm_hidden(params, tokens, cfg,
+                                  input_embeds=input_embeds,
+                                  positions=positions, cache=cache)
     return lm_head(params, x, cfg), new_cache, aux
 
 
@@ -215,7 +217,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``ssm_h`` (layers, B, di, n) and ``ssm_tail`` (layers, B, W-1, di)
     in the compute dtype; the ring cache is sized to the window only
     when every layer is a sliding one."""
-    check_ported(cfg)
     window = None
     if (cfg.windowed_cache and cfg.attn_type == "sliding"
             and not cfg.global_attn_layers):
@@ -228,6 +229,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-__all__ = ["NOT_PORTED", "check_ported", "decoder_layer", "init_cache",
+__all__ = ["decoder_layer", "init_cache",
            "lm_apply", "lm_head", "lm_hidden", "lm_init",
            "static_layer_windows", "unstack_layers"]

@@ -51,12 +51,12 @@ from repro_torch.models.layers import (
     rope_tables,
 )
 from repro_torch.models.transformer import (
-    check_ported,
     lm_apply,
     lm_head,
     lm_init,
     unstack_layers,
 )
+from repro_torch.models.xlstm import xlstm_block_kinds
 from repro_torch.utils.tree import (
     tree_dataclass,
     tree_gather,
@@ -97,28 +97,54 @@ def params_from_jax(params_np: dict[str, Any], cfg: ModelConfig,
                     device: torch.device | str | None = None
                     ) -> dict[str, Any]:
     """The port's parameters from the numpy leaves of a ``repro``
-    ``LMPolicy.init`` or stacked ``lm_init`` pytree
-    (``jax.tree.map(np.asarray, params)``): the same nested dict, layer
-    leaves stacked on their leading ``n_layers`` dim (the experts'
-    ``moe.wi`` (L, E, d, ff) and a hybrid's ``ssm.A_log``, ``ssm.conv``
-    and the rest alike), ``value_head`` included, so both packages
-    compute with the same weights."""
+    parameter pytree (``jax.tree.map(np.asarray, params)``) of
+    ``LMPolicy.init``, a stacked ``lm_init``, ``xlstm_lm_init`` or
+    ``whisper_init``: the same nested dicts and lists, so both packages
+    compute with the same weights.  Shapes are checked per family: a
+    decoder's layer leaves stacked on their leading ``n_layers`` dim
+    (the experts' ``moe.wi`` (L, E, d, ff) and a hybrid's ``ssm.A_log``,
+    ``ssm.conv`` and the rest alike), ``value_head`` included; an
+    xLSTM's ``layers`` a list of one dict a layer of its block kind;
+    Whisper's ``enc_layers`` stacked on ``enc_layers`` and
+    ``dec_layers`` on ``n_layers``."""
     device = resolve_device(device)
 
     def load(x: Any) -> Any:
         if isinstance(x, dict):
             return {k: load(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [load(v) for v in x]
         return torch.tensor(np.asarray(x), dtype=cfg.param_dtype,
                             device=device)
 
+    def want(name: str, got: torch.Tensor, shape: tuple[int, ...]) -> None:
+        if tuple(got.shape) != shape:
+            raise ValueError(f"{name} {tuple(got.shape)}, want {shape}")
+
+    def stacked(name: str, tree: Any, count: str) -> None:
+        n = getattr(cfg, count)
+        for path, leaf in tree_leaves_with_path(tree):
+            if leaf.shape[0] != n:
+                raise ValueError(f"{name}.{path}: leading dim "
+                                 f"{leaf.shape[0]}, want {count}={n}")
+
     params = load(params_np)
-    want = (cfg.vocab, cfg.d_model)
-    if tuple(params["embed"].shape) != want:
-        raise ValueError(f"embed {tuple(params['embed'].shape)}, want {want}")
-    for path, leaf in tree_leaves_with_path(params["layers"]):
-        if leaf.shape[0] != cfg.n_layers:
-            raise ValueError(f"layers.{path}: leading dim {leaf.shape[0]}, "
-                             f"want n_layers={cfg.n_layers}")
+    V, d = cfg.vocab, cfg.d_model
+    if cfg.family == "encdec":
+        want("dec_embed", params["dec_embed"], (V, d))
+        want("dec_pos", params["dec_pos"], (cfg.max_seq, d))
+        want("lm_head", params["lm_head"], (d, V))
+        stacked("enc_layers", params["enc_layers"], "enc_layers")
+        stacked("dec_layers", params["dec_layers"], "n_layers")
+        return params
+    want("embed", params["embed"], (V, d))
+    if cfg.family == "ssm":
+        kinds = xlstm_block_kinds(cfg)
+        got = [sorted(set(layer) - {"norm"}) for layer in params["layers"]]
+        if got != [[kind] for kind in kinds]:
+            raise ValueError(f"layers {got}, want {kinds}")
+        return params
+    stacked("layers", params["layers"], "n_layers")
     return params
 
 
@@ -137,7 +163,6 @@ class LMPolicy:
         if self.cfg.moe is not None or self.cfg.ssm is not None:
             raise ValueError("LMPolicy supports dense transformer "
                              "backbones only")
-        check_ported(self.cfg)
         self.spec = spec
         self.max_len = int(max_len)
         if obs_slot is None:

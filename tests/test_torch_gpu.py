@@ -764,6 +764,66 @@ def test_blocked_train_step_on_the_card_matches_the_cpu(cuda):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("arch", ["xlstm-125m", "whisper-large-v3",
+                                  "qwen2-vl-72b"])
+def test_family_forward_on_the_card_matches_the_cpu(cuda, arch):
+    """The f32 smoke xLSTM, Whisper and vlm (blocked: one flash launch a
+    layer, patch embeddings before the tokens, M-RoPE positions):
+    ``Model.prefill`` and 4 greedy ``decode_step``s on the card against
+    the CPU (identical tokens, logits within 1e-4) and ``train_loss``
+    (within 1e-5)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import synth_batch
+    from repro_torch.models import ShapeSpec, build_model
+    from repro_torch.utils.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch).replace(compute_dtype=torch.float32,
+                                         attn_impl="blocked")
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    S = 16
+    batch = synth_batch(build_model(cfg, "cpu"),
+                        ShapeSpec("p", "prefill", S, 2),
+                        torch.Generator().manual_seed(1))
+    train = synth_batch(build_model(cfg, "cpu"),
+                        ShapeSpec("t", "train", S, 2),
+                        torch.Generator().manual_seed(2))
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = train["patch_embeds"]
+        batch["tokens"] = batch["tokens"][:, 4:]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, dev)
+        p = tree_map(lambda x: x.to(dev), params)
+        before = flash_attention.launches
+        logits, cache = model.prefill(
+            p, {k: v.to(dev) for k, v in batch.items()}, max_len=S + 4)
+        if dev == "cuda" and cfg.family == "vlm":
+            assert flash_attention.launches - before == 0  # S < max_len
+        toks, logs = [], [logits.cpu()]
+        for t in range(4):
+            nxt = logits.argmax(-1).to(torch.int32)
+            toks.append(nxt.cpu())
+            pos = (torch.full((2, 1, 3), S + t, device=dev)
+                   if cfg.family == "vlm" else None)
+            logits, cache = model.decode_step(p, nxt[:, None], cache,
+                                              positions=pos)
+            logs.append(logits.cpu())
+        loss, _ = model.train_loss(p, {k: v.to(dev)
+                                       for k, v in train.items()})
+        runs[dev] = (torch.stack(toks), torch.stack(logs), float(loss))
+        if cfg.family == "vlm":
+            before = flash_attention.launches
+            model.prefill(p, {k: v.to(dev) for k, v in batch.items()},
+                          max_len=S)
+            if dev == "cuda":
+                assert flash_attention.launches - before == cfg.n_layers
+    assert torch.equal(runs["cuda"][0], runs["cpu"][0])
+    torch.testing.assert_close(runs["cuda"][1], runs["cpu"][1], rtol=1e-4,
+                               atol=1e-4)
+    assert abs(runs["cuda"][2] - runs["cpu"][2]) <= 1e-5
+
+
 def test_decode_pool_on_the_card_matches_the_cpu(cuda):
     torch.backends.cuda.matmul.allow_tf32 = False
     spec = EnvSpec("serve", ArraySpec((2,), torch.int32, 0, 63),

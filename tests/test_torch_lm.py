@@ -250,6 +250,9 @@ def test_lm_init_shapes_and_refusals():
                 cfg.replace(ssm=SSMConfig())):
         with pytest.raises(ValueError, match="dense transformer"):
             tlm.LMPolicy(tspec, bad, device="cpu")
-    # a family the port has no forward for
-    with pytest.raises(NotImplementedError, match="A13"):
-        tlm.LMPolicy(tspec, cfg.replace(family="ssm"), device="cpu")
+    # repro checks the config's moe and ssm parts only: the xLSTM,
+    # Whisper and vlm configs construct in both packages alike
+    for arch in ("xlstm-125m", "whisper-large-v3", "qwen2-vl-72b"):
+        assert jlm.LMPolicy(jspec, j_smoke(arch)).cfg.name == arch
+        assert tlm.LMPolicy(tspec, get_smoke_config(arch),
+                            device="cpu").cfg.name == arch

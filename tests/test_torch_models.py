@@ -16,7 +16,14 @@ leaves of ``repro``'s ``lm_init``):
 * the conformance pin: ``LMPolicy``'s greedy collect picks the tokens
   ``Model.decode_step`` picks replaying each lane alone;
 * the cache layout, smoke configs, ``cell_supported`` and
-  ``model_flops_per_token`` of every ported arch against ``repro``'s.
+  ``model_flops_per_token`` of every arch against ``repro``'s;
+* the vlm family (qwen2-vl-72b): M-RoPE against ``repro``'s
+  ``apply_rope`` on (B, S, 3) positions, ``train_loss`` and its
+  gradients with a patch prefix, and the blocked prefill of patch
+  embeddings and tokens (the flash kernel's plain version here) then
+  decode steps at (B, 1, 3) positions against ``repro``'s;
+* ``input_specs`` and ``synth_batch`` of the xLSTM, Whisper and vlm
+  families at each cell kind.
 
 Everything runs in f32.  ``repro`` runs with ``scan_layers=False``, its
 static per-layer windows, as the port does (under ``lax.scan`` its int8
@@ -42,19 +49,23 @@ from repro.models import build_model as j_build  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.models.api import SHAPES as J_SHAPES  # noqa: E402
 from repro.models.api import cell_supported as j_cell_supported  # noqa: E402
+from repro.models.api import vlm_patches as j_vlm_patches  # noqa: E402
+from repro.models.layers import apply_rope as j_apply_rope  # noqa: E402
 from repro.models.common import (  # noqa: E402
     model_flops_per_token as j_flops,
 )
 
 import repro_torch  # noqa: E402
 import repro_torch.configs as tconfigs  # noqa: E402
+from _torch_family import assert_leaves_close, leaves  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.models import SHAPES, build_model  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.api import cell_supported  # noqa: E402
 from repro_torch.models.common import model_flops_per_token  # noqa: E402
-from repro_torch.models.transformer import NOT_PORTED  # noqa: E402
+from repro_torch.models.api import vlm_patches  # noqa: E402
+from repro_torch.models.layers import apply_rope, rope_tables  # noqa: E402
 from repro_torch.rl import policy_lm as tlm  # noqa: E402
 
 TOL = 2e-4
@@ -301,15 +312,16 @@ def test_init_cache_matches_repro_layout():
 
 CONFIG_FIELDS = ("family", "n_layers", "d_model", "n_heads", "n_kv_heads",
                  "d_ff", "vocab", "hd", "qk_norm", "mlp_type", "norm_type",
-                 "rope_theta", "attn_type", "window", "global_attn_layers",
-                 "tie_embeddings", "windowed_cache", "attn_impl",
-                 "kv_cache_dtype", "sub_quadratic")
+                 "rope_theta", "rope_type", "mrope_sections", "attn_type",
+                 "window", "global_attn_layers", "enc_layers", "enc_seq",
+                 "frontend", "tie_embeddings", "max_seq", "windowed_cache",
+                 "attn_impl", "kv_cache_dtype", "sub_quadratic")
 
 
 def assert_configs_equal(tcfg, jcfg, name: str) -> None:
     for field in CONFIG_FIELDS:
         assert getattr(tcfg, field) == getattr(jcfg, field), (name, field)
-    for part in ("moe", "ssm"):
+    for part in ("moe", "ssm", "xlstm"):
         t, j = getattr(tcfg, part), getattr(jcfg, part)
         assert (t is None) == (j is None), (name, part)
         if t is not None:
@@ -318,8 +330,7 @@ def assert_configs_equal(tcfg, jcfg, name: str) -> None:
 
 
 def test_smoke_configs_match_repro():
-    assert set(tconfigs.list_archs()) == set(jconfigs.list_archs()) - {
-        "whisper-large-v3", "qwen2-vl-72b", "xlstm-125m"}
+    assert tconfigs.list_archs() == jconfigs.list_archs()
     for name in tconfigs.list_archs():
         assert_configs_equal(get_smoke_config(name), j_smoke(name), name)
         assert_configs_equal(tconfigs.get_config(name),
@@ -327,8 +338,9 @@ def test_smoke_configs_match_repro():
 
 
 def test_cell_supported_and_flops_match_repro():
-    """Every ported arch x every shape cell, at full width and smoke
-    size: ``long_500k`` only for hymba (sliding attention + SSM)."""
+    """Every arch x every shape cell, at full width and smoke size:
+    ``long_500k`` only for hymba (sliding attention + SSM) and the
+    xLSTM; whisper's FLOPs with its encoder and cross-attention terms."""
     for name in tconfigs.list_archs():
         for tcfg, jcfg in ((tconfigs.get_config(name),
                             jconfigs.get_config(name)),
@@ -337,8 +349,12 @@ def test_cell_supported_and_flops_match_repro():
                 assert cell_supported(tcfg, SHAPES[cell]) == \
                     j_cell_supported(jcfg, J_SHAPES[cell]), (name, cell)
             assert model_flops_per_token(tcfg) == j_flops(jcfg), name
-    assert cell_supported(tconfigs.get_config("hymba-1.5b"),
-                          SHAPES["long_500k"]) == (True, "")
+    for name in ("hymba-1.5b", "xlstm-125m"):
+        assert cell_supported(tconfigs.get_config(name),
+                              SHAPES["long_500k"]) == (True, "")
+    whisper = tconfigs.get_config("whisper-large-v3")
+    assert model_flops_per_token(whisper) > model_flops_per_token(
+        whisper.replace(enc_layers=0))
 
 
 def test_shapes_and_synth_batch():
@@ -367,14 +383,12 @@ def test_shapes_and_synth_batch():
 
 
 def test_what_is_not_ported_raises(monkeypatch):
+    """Only the model-parallel steps (A19) are not ported: every arch of
+    the registry builds and draws its smoke weights on the CPU."""
     _, tcfg = configs("qwen3")
-    assert set(NOT_PORTED) == {"ssm", "encdec", "vlm"}
-    for family, item in NOT_PORTED.items():
-        assert item == "A13"
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(tcfg.replace(family=family), "cpu")
-    for arch in ("granite-moe", "hymba", "dbrx"):
-        build_model(configs(arch)[1], "cpu")
+    for name in tconfigs.list_archs():
+        model = build_model(get_smoke_config(name), "cpu")
+        assert model.init(torch.Generator().manual_seed(0))
     model = build_model(tcfg, "cpu")
     with pytest.raises(NotImplementedError, match="A19"):
         tsteps.make_prefill_step(model, 8, mesh=object())
@@ -387,3 +401,138 @@ def test_what_is_not_ported_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(tcfg)
+
+
+# --------------------------------------------------------------------- #
+# the vlm family: M-RoPE and a patch prefix (qwen2-vl-72b)
+# --------------------------------------------------------------------- #
+VLM = "qwen2-vl-72b"
+
+
+def vlm_configs(**variant):
+    jcfg = j_smoke(VLM).replace(compute_dtype=jnp.float32,
+                                scan_layers=False, **variant)
+    tcfg = get_smoke_config(VLM).replace(compute_dtype=torch.float32,
+                                         **variant)
+    return jcfg, tcfg
+
+
+def mrope_positions(B: int, grid: int, text: int) -> np.ndarray:
+    """Qwen2-VL's position ids (B, grid^2 + text, 3): the patches at
+    (0, row, col), then text from the grid's largest id + 1 with t = h
+    = w."""
+    r, c = np.divmod(np.arange(grid * grid), grid)
+    patches = np.stack([np.zeros_like(r), r, c], -1)
+    t = grid + np.arange(text)
+    pos = np.concatenate([patches, np.stack([t, t, t], -1)])
+    return np.broadcast_to(pos, (B,) + pos.shape).astype(np.int32).copy()
+
+
+def vlm_batch(tcfg, B: int, grid: int, text: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"patch_embeds": (rng.normal(0, 0.02, (B, grid * grid,
+                                                  tcfg.d_model))
+                             .astype(np.float32)),
+            "tokens": tokens(tcfg.vocab, (B, text), seed),
+            "positions": mrope_positions(B, grid, text)}
+
+
+@pytest.mark.parametrize("rope_type", ["mrope", "none"])
+def test_rope_variants_match_repro(rope_type):
+    jcfg, tcfg = vlm_configs(rope_type=rope_type)
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(2, 11, 4, 16)).astype(np.float32)
+    pos = rng.integers(0, 300, (2, 11, 3)).astype(np.int32)
+    want = j_apply_rope(jnp.asarray(x), jnp.asarray(pos), jcfg)
+    tables = rope_tables(torch.from_numpy(pos), tcfg)
+    assert (tables is None) == (rope_type == "none")
+    got = apply_rope(torch.from_numpy(x), tables, tcfg)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=1e-6, atol=1e-6)
+    if rope_type == "mrope":
+        with pytest.raises(ValueError, match=r"\(B, S, 3\)"):
+            rope_tables(torch.from_numpy(pos[..., 0]), tcfg)
+
+
+@pytest.mark.parametrize("impl", ["dense", "blocked"])
+def test_vlm_train_loss_and_grads_match_repro(impl):
+    """The loss over the text region after a prefix of patch embeddings;
+    the gradients in every weight."""
+    jcfg, tcfg = vlm_configs(attn_impl=impl)
+    jparams, tparams = weights(jcfg, tcfg, seed=4)
+    b = vlm_batch(tcfg, 2, 2, 13, seed=4)
+    jbatch = {"tokens": jnp.asarray(b["tokens"][:, :-1]),
+              "labels": jnp.asarray(b["tokens"][:, 1:]),
+              "patch_embeds": jnp.asarray(b["patch_embeds"]),
+              "positions": jnp.asarray(b["positions"][:, :-1])}
+    (jloss, _), jg = jax.jit(jax.value_and_grad(
+        j_build(jcfg).train_loss, has_aux=True))(jparams, jbatch)
+    loss, metrics, tg = tsteps.loss_and_grads(
+        build_model(tcfg, "cpu"), tparams,
+        {k: torch.from_numpy(np.array(v)) for k, v in jbatch.items()})
+    assert float(metrics["aux"]) == 0.0
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5,
+                               atol=1e-5)
+    assert_leaves_close(leaves(tg), leaves(jg), 2e-4)
+
+
+def test_vlm_blocked_prefill_and_decode_match_repro():
+    """Patch embeddings and tokens fill the cache through the blocked
+    branch (one flash call a layer), then decode steps at (B, 1, 3)
+    positions: logits and caches against ``repro``'s."""
+    jcfg, tcfg = vlm_configs(attn_impl="blocked")
+    jparams, tparams = weights(jcfg, tcfg, seed=5)
+    b = vlm_batch(tcfg, 2, 3, 12, seed=5)       # 9 patches + 12 tokens
+    S = 9 + 8
+    pre = {"patch_embeds": b["patch_embeds"], "tokens": b["tokens"][:, :8],
+           "positions": b["positions"][:, :S]}
+    jm, tm = j_build(jcfg), build_model(tcfg, "cpu")
+    jprefill = jax.jit(jm.prefill, static_argnums=2)
+    jdecode = jax.jit(jm.decode_step)
+    jpre = {k: jnp.asarray(v) for k, v in pre.items()}
+    tpre = {k: torch.from_numpy(v) for k, v in pre.items()}
+    jlog, jc = jprefill(jparams, jpre, S)
+    tlog, tc = tm.prefill(tparams, tpre, max_len=S)
+    np.testing.assert_allclose(f32(tlog), f32(jlog), rtol=TOL, atol=TOL)
+    assert_caches_match(tc, jc)
+    # the decode steps against a cache with room for them
+    jlog, jc = jprefill(jparams, jpre, S + 4)
+    tlog, tc = tm.prefill(tparams, tpre, max_len=S + 4)
+    for t in range(8, 12):
+        tok, pos = b["tokens"][:, t:t + 1], b["positions"][:, 9 + t:10 + t]
+        jlog, jc = jdecode(jparams, jnp.asarray(tok), jc,
+                           positions=jnp.asarray(pos))
+        tlog, tc = tm.decode_step(tparams, torch.from_numpy(tok), tc,
+                                  positions=torch.from_numpy(pos))
+        np.testing.assert_allclose(f32(tlog), f32(jlog), rtol=TOL, atol=TOL)
+        assert_caches_match(tc, jc)
+
+
+@pytest.mark.parametrize("name", ["xlstm-125m", "whisper-large-v3",
+                                  "qwen2-vl-72b"])
+def test_input_specs_and_synth_batch_per_family(name):
+    """``input_specs`` of a train, a prefill and a decode cell equal
+    ``repro``'s; ``synth_batch`` draws them by ``repro``'s rules: tokens
+    and labels in [0, vocab), M-RoPE positions in [0, 4), frames and
+    patch embeddings normals x 0.02 in the compute dtype."""
+    tcfg = get_smoke_config(name)
+    model, jmodel = build_model(tcfg, "cpu"), j_build(j_smoke(name))
+    assert vlm_patches(64) == j_vlm_patches(64) == 16
+    assert vlm_patches(1 << 20) == j_vlm_patches(1 << 20) == 1024
+    for kind, S, B in (("train", 64, 3), ("prefill", 64, 2),
+                       ("decode", 64, 4)):
+        specs = model.input_specs(tsteps.ShapeSpec("c", kind, S, B))
+        jspecs = jmodel.input_specs(J_SHAPES["train_4k"].__class__(
+            "c", kind, S, B))
+        assert {k: (shp, str(d).removeprefix("torch."))
+                for k, (shp, d) in specs.items()} == {
+            k: (tuple(v.shape), str(v.dtype)) for k, v in jspecs.items()}
+        batch = tsteps.synth_batch(model, tsteps.ShapeSpec("c", kind, S, B),
+                                   torch.Generator().manual_seed(0))
+        for k, (shp, dtype) in specs.items():
+            x = batch[k]
+            assert tuple(x.shape) == shp and x.dtype == dtype, k
+            if dtype.is_floating_point:
+                assert 0.01 < float(x.float().std()) < 0.03, k
+            else:
+                hi = tcfg.vocab if k in ("tokens", "labels") else 4
+                assert 0 <= int(x.min()) and int(x.max()) < hi, k

@@ -248,6 +248,23 @@ def test_running_the_port_imports_neither_jax_nor_repro():
         "    nxt, cache = make_prefill_step(model, 8)(params, batch)\n"
         "    make_serve_step(model)(params, cache, {'tokens': nxt[:, None]})\n"
         "    model.train_loss(params, dict(batch, labels=batch['tokens']))\n"
+        "from repro_torch.configs import (qwen2_vl_72b, whisper_large_v3,\n"
+        "                                 xlstm_125m)\n"
+        "from repro_torch.models import whisper, xlstm\n"
+        "for arch in ('xlstm-125m', 'whisper-large-v3', 'qwen2-vl-72b'):\n"
+        "    model = build_model(get_smoke_config(arch).replace(\n"
+        "        attn_impl='blocked'), 'cpu')\n"
+        "    params = model.init(torch.Generator().manual_seed(0))\n"
+        "    batch = synth_batch(model, ShapeSpec('p', 'prefill', 8, 2),\n"
+        "                        torch.Generator().manual_seed(1))\n"
+        "    nxt, cache = make_prefill_step(model, 8)(params, batch)\n"
+        "    step = {'tokens': nxt[:, None]}\n"
+        "    if arch == 'qwen2-vl-72b':\n"
+        "        step['positions'] = torch.full((2, 1, 3), 8)\n"
+        "    make_serve_step(model)(params, cache, step)\n"
+        "    train = synth_batch(model, ShapeSpec('t', 'train', 8, 2),\n"
+        "                        torch.Generator().manual_seed(2))\n"
+        "    model.train_loss(params, train)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"

@@ -10,7 +10,11 @@ the CPU (``--device cpu``), held to ``repro``'s own criteria
 * SIGTERM mid-run flushes a checkpoint and exits 0, and the run started
   again from it ends with the straight run's loss (rtol 1e-4);
 * without a card it refuses to start unless ``--device cpu`` is given,
-  and ``--mesh debug`` names ROADMAP A19.
+  and ``--mesh debug`` names ROADMAP A19;
+* ``--arch xlstm-125m --smoke`` trains as ``repro``'s CLI does (the
+  same logged steps and learning rates, finite losses starting at about
+  ln(vocab) and falling below it, the two within 0.1): the CLI needs no
+  code of its own for the xLSTM beyond the registry entry.
 """
 
 import json
@@ -97,6 +101,30 @@ def test_sigterm_flushes_a_checkpoint_to_resume_from(tmp_path):
     assert resumed[0]["step"] == step
     np.testing.assert_allclose(loss_at(resumed, 119), loss_at(straight, 119),
                                rtol=1e-4)
+
+
+def test_cli_trains_xlstm_as_repro(tmp_path):
+    flags = ["--arch", "xlstm-125m", "--smoke", "--steps", "40", "--batch",
+             "8", "--seq", "32", "--lr", "3e-3", "--warmup", "5",
+             "--log-every", "20"]
+    ours = history(*flags, "--device", "cpu", out=str(tmp_path / "t.json"))
+    cmd = [sys.executable, "-m", "repro.launch.train", *flags, "--out-json",
+           str(tmp_path / "j.json")]
+    p = subprocess.run(cmd, env=dict(ENV, JAX_PLATFORMS="cpu"),
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-2000:]
+    theirs = json.load(open(tmp_path / "j.json"))
+    assert [h["step"] for h in ours] == [h["step"] for h in theirs] == [
+        0, 20, 39]
+    np.testing.assert_allclose([h["lr"] for h in ours],
+                               [h["lr"] for h in theirs], rtol=1e-6)
+    for hist in (ours, theirs):
+        losses = [h["loss"] for h in hist]
+        assert np.isfinite(losses).all()
+        assert abs(losses[0] - np.log(512)) < 0.1, losses
+        assert min(losses[1:]) < losses[0], losses
+    np.testing.assert_allclose([h["loss"] for h in ours],
+                               [h["loss"] for h in theirs], atol=0.1)
 
 
 def test_cli_refuses_what_it_cannot_run(monkeypatch):

@@ -318,7 +318,8 @@ def test_train_state_shapes_match_the_state():
 @pytest.mark.parametrize("name", ["qwen3-0.6b", "llama3.2-3b",
                                   "starcoder2-3b", "qwen3-14b",
                                   "granite-moe-3b-a800m", "hymba-1.5b",
-                                  "dbrx-132b"])
+                                  "dbrx-132b", "xlstm-125m",
+                                  "whisper-large-v3", "qwen2-vl-72b"])
 def test_model_flops_per_token_matches_repro(name):
     from repro.configs import get_config as j_get
 
