@@ -2,7 +2,7 @@
 """Build and drive the PyTorch/CUDA port (``src/repro_torch``) on one
 CUDA card, and check what comes out.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, in order; any failure exits non-zero:
 
@@ -60,9 +60,9 @@ Phases, in order; any failure exits non-zero:
    the path must have launched:
    - the pool, through ``repro_torch.make``: Ant-v3 N=4096 sync and
      N=4096/M=2048 async (fifo), PongClassic-v5 N=1024 sync and
-     N=1024/M=512 async (sjf), 200 recvs each, and PongClassic-v5
+     N=1024/M=512 async (sjf), 100 recvs each, and PongClassic-v5
      N=1024 sync with the playfield cropped (Grayscale, Crop, Resize,
-     FrameStack, RewardClip), 100 recvs; the two sync pools again with
+     FrameStack, RewardClip), 50 recvs; the two sync pools again with
      ``obs=False`` (no counters: the uninstrumented recv, the baseline
      of the telemetry's cost); ``engine="device-masked"`` Ant-v3
      N=4096/M=2048 (the tick ablation, 50 recvs, with its ticks per
@@ -114,6 +114,12 @@ Phases, in order; any failure exits non-zero:
      steps at B=1 (the ``long_500k`` cell's decode step); each with one
      call or step under ``torch.profiler``; no prefill may copy a flash
      input (``flash_attention.copies``, nor phase 4's model checks);
+     each row also prints its cell in ``distributed/analytic.py``'s
+     model (``cell_cost`` of its own kind, S and B: a serve step is a
+     decode over its whole static cache), ``analytic_flops``,
+     ``analytic_bytes``, ``bound_ms`` (the larger of the FLOPs over the
+     dense bf16 peak and the bytes over 3.35 TB/s) and ``of_bound``
+     (bound_ms / ms a call or step);
 4. the card against the CPU: 20 recvs of PongClassic-v5 and Ant-v3 at
    N=16 (async M=8), masked Ant-v3 (M=8), AntSkew-v3 (M=8, sjf) and
    AntNorm-v3 (sync) from one key on ``cuda`` and on ``cpu``: ids,
@@ -157,8 +163,8 @@ Phases, in order; any failure exits non-zero:
    (``torch.profiler``, three recvs; the subprocess rows' kernels run in
    their workers, out of its sight) and ``stats()`` with its
    conservation laws: Ant-v3 N=32 thread (sync and M=16), forloop and
-   subprocess (4 workers), on the card and on the CPU, 10 recvs each;
-   PongClassic-v5 N=16 thread (sync and M=8) on the card, 5 recvs each;
+   subprocess (4 workers), on the card and on the CPU, 5 recvs each;
+   PongClassic-v5 N=16 thread (sync and M=8) on the card, 3 recvs each;
    and ``train_host`` on Ant-v3 N=16 with the envs on the CPU and the
    learner on the card (16 steps, ``PPOConfig``'s 4 x 4 minibatches,
    MLP 256-128-64), two iterations, the second's four Fig. 4 buckets;
@@ -203,7 +209,23 @@ Phases, in order; any failure exits non-zero:
    every parameter changed.  Then ``python -m repro_torch.launch.train``
    on the card: ``repro``'s learning criterion at tests/test_system.py's
    flags, and 40 steps straight against 20 + restart + 20 (loss within
-   rtol 1e-4, the final parameters compared bitwise).
+   rtol 1e-4, the final parameters compared bitwise).  The train step's
+   row also prints its ``cell_cost`` (train S=512 B=8: forward x 3, the
+   port has no rematerialisation), bound, ``of_bound`` and analytic
+   TFLOP/s beside ``model_flops_per_token``'s.
+
+8. the tooling and the examples: ``optim/compression.py::compress_tree``
+   over a gradient tree of qwen3-0.6b's every parameter leaf (596M f32,
+   normals from a seed on the card) with an error buffer, timed (ms,
+   GB/s, its bytes bound: gradient and error read, codes, scales and
+   error written) and held bitwise against the same call on the CPU on
+   every leaf; the five ``examples/*_torch.py`` through their
+   ``main()`` at their JAX counterparts' defaults on the card
+   (``ppo_atari_torch.py`` at ``PPO_STEPS``), each output echoed and
+   checked for its rate; with ``--parent DIR`` (a checkout of the parent
+   commit) phase 3's Ant-v3 N=4096 and PongClassic-v5 N=1024 sync rows'
+   kernels a recv beside the parent tree's own, run in a process of its
+   own: no more than the parent's.
 
 Then a ``kernels`` JSON line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py turns``
@@ -1110,7 +1132,7 @@ def check_stats(tag: str, stats: dict, m: int) -> None:
 
 
 def drive_pool(task: str, n: int, m: int | None, schedule: str,
-               path: tuple[str, ...], recvs: int = 200,
+               path: tuple[str, ...], recvs: int = 100,
                transforms=None, obs: bool = True,
                engine: str = "device", shards: int | None = None) -> dict:
     """``recvs`` timed recvs of ``task`` after ten of warm-up, then five
@@ -1628,6 +1650,33 @@ def top3(prof: dict, unit: str) -> dict:
     return None if top is None else dict(list(top.items())[:3])
 
 
+def analytic_bound(cfg, kind: str, seq: int, batch: int, ms: float) -> dict:
+    """The row's cell in ``distributed/analytic.py``'s model,
+    ``cell_cost(cfg, ShapeSpec(kind, seq, batch), 1)`` (``repro``'s at
+    ``remat="none"``), and its bound on the card: the larger of its FLOPs
+    over the dense bf16 peak and its bytes over the memory rate;
+    ``of_bound`` = bound_ms / ``ms``, the row's own time."""
+    from repro_torch.distributed.analytic import cell_cost
+    from repro_torch.models import ShapeSpec
+
+    cost = cell_cost(cfg, ShapeSpec(kind, kind, seq, batch), 1)
+    flops_ms = cost.flops_global / BF16_TENSOR_OPS_PER_S * 1e3
+    bytes_ms = cost.bytes_per_device / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(flops_ms, bytes_ms)
+    return {"analytic_cell": f"{kind} S={seq} B={batch}",
+            "analytic_flops": cost.flops_global,
+            "analytic_bytes": cost.bytes_per_device,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+            "of_bound": bound_ms / ms}
+
+
+def bound_text(row: dict) -> str:
+    return (f"analytic {row['analytic_flops']:.4g} FLOP, "
+            f"{row['analytic_bytes']:.4g} bytes, bound {row['bound_ms']:.3f}"
+            f" ms ({row['bound_by']}), {row['of_bound']:.4f} of it")
+
+
 def drive_prefill(model, params, batch: int, seq: int, calls: int = 3,
                   inputs: dict | None = None) -> dict:
     """``make_prefill_step(model, seq)`` on ``batch`` synthetic prompts of
@@ -1706,11 +1755,13 @@ def drive_prefill(model, params, batch: int, seq: int, calls: int = 3,
                top3_kernels_ms_per_call=top3(prof, "call"),
                device_idle_share=(None if busy is None
                                   else 1.0 - busy / out["ms_per_call"]))
+    out.update(analytic_bound(cfg, "prefill", seq, batch,
+                              out["ms_per_call"]))
     log(f"  prefill {cfg.name} {cfg.attn_type} B={batch} S={seq}: "
         f"{out['tokens_per_s']:.0f} tokens/s, {out['ms_per_call']:.1f} ms "
         f"per call, device busy {busy} ms per call, flash launches per call "
         f"{out['flash_launches_per_call']}, peak {out['peak_gb']:.2f} GB, "
-        f"top {out['top3_kernels_ms_per_call']}")
+        f"top {out['top3_kernels_ms_per_call']}; {bound_text(out)}")
     return out
 
 
@@ -1830,12 +1881,15 @@ def drive_model_serve(model, params, batch: int, prompt: int,
                top3_kernels_ms_per_step=top3(prof, "step"),
                device_idle_share=(None if busy is None
                                   else 1.0 - busy / out["ms_per_step"]))
+    # a step reads the whole static cache of max_len positions
+    out.update(analytic_bound(cfg, "decode", max_len, batch,
+                              out["ms_per_step"]))
     log(f"  serve {cfg.name} B={batch} prompt {prompt} cache {max_len}: "
         f"prefill {out['prefill_ms']:.1f} ms, {out['tokens_per_s']:.1f} "
         f"tokens/s, {out['ms_per_step']:.2f} ms per step, device busy "
         f"{busy} ms per step, {out['kernels_per_step']} kernels a step, "
         f"peak {out['peak_gb']:.2f} GB, top "
-        f"{out['top3_kernels_ms_per_step']}")
+        f"{out['top3_kernels_ms_per_step']}; {bound_text(out)}")
     return out
 
 
@@ -2307,13 +2361,13 @@ def host_phase() -> list[dict]:
     cross_check_host_cpu("PongClassic-v5", None)
     rows = []
     for dev in (DEV, "cpu"):
-        rows += [drive_host("Ant-v3", 32, None, "thread", dev, 10),
-                 drive_host("Ant-v3", 32, 16, "thread", dev, 10),
-                 drive_host("Ant-v3", 32, None, "forloop", dev, 10),
-                 drive_host("Ant-v3", 32, None, "subprocess", dev, 10,
+        rows += [drive_host("Ant-v3", 32, None, "thread", dev, 5),
+                 drive_host("Ant-v3", 32, 16, "thread", dev, 5),
+                 drive_host("Ant-v3", 32, None, "forloop", dev, 5),
+                 drive_host("Ant-v3", 32, None, "subprocess", dev, 5,
                             num_threads=4)]
-    rows += [drive_host("PongClassic-v5", 16, None, "thread", DEV, 5),
-             drive_host("PongClassic-v5", 16, 8, "thread", DEV, 5)]
+    rows += [drive_host("PongClassic-v5", 16, None, "thread", DEV, 3),
+             drive_host("PongClassic-v5", 16, 8, "thread", DEV, 3)]
     host_row = drive_train_host()
     rows += [host_row, drive_train_host_pipelined(host_row),
              drive_train_host_pipelined(host_row, n=8, num_steps=8,
@@ -3098,6 +3152,7 @@ def drive_lm_train(warmup: int = 2, timed: int = 5) -> dict:
            "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
            "model_tflops_per_s":
                model_flops_per_token(cfg) * tokens / ms * 1e-9,
+           **analytic_bound(cfg, "train", TRAIN_S, TRAIN_B, ms),
            "flash_launches_per_step": launches["flash_attention"] / timed,
            "flash_copies": flash_attention.copies - copies,
            "losses": losses, "peak_memory_gb": peak / 1e9,
@@ -3110,9 +3165,12 @@ def drive_lm_train(warmup: int = 2, timed: int = 5) -> dict:
            "attn_backward_alone_ms_per_step": bwd_alone * cfg.n_layers,
            "attn_backward_alone_share": bwd_alone * cfg.n_layers / ms,
            "launches": launches, "card": CARD}
+    out["analytic_tflops_per_s"] = out["analytic_flops"] / ms * 1e-9
     log(f"  train {cfg.name} blocked B={TRAIN_B} S={TRAIN_S}: "
         f"{out['tokens_per_s']:.0f} tokens/s, {ms:.2f} ms per step, "
-        f"{out['model_tflops_per_s']:.1f} model TFLOP/s, flash launches "
+        f"{out['model_tflops_per_s']:.1f} model TFLOP/s "
+        f"(model_flops_per_token), {out['analytic_tflops_per_s']:.1f} "
+        f"analytic TFLOP/s; {bound_text(out)}; flash launches "
         f"per step {out['flash_launches_per_step']}, device busy {busy} ms "
         f"per step (idle share {out['device_idle_share']}), top "
         f"{out['top3_kernels_ms_per_step']}, plain attention backward "
@@ -3193,9 +3251,168 @@ def drive_lm_cli() -> dict:
     return out
 
 
-def main() -> int:
+# ---------------------------------------------------------------------- #
+# phase 8: the model zoo's tooling and the examples
+# ---------------------------------------------------------------------- #
+# ppo_atari_torch.py's 100 000 default steps, cut to one iteration of its
+# 8 lanes x 128 steps (~7 s on the card): async_vs_sync_torch.py's
+# defaults alone take 40-50 s, and phase 8 stays within 90 s
+PPO_STEPS = 1024
+# each example's argv on the card (its defaults but for --device) and a
+# field its output must carry
+EXAMPLES = [
+    ("quickstart_torch", [], "async env steps/s"),
+    ("async_vs_sync_torch", [], "tokens/s"),
+    ("ppo_atari_torch", ["--total-steps", str(PPO_STEPS)], "env steps/s"),
+    ("serve_lm_torch", [], "tok/s"),
+    ("sharded_scaleout_torch", [], "steps/s"),
+]
+# the unified engine's rows held against the parent tree's
+ENGINE_ROWS = [("Ant-v3", 4096, ("env_step",)),
+               ("PongClassic-v5", 1024, ("pong_render", "grayscale",
+                                         "resize"))]
+
+
+def drive_compression() -> dict:
+    """``optim/compression.py::compress_tree`` over a gradient tree of
+    ``TRAIN_MODEL``'s every parameter leaf at its published shape
+    (normals x 1e-3 from a seeded generator on the card) with a
+    non-zero error buffer (one round of feedback), timed with CUDA
+    events; then the same call on the CPU copies: codes, scales and the
+    new error bitwise on every leaf.  The bound moves each input and
+    output once: the f32 gradient and error read, the int8 codes, f32
+    scales and f32 error written."""
     import torch
 
+    from repro_torch.optim.compression import BLOCK, compress_tree
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    model, params = model_params(TRAIN_MODEL)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+
+    def draw(p):
+        return torch.randn(p.shape, generator=gen, device=DEV) * 1e-3
+
+    grads = tree_map(draw, params)
+    del model, params
+    _, err = compress_tree(grads, None)
+    numel = sum(g.numel() for g in tree_leaves(grads))
+    blocks = sum(-(-g.numel() // BLOCK) for g in tree_leaves(grads))
+    nbytes = 4 * numel * 3 + blocks * (BLOCK + 4)
+    ms = time_ms(lambda: compress_tree(grads, err), reps=3, trials=3)
+    q, new_err = compress_tree(grads, err)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q_cpu, err_cpu = compress_tree(tree_map(lambda g: g.cpu(), grads),
+                                   tree_map(lambda e: e.cpu(), err))
+    cpu_s = time.perf_counter() - t0
+    pairs = list(zip(tree_leaves(q) + tree_leaves(new_err),
+                     tree_leaves(q_cpu) + tree_leaves(err_cpu)))
+    unequal = sum(not torch.equal(a.cpu(), b) for a, b in pairs)
+    if unequal:
+        raise AssertionError(f"compress_tree: {unequal} of {len(pairs)} "
+                             "leaves differ between the card and the CPU")
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {"name": "compress_tree", "model": TRAIN_MODEL, "params": numel,
+           "leaves": len(tree_leaves(grads)), "ms": ms,
+           "gb_per_s": nbytes / ms * 1e-6, "bytes": nbytes,
+           "bound_ms": bound_ms, "of_bound": bound_ms / ms,
+           "cpu_s": cpu_s, "card_equals_cpu": True, "card": CARD}
+    log(f"  compress_tree {TRAIN_MODEL} ({numel} f32 in {out['leaves']} "
+        f"leaves): {ms:.3f} ms, {out['gb_per_s']:.1f} GB/s, bound "
+        f"{bound_ms:.3f} ms ({nbytes / 1e9:.3f} GB), {out['of_bound']:.4f}"
+        f" of it; the CPU {cpu_s:.1f} s, bitwise equal on every leaf")
+    del grads, err, q, new_err, q_cpu, err_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_example(name: str, argv: list[str], field: str) -> dict:
+    """``examples/<name>.py``'s ``main(argv)`` in this process, its output
+    captured and echoed, with the kernels it launched."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        module.main(argv + ["--device", DEV])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts(f"example {name}", ())
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"    {name}: {line}")
+    if field not in text:
+        raise AssertionError(f"example {name}: no {field!r} in its output")
+    return {"example": name, "argv": argv, "seconds": dt,
+            "lines": text.splitlines()[-6:],
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def parent_engine_rows(parent: str) -> list[dict]:
+    """``ENGINE_ROWS`` through the parent tree's own ``drive_pool``, in a
+    process of its own (its kernels built from its sources)."""
+    code = (
+        "import json, chip_smoke as c\n"
+        "rows = [c.drive_pool(t, n, None, 'fifo', p) for t, n, p in "
+        f"{ENGINE_ROWS!r}]\n"
+        "print('ROWS ' + json.dumps([{k: r[k] for k in ('task', "
+        "'kernels_per_recv', 'ms_per_recv', 'device_busy_ms_per_recv')} "
+        "for r in rows]))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=parent,
+                         capture_output=True, text=True, timeout=900)
+    if res.returncode:
+        raise AssertionError(f"the parent tree's rows failed: "
+                             f"{res.stderr[-3000:]}")
+    line = [x for x in res.stdout.splitlines() if x.startswith("ROWS ")]
+    return json.loads(line[-1][5:])
+
+
+def tooling_phase(engine_rows: list[dict], parent: str | None) -> dict:
+    """Phase 8: ``compress_tree`` at full width, the five examples at
+    their defaults (``PPO_STEPS`` for ppo_atari), and with a ``parent``
+    tree the unified engine's kernels a recv (``engine_rows``: phase 3's
+    ``ENGINE_ROWS``) beside the parent's, which may be no fewer."""
+    out = {"compression": drive_compression()}
+    log(f"  ppo_atari_torch: --total-steps cut from 100000 to {PPO_STEPS}")
+    out["examples"] = [run_example(*e) for e in EXAMPLES]
+    rows = [{k: r[k] for k in ("task", "kernels_per_recv", "ms_per_recv",
+                               "device_busy_ms_per_recv")}
+            for r in engine_rows]
+    out["engine_rows"] = rows
+    if parent is not None:
+        before = parent_engine_rows(parent)
+        out["parent_engine_rows"] = before
+        for now, was in zip(rows, before):
+            log(f"  {now['task']} sync kernels a recv: parent "
+                f"{was['kernels_per_recv']}, this tree "
+                f"{now['kernels_per_recv']}")
+            if now["kernels_per_recv"] > was["kernels_per_recv"]:
+                raise AssertionError(f"{now['task']}: more kernels a recv "
+                                     "than the parent tree")
+    return out
+
+
+def main(argv: list[str]) -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(prog="chip_smoke.py")
+    parser.add_argument("--parent", default=None,
+                        help="a checkout of the parent commit: phase 8 "
+                             "holds the engine's kernels a recv against "
+                             "its own")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3237,7 +3454,7 @@ def main() -> int:
         drive_pool("PongClassic-v5", 1024, None, "fifo", pong, obs=False),
         drive_pool("PongClassic-v5", 1024, 512, "sjf", pong),
         drive_pool("PongClassic-v5", 1024, None, "fifo", pong + ("crop",),
-                   recvs=100, transforms=cropped),
+                   recvs=50, transforms=cropped),
         drive_pool("Ant-v3", 4096, 2048, "fifo", ant, recvs=50,
                    engine="device-masked"),
         drive_pool("AntSkew-v3", 4096, 2048, "sjf", ant),
@@ -3320,6 +3537,13 @@ def main() -> int:
     for k, v in lm_train["step"]["launches"].items():
         kernels[k]["launches"] += v
 
+    log(f"phase 8: the tooling and the examples {at()}")
+    tooling = tooling_phase([runs[0], runs[3]], args.parent)
+    log(json.dumps({"tooling": tooling, "card": card}))
+    for r in tooling["examples"]:
+        for k, v in r["launches"].items():
+            kernels[k]["launches"] += v
+
     log(f"done {at()}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
@@ -3398,4 +3622,4 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["turns"]:
         sys.exit(train_turns(sys.argv[2:]))
     sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["rank"]
-             else main())
+             else main(sys.argv[1:]))

@@ -10,8 +10,11 @@ from repro_torch.configs import (
     dbrx_132b,
     granite_moe_3b,
     hymba_1_5b,
+    llama3_2_3b,
     qwen2_vl_72b,
     qwen3_0_6b,
+    qwen3_14b,
+    starcoder2_3b,
     whisper_large_v3,
     xlstm_125m,
 )
@@ -23,38 +26,10 @@ from repro_torch.models.common import (
 )
 
 
-def _qwen3_14b() -> ModelConfig:
-    return ModelConfig(
-        name="qwen3-14b", family="dense",
-        n_layers=40, d_model=5120, n_heads=40, n_kv_heads=8,
-        d_ff=17408, vocab=151936, head_dim=128,
-        qk_norm=True, mlp_type="swiglu", norm_type="rmsnorm",
-        rope_theta=1_000_000.0,
-    )
-
-
-def _llama3_2_3b() -> ModelConfig:
-    return ModelConfig(
-        name="llama3.2-3b", family="dense",
-        n_layers=28, d_model=3072, n_heads=24, n_kv_heads=8,
-        d_ff=8192, vocab=128256, head_dim=128,
-        mlp_type="swiglu", norm_type="rmsnorm", rope_theta=500_000.0,
-    )
-
-
-def _starcoder2_3b() -> ModelConfig:
-    return ModelConfig(
-        name="starcoder2-3b", family="dense",
-        n_layers=30, d_model=3072, n_heads=24, n_kv_heads=2,
-        d_ff=12288, vocab=49152, head_dim=128,
-        mlp_type="gelu", norm_type="layernorm", rope_theta=100_000.0,
-    )
-
-
 ARCHS = {
-    "qwen3-14b": _qwen3_14b,
-    "llama3.2-3b": _llama3_2_3b,
-    "starcoder2-3b": _starcoder2_3b,
+    "qwen3-14b": qwen3_14b.get_config,
+    "llama3.2-3b": llama3_2_3b.get_config,
+    "starcoder2-3b": starcoder2_3b.get_config,
     "qwen3-0.6b": qwen3_0_6b.get_config,
     "hymba-1.5b": hymba_1_5b.get_config,
     "dbrx-132b": dbrx_132b.get_config,

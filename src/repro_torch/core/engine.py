@@ -1,19 +1,11 @@
 """The device engine (``repro/core/engine.py`` + ``core/device_pool.py``):
-EnvPool's send/recv over N env lanes that live on one device.
+EnvPool's send/recv over N env lanes on a 1-D mesh of D shards.
 
-``DeviceEnvPool`` is the degenerate one-device body of the JAX package's
-``MeshEnvPool``: no mesh and no shard dim, the same per-recv program.
-``batch_size == num_envs`` is sync mode (every recv steps all N, the
-block in priority order); smaller is async (top-M under the pool's
-``schedule``).  ``mode="masked"`` is the event-driven tick ablation:
-every busy lane advances one substep a tick until M results are READY.
-All methods are functions of ``PoolState``: they return a new state and
-never write into the one they were given.
-
-``obs=True`` (the default, as in the JAX package) carries the engine's
-counters (``obs/telemetry.py``) on ``PoolState.telemetry``, updated on
-the card inside recv and read on the host only by ``stats(ps)``;
-``obs=False`` leaves them out, and the recv is the uninstrumented one.
+One class, ``MeshEnvPool``, serves every mesh size, as in the JAX
+package: ``engine="device"`` and ``"device-masked"`` are its one-shard
+mesh (``DeviceEnvPool`` is the same class), ``engine="device-sharded"``
+the same body over D shards, solo on one device or dealt to the
+processes of a ``torch.distributed`` job (``EnvMesh``).
 
 Per-env init keys come from ``derive_env_keys``, the formula every
 engine of the JAX package shares, so the same key gives the same
@@ -67,9 +59,10 @@ def derive_env_keys(key: torch.Tensor, num_envs: int
 
 @tree_dataclass
 class PoolState:
-    """The pool's whole execution state.  Per-lane fields lead with N;
-    ``tick`` is a 0-dim int32 and ``rng`` one key (the JAX package
-    carries both with a leading shard dim of 1)."""
+    """The pool's whole execution state.  Per-lane fields lead with the
+    N lanes the process holds; ``tick`` (D_local,) int32, ``rng``
+    (D_local, 2) and the per-shard counters lead with the process's
+    shards, as in the JAX package."""
 
     env_states: Any
     phase: torch.Tensor        # (N,) int32
@@ -85,25 +78,178 @@ class PoolState:
     r_ep_return: torch.Tensor
     r_ep_length: torch.Tensor
     r_cost: torch.Tensor
-    tick: torch.Tensor         # () int32 recv counter
-    rng: torch.Tensor          # (2,) key
+    tick: torch.Tensor         # (D_local,) int32 recv counter
+    rng: torch.Tensor          # (D_local, 2) keys
     tf_state: Any = ()         # one entry per transform
     telemetry: Any = ()        # Telemetry when the pool has obs=True
 
 
-class DeviceEnvPool:
-    """EnvPool over ``num_envs`` lanes serving ``batch_size`` results per
-    recv, on ``device``."""
+# ---------------------------------------------------------------------- #
+# the mesh of D env shards, on one device or over processes, and the
+# engine over it
+# ---------------------------------------------------------------------- #
+def _dist() -> Any:
+    """``torch.distributed`` when a process group is up, else None."""
+    import torch.distributed as dist
 
-    # shards of the pool, and those this process holds (MeshEnvPool)
-    num_shards = 1
-    _d_local = 1
+    return dist if dist.is_available() and dist.is_initialized() else None
+
+
+class EnvMesh:
+    """A 1-D mesh of ``num_shards`` env shards, the port's counterpart of
+    the JAX package's 1-D device mesh.
+
+    *solo*: one process holds every shard, on its ``device``.  *ranks*:
+    the shards are dealt in order to the processes ``ranks`` of a
+    ``torch.distributed`` job, D/P contiguous shards each on the
+    process's own device; ``group`` is their process group (None: the
+    whole job).  A process outside ``ranks`` holds no shard
+    (``local_shards == 0``), as the learner of ``train_disaggregated``.
+
+    The mesh issues the engine's collectives and counts them:
+    ``log`` holds ``(kind, bytes gathered)`` for each, whether or not it
+    crossed processes (in solo a gather is the local block itself).
+    Over gloo a CUDA tensor is staged through the host."""
+
+    def __init__(self, num_shards: int, device: torch.device | str,
+                 ranks: tuple[int, ...] = (0,), group: Any = None):
+        self.num_shards = int(num_shards)
+        self.device = torch.device(device)
+        self.ranks = tuple(int(r) for r in ranks)
+        self.group = group
+        p = len(self.ranks)
+        if list(self.ranks) != sorted(set(self.ranks)):
+            raise ValueError(f"ranks must be distinct and sorted: {ranks}")
+        if self.num_shards < 1 or self.num_shards % p:
+            raise ValueError(f"num_shards={self.num_shards} must be a "
+                             f"positive multiple of the {p} processes")
+        dist = _dist()
+        me = dist.get_rank() if dist is not None else 0
+        if p > 1 and dist is None:
+            raise RuntimeError("a mesh over several processes needs "
+                               "torch.distributed (launch/mesh.py::"
+                               "initialize_multihost)")
+        self.index = self.ranks.index(me) if me in self.ranks else None
+        self.local_shards = 0 if self.index is None else self.num_shards // p
+        self.first_shard = (self.index or 0) * (self.num_shards // p)
+        self.log: list[tuple[str, int]] = []
+
+    @property
+    def is_multiprocess(self) -> bool:
+        return len(self.ranks) > 1
+
+    def counts(self) -> dict[str, int]:
+        """Collectives issued since the last ``reset_log``, by kind."""
+        out: dict[str, int] = {}
+        for kind, _ in self.log:
+            out[kind] = out.get(kind, 0) + 1
+        return out
+
+    def reset_log(self) -> None:
+        self.log.clear()
+
+    def gather(self, x: torch.Tensor, kind: str, dim: int = 0
+               ) -> torch.Tensor:
+        """Concatenate every process's ``x`` along ``dim``, in shard
+        order: ``(D/P, ...) -> (D, ...)`` for per-shard values."""
+        self.log.append((kind, x.numel() * x.element_size()
+                         * len(self.ranks)))
+        if not self.is_multiprocess:
+            return x
+        dist = _dist()
+        staged = x.is_cuda and dist.get_backend(self.group) == "gloo"
+        src = (x.cpu() if staged else x).contiguous()
+        parts = [torch.empty_like(src) for _ in self.ranks]
+        dist.all_gather(parts, src, group=self.group)
+        out = torch.cat(parts, dim=dim)
+        return out.to(x.device) if staged else out
+
+    def replicate(self, tree: Any, kind: str = "replicate",
+                  dim: int = 0) -> Any:
+        """Every leaf gathered along ``dim`` (0: the lane or shard dim of
+        a pool's leaves): the whole mesh's values on every process."""
+        return tree_map(lambda x: x if x.ndim == 0
+                        else self.gather(x, kind, dim), tree)
+
+
+def make_env_mesh(num_shards: EnvMesh | int | None = None,
+                  device: torch.device | str | None = None,
+                  ranks: tuple[int, ...] | None = None) -> EnvMesh:
+    """The mesh of a sharded pool.  Without ``torch.distributed`` (or with
+    ``ranks`` of one process) it is solo: ``num_shards`` (default 1)
+    shards on ``device``.  In a job it spans ``ranks`` (default every
+    process), ``num_shards`` defaulting to one a process, each process's
+    shards on its ``device`` (default its current card; the CPU only when
+    asked for).  An ``EnvMesh`` passes through, if it is on ``device``.
+    Every process of the job must call it, with the same ranks: a
+    subgroup is made collectively."""
+    if isinstance(num_shards, EnvMesh):
+        if device is not None and torch.device(device) != num_shards.device:
+            raise ValueError(f"device={device!r} differs from the mesh's "
+                             f"{num_shards.device}")
+        return num_shards
+    dist = _dist()
+    if ranks is None:
+        ranks = tuple(range(dist.get_world_size())) if dist else (0,)
+    ranks = tuple(ranks)
+    if device is None and torch.cuda.is_available():
+        device = f"cuda:{torch.cuda.current_device()}"
+    dev = resolve_device(device)
+    d = len(ranks) if num_shards is None else int(num_shards)
+    group = None
+    if (len(ranks) > 1 and dist is not None
+            and dist.get_world_size() != len(ranks)):
+        group = dist.new_group(list(ranks))
+    return EnvMesh(d, dev, ranks, group)
+
+
+class MeshEnvPool:
+    """EnvPool over a 1-D mesh of D shards (the JAX package's
+    ``MeshEnvPool``; paper §4.1's scale-out).  N and M are global; each
+    shard owns N/D consecutive lanes and serves M/D of them a recv by its
+    own selection, with no gather of env data.  ``engine="device"`` is
+    this class at D = 1 (``DeviceEnvPool``), as in the JAX package.
+
+    ``batch_size == num_envs`` is sync mode (every recv steps all N, the
+    block in priority order); smaller is async (top-M under the pool's
+    ``schedule``).  ``mode="masked"`` is the event-driven tick ablation:
+    every busy lane advances one substep a tick until M results are READY.
+    All methods are functions of ``PoolState``: they return a new state and
+    never write into the one they were given.
+
+    Layout: per-lane leaves are the ``(D_local * N/D, ...)`` lanes this
+    process holds, viewed ``(D_local, N/D, ...)`` where a shard's own
+    rows are picked, so the selected rows of all local shards go through
+    one ``env_step`` launch (and, for Pong, one render, grayscale and
+    resize launch) a recv.  ``tick``, ``rng``, the global transform state
+    and the per-shard counters carry a leading ``(D_local,)`` dim, of 1
+    on one shard, as the JAX package's state does.  ``recv`` returns the
+    process's block in shard-major order with global ``env_id``s: in solo
+    the whole M block, as the JAX package's engine does, so the drivers
+    take it unchanged; across ranks the rank's own D_local M/D rows.
+    ``send`` takes a block in the same order.  Sync blocks of a pool of
+    D > 1 shards come in env-id order, which makes the stream the same at
+    every D > 1; D = 1 keeps the priority order of the one-shard engine.
+    The lane and row offsets are skipped where they are 0, so one shard
+    launches no more kernels a recv than a flat layout would.
+
+    On a recv at most two collectives run: the hierarchical schedule's
+    ``(D, C)`` cost gather and ``NormalizeObs``' moment sums; both are
+    counted on ``mesh.log``.  Host reads of remote rows go through
+    ``replicate``.
+
+    ``obs=True`` (the default, as in the JAX package) carries the engine's
+    counters (``obs/telemetry.py``) on ``PoolState.telemetry``, updated on
+    the card inside recv and read on the host only by ``stats(ps)``;
+    ``obs=False`` leaves them out, and the recv is the uninstrumented
+    one."""
 
     def __init__(self, env: Environment, num_envs: int,
                  batch_size: int | None = None, mode: str | None = None,
+                 mesh: EnvMesh | int | None = None,
                  batched: bool | None = None, schedule: str = "fifo",
-                 transforms: Any = (), obs: bool = True,
-                 device: torch.device | str = "cuda"):
+                 sched_patience: float = 1.0, transforms: Any = (),
+                 obs: bool = True, device: torch.device | str | None = None):
         if batch_size is None:
             batch_size = num_envs
         if mode is None:
@@ -114,8 +260,17 @@ class DeviceEnvPool:
             raise ValueError("batch_size cannot exceed num_envs")
         if mode == "sync" and batch_size != num_envs:
             raise ValueError("sync mode requires batch_size == num_envs")
+        mesh = make_env_mesh(1 if mesh is None else mesh, device)
+        d = mesh.num_shards
+        if num_envs % d:
+            raise ValueError(f"num_envs={num_envs} % num_shards={d}")
+        if batch_size % d:
+            raise ValueError(f"batch_size={batch_size} % num_shards={d}")
         self.env = env
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device
+        self.num_shards = d
+        self._d_local = mesh.local_shards
         self.num_envs = int(num_envs)
         self.batch_size = int(batch_size)
         self.mode = mode
@@ -124,63 +279,113 @@ class DeviceEnvPool:
         # loop's condition is read there anyway)
         self.masked_ticks = 0
         # lanes and results per shard
-        self._n_local = self.num_envs // self.num_shards
-        self._m_local = self.batch_size // self.num_shards
-        self.scheduler = self._policy(schedule)
-        self.pipeline = self._pipeline(transforms, env.spec)
+        n = self._n_local = self.num_envs // d
+        self._m_local = self.batch_size // d
+        self.scheduler = get_scheduler(schedule, mesh=mesh, num_shards=d,
+                                       patience=sched_patience)
+        self.pipeline = TransformPipeline(transforms, env.spec,
+                                          mesh=mesh if d > 1 else None)
         # batched=False: the generic adapter (the A/B baseline), as in the
         # JAX package's engine
         self.benv = as_batch_env(env, native=batched)
         # callers see the transformed spec; act_spec never changes
         self.spec = self.pipeline.out_spec
+        # the first lane and first block row of this process, and each
+        # local shard's first row (None for one local shard: no add)
+        self._lane0 = mesh.first_shard * n
+        self._row0 = mesh.first_shard * self._m_local
+        self._base = None if self._d_local == 1 else (torch.arange(
+            self._d_local, dtype=torch.int32, device=self.device) * n)[:, None]
 
-    def _policy(self, schedule: str):
-        return get_scheduler(schedule)
+    @property
+    def is_multiprocess(self) -> bool:
+        return self.mesh.is_multiprocess
 
-    def _pipeline(self, transforms: Any, spec: Any) -> TransformPipeline:
-        return TransformPipeline(transforms, spec)
+    @property
+    def block_rows(self) -> tuple[int, int] | None:
+        """``(first row, M)``: where this process's block sits in the
+        global block of M rows; None when it holds the whole block."""
+        return (self._row0, self.batch_size) if self.is_multiprocess else None
 
     # ------------------------------------------------------------------ #
-    # the shard layout: one shard here; MeshEnvPool views the lanes it
-    # holds as (shards, lanes a shard)
+    # the shard layout
     # ------------------------------------------------------------------ #
     def _shards(self, x: torch.Tensor) -> torch.Tensor:
-        """A per-lane or per-block vector with a leading shard dim (none
-        here)."""
-        return x
+        """A per-lane or per-block vector with its leading shard dim."""
+        return x.reshape(self._d_local, -1)
 
     def _lane_tick(self, ps: PoolState) -> torch.Tensor:
-        """The recv tick of each lane's shard (one tick here)."""
-        return ps.tick
+        """The recv tick of each lane's shard (one tick broadcasts)."""
+        if self._d_local == 1:
+            return ps.tick
+        return ps.tick.repeat_interleave(self._n_local)
+
+    @staticmethod
+    def _lanes(ps: PoolState, tick: torch.Tensor) -> SchedState:
+        """The scheduler's signals of every lane held, one vector each."""
+        return SchedState(phase=ps.phase, cost=ps.cost,
+                          send_tick=ps.send_tick, tick=tick)
+
+    def _sched_view(self, ps: PoolState) -> SchedState:
+        """The signals a selection reads, ``(D_local, N/D)`` a field."""
+        return SchedState(phase=self._shards(ps.phase),
+                          cost=self._shards(ps.cost),
+                          send_tick=self._shards(ps.send_tick),
+                          tick=ps.tick[:, None])
 
     def _rows(self, idx: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """``(rows, ids, env_id)`` of a selection ``idx``: the lane rows
-        in the block's shard layout, the same as one int64 vector, and
-        the env ids the block reports."""
-        return idx, idx.long(), idx
+        """``(rows, ids, env_id)`` of a selection ``idx`` (D_local, M/D):
+        the lane rows in the block's shard layout, the same as one int64
+        vector, and the global env ids the block reports."""
+        if self.mode == "sync" and self.num_shards > 1:
+            # env-id order within a shard: the same shard-major stream
+            # for every D > 1, whatever the per-shard cost order
+            idx = torch.sort(idx, dim=-1).values
+        rows = idx if self._base is None else idx + self._base
+        flat = rows.reshape(-1)
+        return rows, flat.long(), flat + self._lane0 if self._lane0 else flat
+
+    def _send_ids(self, env_ids: Any) -> torch.Tensor:
+        """The local lane rows of global ``env_ids``, int64."""
+        ids = torch.as_tensor(env_ids, device=self.device).long()
+        return ids - self._lane0 if self._lane0 else ids
+
+    def _send_tick(self, ps: PoolState, ids: torch.Tensor) -> torch.Tensor:
+        """The tick ``send`` stamps on lanes ``ids``: their shard's."""
+        if self._d_local == 1:
+            return ps.tick
+        return ps.tick.index_select(
+            0, torch.div(ids, self._n_local, rounding_mode="floor"))
 
     # ------------------------------------------------------------------ #
     # construction / reset
     # ------------------------------------------------------------------ #
     def init_from_keys(self, env_keys: torch.Tensor, rng: torch.Tensor
                        ) -> PoolState:
-        """Every env resets; all results READY (async_reset)."""
-        # the JAX package gives each of its D shards split(rng, D)[d]
-        return self._fresh(env_keys.to(self.device),
-                           random.split(rng.to(self.device), 1)[0])
-
-    def _fresh(self, env_keys: torch.Tensor, rng: torch.Tensor
-               ) -> PoolState:
-        n = env_keys.shape[0]
+        """Every env resets from its row of the global ``env_keys``; all
+        results READY (async_reset).  Shard d's rng is
+        ``split(rng, D)[d]``, as in the JAX package."""
+        if self._d_local == 0:
+            raise RuntimeError("this process holds no shard of the pool's "
+                               "mesh")
+        d, lo, dev = self._d_local, self._lane0, self.device
+        keys = env_keys.to(dev)[lo:lo + d * self._n_local]
+        first = self.mesh.first_shard
+        rngs = random.split(rng.to(dev), self.num_shards)
+        n = keys.shape[0]
         act = self.spec.act_spec
-        dev = self.device
 
         def zeros(dtype, shape=()):
             return torch.zeros((n,) + shape, dtype=dtype, device=dev)
 
+        tele = ()
+        if self.obs:
+            tele = init_telemetry(n, dev)
+            tele = tele.replace(**{f: self._per_shard(getattr(tele, f))
+                                   for f in PER_SHARD_FIELDS})
         return PoolState(
-            env_states=self.benv.v_init_state(env_keys),
+            env_states=self.benv.v_init_state(keys),
             phase=torch.full((n,), READY, dtype=torch.int32, device=dev),
             actions=zeros(act.dtype, act.shape),
             cost=zeros(torch.int32),
@@ -193,11 +398,19 @@ class DeviceEnvPool:
             r_ep_return=zeros(torch.float32),
             r_ep_length=zeros(torch.int32),
             r_cost=zeros(torch.int32),
-            tick=torch.zeros((), dtype=torch.int32, device=dev),
-            rng=rng,
-            tf_state=self.pipeline.init(n, dev),
-            telemetry=init_telemetry(n, dev) if self.obs else (),
+            tick=torch.zeros((d,), dtype=torch.int32, device=dev),
+            rng=rngs[first:first + d],
+            tf_state=self._tf_shard(self.pipeline.init(n, dev)),
+            telemetry=tele,
         )
+
+    def _per_shard(self, x: torch.Tensor) -> torch.Tensor:
+        return x.expand((self._d_local,) + tuple(x.shape)).clone()
+
+    def _tf_shard(self, tf_state: Any) -> Any:
+        """Global transform entries with a copy a local shard."""
+        return tuple(s if t.per_lane else tree_map(self._per_shard, s)
+                     for t, s in zip(self.pipeline.transforms, tf_state))
 
     def init(self, key: torch.Tensor) -> PoolState:
         env_keys, rng = derive_env_keys(key.to(self.device), self.num_envs)
@@ -210,20 +423,6 @@ class DeviceEnvPool:
     # ------------------------------------------------------------------ #
     # send / recv
     # ------------------------------------------------------------------ #
-    @staticmethod
-    def _lanes(ps: PoolState, tick: torch.Tensor) -> SchedState:
-        """The scheduler's signals of every lane held, one vector each."""
-        return SchedState(phase=ps.phase, cost=ps.cost,
-                          send_tick=ps.send_tick, tick=tick)
-
-    def _sched_view(self, ps: PoolState) -> SchedState:
-        """The signals a selection reads, in the shard layout."""
-        return self._lanes(ps, ps.tick)
-
-    def _send_ids(self, env_ids: Any) -> torch.Tensor:
-        """The lane rows of ``env_ids``, int64."""
-        return torch.as_tensor(env_ids, device=self.device).long()
-
     def send(self, ps: PoolState, actions: Any, env_ids: Any) -> PoolState:
         """Store ``actions`` for ``env_ids`` (the ids of a recv block)."""
         ids = self._send_ids(env_ids)
@@ -239,10 +438,6 @@ class DeviceEnvPool:
             phase=ss.phase, cost=ss.cost, send_tick=ss.send_tick,
             progress=ps.progress.index_fill(0, ids, 0),
         )
-
-    def _send_tick(self, ps: PoolState, ids: torch.Tensor) -> torch.Tensor:
-        """The tick ``send`` stamps on lanes ``ids``."""
-        return ps.tick
 
     def _serve(self, ps: PoolState, ids: torch.Tensor, out: TimeStep
                ) -> tuple[PoolState, TimeStep]:
@@ -363,24 +558,31 @@ class DeviceEnvPool:
         return new
 
     def _await_ready(self, ps: PoolState) -> PoolState:
-        """Tick until M results are READY.  The JAX package runs the loop
-        on the device (``lax.while_loop``); here it is a host loop whose
+        """Tick until each shard has its M/D results READY, only the
+        shards still short ticking.  The JAX package runs the loop on the
+        device (``lax.while_loop``); here it is a host loop whose
         condition is one device-to-host read a tick."""
-        m = self.batch_size
+        m = self._m_local
         while True:
-            ready, busy = torch.stack([(ps.phase == READY).sum(),
-                                       (ps.phase == HAS_ACTION).sum()
-                                       ]).tolist()
-            if ready >= m:
-                break
-            if busy == 0:
-                raise RuntimeError(
-                    f"masked recv: {ready} results READY and no lane has an "
-                    f"action, so {m} can never be served; send actions "
-                    "for the ids of the last block first")
-            ps = self._tick(ps)
+            ready, busy = torch.stack([
+                self._shards(ps.phase == READY).sum(-1),
+                self._shards(ps.phase == HAS_ACTION).sum(-1)]).tolist()
+            short = [r < m for r in ready]
+            if not any(short):
+                return ps
+            for d, (r, b, s) in enumerate(zip(ready, busy, short)):
+                if s and b == 0:
+                    raise RuntimeError(
+                        f"masked recv: shard {self.mesh.first_shard + d} "
+                        f"has {r} results READY and no lane with an "
+                        f"action, so {m} can never be served; send actions "
+                        "for the ids of the last block first")
+            live = None
+            if not all(short):
+                live = torch.tensor(short, device=self.device
+                                    ).repeat_interleave(self._n_local)
+            ps = self._tick(ps, live)
             self.masked_ticks += 1
-        return ps
 
     def _recv_masked(self, ps: PoolState) -> tuple[PoolState, TimeStep]:
         """Tick until M results are READY, then serve them in completion
@@ -422,14 +624,6 @@ class DeviceEnvPool:
         """``step = send ∘ recv``."""
         return self.recv(self.send(ps, actions, env_ids))
 
-    def stats(self, ps: PoolState) -> dict:
-        """The host snapshot of the engine's counters (``obs/telemetry.
-        py::format_stats``): the only point where they leave the card."""
-        if not self.obs:
-            raise RuntimeError(
-                "telemetry disabled: pool was constructed with obs=False")
-        return snapshot_device(ps.telemetry, ps.tick)
-
     def xla(self, seed: int = 0, key: torch.Tensor | None = None):
         """``(handle, recv, send, step)``, EnvPool's ``env.xla()``: the
         handle is the state initialised from ``key``, else from
@@ -437,297 +631,6 @@ class DeviceEnvPool:
         (eager; the JAX package returns them jitted)."""
         handle = self.init(random.PRNGKey(seed) if key is None else key)
         return handle, self.recv, self.send, self.step
-
-    # ------------------------------------------------------------------ #
-    # transform-state checkpoints
-    # ------------------------------------------------------------------ #
-    def save_transform_state(self, store, step: int, ps: PoolState,
-                             meta: dict | None = None) -> str:
-        """Save ``ps.tf_state`` (e.g. ``NormalizeObs``'s running moments)
-        through ``checkpoint/store.py``, in the JAX package's canonical
-        form: per-lane entries with their N rows, global entries without
-        a shard dim (the port has none)."""
-        return store.save(step, ps.tf_state, meta or {})
-
-    def restore_transform_state(self, store, step: int, ps: PoolState
-                                ) -> PoolState:
-        """``ps`` with the transform state saved at ``step``, e.g. by the
-        JAX package's pool at any mesh size."""
-        return ps.replace(tf_state=store.restore(step, ps.tf_state))
-
-
-# ---------------------------------------------------------------------- #
-# the sharded engine: D shards over one device or over processes
-# ---------------------------------------------------------------------- #
-def _dist() -> Any:
-    """``torch.distributed`` when a process group is up, else None."""
-    import torch.distributed as dist
-
-    return dist if dist.is_available() and dist.is_initialized() else None
-
-
-class EnvMesh:
-    """A 1-D mesh of ``num_shards`` env shards, the port's counterpart of
-    the JAX package's 1-D device mesh.
-
-    *solo*: one process holds every shard, on its ``device``.  *ranks*:
-    the shards are dealt in order to the processes ``ranks`` of a
-    ``torch.distributed`` job, D/P contiguous shards each on the
-    process's own device; ``group`` is their process group (None: the
-    whole job).  A process outside ``ranks`` holds no shard
-    (``local_shards == 0``), as the learner of ``train_disaggregated``.
-
-    The mesh issues the engine's collectives and counts them:
-    ``log`` holds ``(kind, bytes gathered)`` for each, whether or not it
-    crossed processes (in solo a gather is the local block itself).
-    Over gloo a CUDA tensor is staged through the host."""
-
-    def __init__(self, num_shards: int, device: torch.device | str,
-                 ranks: tuple[int, ...] = (0,), group: Any = None):
-        self.num_shards = int(num_shards)
-        self.device = torch.device(device)
-        self.ranks = tuple(int(r) for r in ranks)
-        self.group = group
-        p = len(self.ranks)
-        if list(self.ranks) != sorted(set(self.ranks)):
-            raise ValueError(f"ranks must be distinct and sorted: {ranks}")
-        if self.num_shards < 1 or self.num_shards % p:
-            raise ValueError(f"num_shards={self.num_shards} must be a "
-                             f"positive multiple of the {p} processes")
-        dist = _dist()
-        me = dist.get_rank() if dist is not None else 0
-        if p > 1 and dist is None:
-            raise RuntimeError("a mesh over several processes needs "
-                               "torch.distributed (launch/mesh.py::"
-                               "initialize_multihost)")
-        self.index = self.ranks.index(me) if me in self.ranks else None
-        self.local_shards = 0 if self.index is None else self.num_shards // p
-        self.first_shard = (self.index or 0) * (self.num_shards // p)
-        self.log: list[tuple[str, int]] = []
-
-    @property
-    def is_multiprocess(self) -> bool:
-        return len(self.ranks) > 1
-
-    def counts(self) -> dict[str, int]:
-        """Collectives issued since the last ``reset_log``, by kind."""
-        out: dict[str, int] = {}
-        for kind, _ in self.log:
-            out[kind] = out.get(kind, 0) + 1
-        return out
-
-    def reset_log(self) -> None:
-        self.log.clear()
-
-    def gather(self, x: torch.Tensor, kind: str, dim: int = 0
-               ) -> torch.Tensor:
-        """Concatenate every process's ``x`` along ``dim``, in shard
-        order: ``(D/P, ...) -> (D, ...)`` for per-shard values."""
-        self.log.append((kind, x.numel() * x.element_size()
-                         * len(self.ranks)))
-        if not self.is_multiprocess:
-            return x
-        dist = _dist()
-        staged = x.is_cuda and dist.get_backend(self.group) == "gloo"
-        src = (x.cpu() if staged else x).contiguous()
-        parts = [torch.empty_like(src) for _ in self.ranks]
-        dist.all_gather(parts, src, group=self.group)
-        out = torch.cat(parts, dim=dim)
-        return out.to(x.device) if staged else out
-
-    def replicate(self, tree: Any, kind: str = "replicate",
-                  dim: int = 0) -> Any:
-        """Every leaf gathered along ``dim`` (0: the lane or shard dim of
-        a pool's leaves): the whole mesh's values on every process."""
-        return tree_map(lambda x: x if x.ndim == 0
-                        else self.gather(x, kind, dim), tree)
-
-
-def make_env_mesh(num_shards: EnvMesh | int | None = None,
-                  device: torch.device | str | None = None,
-                  ranks: tuple[int, ...] | None = None) -> EnvMesh:
-    """The mesh of a sharded pool.  Without ``torch.distributed`` (or with
-    ``ranks`` of one process) it is solo: ``num_shards`` (default 1)
-    shards on ``device``.  In a job it spans ``ranks`` (default every
-    process), ``num_shards`` defaulting to one a process, each process's
-    shards on its ``device`` (default its current card; the CPU only when
-    asked for).  An ``EnvMesh`` passes through, if it is on ``device``.
-    Every process of the job must call it, with the same ranks: a
-    subgroup is made collectively."""
-    if isinstance(num_shards, EnvMesh):
-        if device is not None and torch.device(device) != num_shards.device:
-            raise ValueError(f"device={device!r} differs from the mesh's "
-                             f"{num_shards.device}")
-        return num_shards
-    dist = _dist()
-    if ranks is None:
-        ranks = tuple(range(dist.get_world_size())) if dist else (0,)
-    ranks = tuple(ranks)
-    if device is None and torch.cuda.is_available():
-        device = f"cuda:{torch.cuda.current_device()}"
-    dev = resolve_device(device)
-    d = len(ranks) if num_shards is None else int(num_shards)
-    group = None
-    if (len(ranks) > 1 and dist is not None
-            and dist.get_world_size() != len(ranks)):
-        group = dist.new_group(list(ranks))
-    return EnvMesh(d, dev, ranks, group)
-
-
-class MeshEnvPool(DeviceEnvPool):
-    """EnvPool over a 1-D mesh of D shards (the JAX package's
-    ``MeshEnvPool``; paper §4.1's scale-out).  N and M are global; each
-    shard owns N/D consecutive lanes and serves M/D of them a recv by its
-    own selection, with no gather of env data.
-
-    Layout: per-lane leaves are the ``(D_local * N/D, ...)`` lanes this
-    process holds, viewed ``(D_local, N/D, ...)`` where a shard's own
-    rows are picked, so the selected rows of all local shards go through
-    one ``env_step`` launch (and, for Pong, one render, grayscale and
-    resize launch) a recv.  ``tick``, ``rng``, the global transform state
-    and the per-shard counters carry a leading ``(D_local,)`` dim.
-    ``recv`` returns the process's block in shard-major order with
-    global ``env_id``s: in solo the whole M block, as the JAX package's
-    engine does, so the drivers take it unchanged; across ranks the
-    rank's own D_local M/D rows.  ``send`` takes a block in the same
-    order.  Sync blocks of a pool of D > 1 shards come in env-id order,
-    which makes the stream the same at every D > 1; D = 1 keeps the
-    priority order of the one-shard engine.
-
-    On a recv at most two collectives run: the hierarchical schedule's
-    ``(D, C)`` cost gather and ``NormalizeObs``' moment sums; both are
-    counted on ``mesh.log``.  Host reads of remote rows go through
-    ``replicate``."""
-
-    def __init__(self, env: Environment, num_envs: int,
-                 batch_size: int | None = None, mode: str | None = None,
-                 mesh: EnvMesh | int | None = None,
-                 batched: bool | None = None, schedule: str = "fifo",
-                 sched_patience: float = 1.0, transforms: Any = (),
-                 obs: bool = True, device: torch.device | str | None = None):
-        mesh = make_env_mesh(1 if mesh is None else mesh, device)
-        if batch_size is None:
-            batch_size = num_envs
-        d = mesh.num_shards
-        if num_envs % d:
-            raise ValueError(f"num_envs={num_envs} % num_shards={d}")
-        if batch_size % d:
-            raise ValueError(f"batch_size={batch_size} % num_shards={d}")
-        self.mesh = mesh
-        self.num_shards = d
-        self._d_local = mesh.local_shards
-        self.sched_patience = float(sched_patience)
-        super().__init__(env, num_envs, batch_size, mode=mode,
-                         batched=batched, schedule=schedule,
-                         transforms=transforms, obs=obs, device=mesh.device)
-        n = self._n_local
-        # the first lane and first block row of this process
-        self._lane0 = mesh.first_shard * n
-        self._row0 = mesh.first_shard * self._m_local
-        self._base = (torch.arange(self._d_local, dtype=torch.int32,
-                                   device=self.device) * n)[:, None]
-
-    def _policy(self, schedule):
-        return get_scheduler(schedule, mesh=self.mesh,
-                             num_shards=self.num_shards,
-                             patience=self.sched_patience)
-
-    def _pipeline(self, transforms, spec):
-        return TransformPipeline(
-            transforms, spec, mesh=self.mesh if self.num_shards > 1 else None)
-
-    @property
-    def is_multiprocess(self) -> bool:
-        return self.mesh.is_multiprocess
-
-    @property
-    def block_rows(self) -> tuple[int, int] | None:
-        """``(first row, M)``: where this process's block sits in the
-        global block of M rows; None when it holds the whole block."""
-        return (self._row0, self.batch_size) if self.is_multiprocess else None
-
-    # ------------------------------------------------------------------ #
-    # the shard layout
-    # ------------------------------------------------------------------ #
-    def _shards(self, x):
-        return x.reshape(self._d_local, -1)
-
-    def _lane_tick(self, ps):
-        return ps.tick.repeat_interleave(self._n_local)
-
-    def _sched_view(self, ps):
-        return SchedState(phase=self._shards(ps.phase),
-                          cost=self._shards(ps.cost),
-                          send_tick=self._shards(ps.send_tick),
-                          tick=ps.tick[:, None])
-
-    def _rows(self, idx):
-        if self.mode == "sync" and self.num_shards > 1:
-            # env-id order within a shard: the same shard-major stream
-            # for every D > 1, whatever the per-shard cost order
-            idx = torch.sort(idx, dim=-1).values
-        rows = idx + self._base
-        return rows, rows.reshape(-1).long(), (rows + self._lane0).reshape(-1)
-
-    def _send_ids(self, env_ids):
-        return super()._send_ids(env_ids) - self._lane0
-
-    def _send_tick(self, ps, ids):
-        return ps.tick.index_select(
-            0, torch.div(ids, self._n_local, rounding_mode="floor"))
-
-    # ------------------------------------------------------------------ #
-    # construction
-    # ------------------------------------------------------------------ #
-    def init_from_keys(self, env_keys, rng):
-        """Every env resets from its row of the global ``env_keys``; shard
-        d's rng is ``split(rng, D)[d]``, as in the JAX package."""
-        if self._d_local == 0:
-            raise RuntimeError("this process holds no shard of the pool's "
-                               "mesh")
-        d, lo = self._d_local, self._lane0
-        keys = env_keys.to(self.device)[lo:lo + d * self._n_local]
-        first = self.mesh.first_shard
-        rngs = random.split(rng.to(self.device), self.num_shards)
-        ps = self._fresh(keys, rngs[first:first + d])
-        tele = ps.telemetry
-        if self.obs:
-            tele = tele.replace(**{f: self._per_shard(getattr(tele, f))
-                                   for f in PER_SHARD_FIELDS})
-        return ps.replace(
-            tick=torch.zeros((d,), dtype=torch.int32, device=self.device),
-            tf_state=self._tf_shard(ps.tf_state), telemetry=tele)
-
-    def _per_shard(self, x: torch.Tensor) -> torch.Tensor:
-        return x.expand((self._d_local,) + tuple(x.shape)).clone()
-
-    def _tf_shard(self, tf_state: Any) -> Any:
-        """Global transform entries with a copy a local shard."""
-        return tuple(s if t.per_lane else tree_map(self._per_shard, s)
-                     for t, s in zip(self.pipeline.transforms, tf_state))
-
-    # ------------------------------------------------------------------ #
-    # masked mode: each shard ticks until its own M/D results are READY
-    # ------------------------------------------------------------------ #
-    def _await_ready(self, ps):
-        m = self._m_local
-        while True:
-            ready, busy = torch.stack([
-                self._shards(ps.phase == READY).sum(-1),
-                self._shards(ps.phase == HAS_ACTION).sum(-1)]).tolist()
-            short = [r < m for r in ready]
-            if not any(short):
-                return ps
-            for d, (r, b, s) in enumerate(zip(ready, busy, short)):
-                if s and b == 0:
-                    raise RuntimeError(
-                        f"masked recv: shard {self.mesh.first_shard + d} "
-                        f"has {r} results READY and no lane with an "
-                        f"action, so {m} can never be served; send actions "
-                        "for the ids of the last block first")
-            live = torch.tensor(short, device=self.device)
-            ps = self._tick(ps, live.repeat_interleave(self._n_local))
-            self.masked_ticks += 1
 
     # ------------------------------------------------------------------ #
     # host reads and placement
@@ -806,43 +709,30 @@ class MeshEnvPool(DeviceEnvPool):
             for t, c in zip(self.pipeline.transforms, canon)))
 
 
+# one engine class serves every mesh size; the classic name is the
+# one-shard default, as in the JAX package's core/device_pool.py
+DeviceEnvPool = MeshEnvPool
+
+
 # ---------------------------------------------------------------------- #
 # carrying a PoolState across packages
 # ---------------------------------------------------------------------- #
-def _shard_dim_paths(pool: DeviceEnvPool) -> tuple[str, ...]:
-    """Path prefixes of the leaves the JAX package carries with a leading
-    shard dim of 1: the recv tick, the rng, the counters that are not per
-    lane and the global (not per-lane) transform entries."""
-    return ("tick", "rng",
-            *(f"telemetry.{f}" for f in PER_SHARD_FIELDS),
-            *(f"tf_state.{i}" for i, t in enumerate(pool.pipeline.transforms)
-              if not t.per_lane))
-
-
-def _has_shard_dim(path: str, prefixes: tuple[str, ...]) -> bool:
-    return any(path == p or path.startswith(p + ".") for p in prefixes)
-
-
-def pool_state_from_numpy(pool: DeviceEnvPool, arrays: dict[str, Any]
+def pool_state_from_numpy(pool: MeshEnvPool, arrays: dict[str, Any]
                           ) -> PoolState:
     """A ``PoolState`` on the pool's device from numpy arrays keyed by
     field path (``env_states.pos``, ``tf_state.0.buf``,
     ``telemetry.serves``, ...), e.g. the leaves of the JAX package's
-    ``PoolState`` through ``np.asarray``.  The leaves of
-    ``_shard_dim_paths`` may carry the JAX package's leading shard dim of
-    1; uint32 keys become int64."""
+    ``PoolState`` through ``np.asarray``: the same layout, shard dims
+    included; uint32 keys become int64."""
     template = pool.init(random.PRNGKey(0))
     want = {p for p, _ in tree_leaves_with_path(template)}
     have = set(arrays)
     if have != want:
         raise KeyError(f"field paths differ: missing {sorted(want - have)}, "
                        f"unexpected {sorted(have - want)}")
-    sharded = _shard_dim_paths(pool)
 
     def load(path: str, like: torch.Tensor) -> torch.Tensor:
         arr = np.asarray(arrays[path])
-        if _has_shard_dim(path, sharded) and arr.ndim == like.ndim + 1:
-            arr = arr[0]
         if arr.shape != tuple(like.shape):
             raise ValueError(f"{path}: shape {arr.shape}, want "
                              f"{tuple(like.shape)}")
@@ -853,18 +743,14 @@ def pool_state_from_numpy(pool: DeviceEnvPool, arrays: dict[str, Any]
     return tree_map_with_path(load, template)
 
 
-def pool_state_to_numpy(pool: DeviceEnvPool, ps: PoolState
+def pool_state_to_numpy(pool: MeshEnvPool, ps: PoolState
                         ) -> dict[str, np.ndarray]:
-    """The inverse of ``pool_state_from_numpy``, in the JAX package's
-    layout: keys as uint32, ``_shard_dim_paths`` with a shard dim of 1."""
-    sharded = _shard_dim_paths(pool)
+    """The inverse of ``pool_state_from_numpy``: keys as uint32."""
     out = {}
     for path, leaf in tree_leaves_with_path(ps):
         arr = leaf.detach().cpu().numpy()
         if leaf.dtype == torch.int64:
             arr = arr.astype(np.uint32)
-        if _has_shard_dim(path, sharded):
-            arr = arr[None]
         out[path] = arr
     return out
 
@@ -872,12 +758,12 @@ def pool_state_to_numpy(pool: DeviceEnvPool, ps: PoolState
 def make_pool(env: Environment, num_envs: int, batch_size: int | None = None,
               mode: str | None = None, batched: bool | None = None,
               schedule: str = "fifo", transforms: Any = (), obs: bool = True,
-              device: torch.device | str = "cuda") -> DeviceEnvPool:
+              device: torch.device | str = "cuda") -> MeshEnvPool:
     """The JAX package's ``make_pool``: the device engine over ``env``,
     sync iff ``batch_size`` is None or ``num_envs``, on ``device``."""
-    return DeviceEnvPool(env, num_envs, batch_size, mode=mode,
-                         batched=batched, schedule=schedule,
-                         transforms=transforms, obs=obs, device=device)
+    return MeshEnvPool(env, num_envs, batch_size, mode=mode,
+                       batched=batched, schedule=schedule,
+                       transforms=transforms, obs=obs, device=device)
 
 
 __all__ = [

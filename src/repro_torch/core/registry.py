@@ -20,7 +20,8 @@
 
   engine            pool class              execution substrate
   ----------------  ----------------------  ---------------------------------
-  device (default)  DeviceEnvPool           N lanes on one device
+  device (default)  DeviceEnvPool           N lanes on one device (the
+                                            mesh engine at D = 1)
   device-masked     DeviceEnvPool(masked)   tick ablation, one device
   device-sharded    MeshEnvPool             D shards, on one device or
                                             over torch.distributed ranks
@@ -280,7 +281,8 @@ def make(task_id: str, num_envs: int, batch_size: int | None = None,
             "device mesh (use engine='device-sharded')")
     return DeviceEnvPool(factory(**env_kwargs), num_envs, batch_size,
                          mode="masked" if engine == "device-masked" else None,
-                         batched=batched, schedule=schedule, transforms=tfs,
+                         batched=batched, schedule=schedule,
+                         sched_patience=sched_patience, transforms=tfs,
                          obs=obs, device=dev)
 
 

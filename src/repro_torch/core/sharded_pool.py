@@ -2,9 +2,8 @@
 engine of ``core/engine.py`` with its mesh defaulting to every shard the
 process or job holds, one a process (``make_env_mesh()``).
 
-``engine="device"`` is the one-shard engine (``DeviceEnvPool``) and
-``engine="device-sharded"`` the same body over D shards
-(``MeshEnvPool``).
+``engine="device"`` is this engine at one shard (``DeviceEnvPool``)
+and ``engine="device-sharded"`` the same class over D shards.
 """
 
 from __future__ import annotations

@@ -16,12 +16,15 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
 
 import repro_torch  # noqa: E402
 import repro_torch.rl.ppo as tppo  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ENV = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+# one OpenMP thread a child: the suite's xdist workers share the cores
+ENV = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+           OMP_NUM_THREADS="1")
 CHECK = os.path.join(ROOT, "tests", "_torch_disaggregated_check.py")
 
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
 
 import repro.core.registry as jax_registry  # noqa: E402
 import repro_torch  # noqa: E402

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
 
 import repro_torch  # noqa: E402
 from repro_torch.core.buffers import (  # noqa: E402

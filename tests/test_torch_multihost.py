@@ -16,9 +16,12 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ENV = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+# one OpenMP thread a child: the suite's xdist workers share the cores
+ENV = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+           OMP_NUM_THREADS="1")
 CHECK = os.path.join(ROOT, "tests", "_torch_multihost_check.py")
 TASKS = ("TokenCopy-v0", "Ant-v3", "AntNorm-v3", "PongClassic-v5")
 

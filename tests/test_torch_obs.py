@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
 
 from repro.obs import metrics as jmetrics  # noqa: E402
 from repro_torch.obs import metrics, trace  # noqa: E402

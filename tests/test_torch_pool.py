@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -265,6 +266,20 @@ def test_running_the_port_imports_neither_jax_nor_repro():
         "    train = synth_batch(model, ShapeSpec('t', 'train', 8, 2),\n"
         "                        torch.Generator().manual_seed(2))\n"
         "    model.train_loss(params, train)\n"
+        "from repro_torch.core.device_pool import DeviceEnvPool, make_pool\n"
+        "from repro_torch.envs.classic import CartPole\n"
+        "one = make_pool(CartPole(), 2, device='cpu')\n"
+        "assert DeviceEnvPool is type(one)\n"
+        "from repro_torch.configs import (llama3_2_3b, qwen3_14b,\n"
+        "                                 starcoder2_3b)\n"
+        "from repro_torch.distributed.analytic import cell_cost\n"
+        "from repro_torch.models import SHAPES\n"
+        "for mod in (llama3_2_3b, qwen3_14b, starcoder2_3b):\n"
+        "    cell_cost(mod.get_config(), SHAPES['train_4k'], 256)\n"
+        "from repro_torch.optim.compression import (compress_tree,\n"
+        "    decompress_tree, init_error)\n"
+        "g = {'w': torch.randn(300)}\n"
+        "decompress_tree(compress_tree(g, init_error(g))[0], g)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
@@ -272,7 +287,8 @@ def test_running_the_port_imports_neither_jax_nor_repro():
         "assert 'repro_torch.kernels.build' not in sys.modules\n"
         "print('clean')\n"
     )
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -282,8 +298,10 @@ def test_running_the_port_imports_neither_jax_nor_repro():
 def test_port_sources_import_neither_jax_nor_repro():
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
                          r"(\.|\s))", re.MULTILINE)
-    files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "examples", "train_lm_torch.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(ROOT, "examples", f"{name}_torch.py")
+        for name in ("train_lm", "quickstart", "async_vs_sync", "ppo_atari",
+                     "serve_lm", "sharded_scaleout")]
     for d, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(d, f) for f in names if f.endswith(".py")]
     assert len(files) > 10
@@ -299,7 +317,11 @@ def test_port_sources_import_neither_jax_nor_repro():
                  ("envs", "host_numpy.py"), ("rl", "vtrace.py"),
                  ("core", "__init__.py"), ("data", "__init__.py"),
                  ("data", "pipeline.py"), ("launch", "train.py"),
-                 ("models", "common.py")):
+                 ("models", "common.py"), ("core", "device_pool.py"),
+                 ("optim", "compression.py"),
+                 ("distributed", "analytic.py"),
+                 ("configs", "qwen3_14b.py"), ("configs", "llama3_2_3b.py"),
+                 ("configs", "starcoder2_3b.py")):
         assert os.path.join(ROOT, "src", "repro_torch", *part) in files
     offenders = []
     for path in files:

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
 
 import repro_torch  # noqa: E402
 from repro_torch.core.engine import DeviceEnvPool, MeshEnvPool  # noqa: E402
@@ -29,7 +30,9 @@ from repro_torch.core.registry import (  # noqa: E402
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ENV = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+# one OpenMP thread a child: the suite's xdist workers share the cores
+ENV = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+           OMP_NUM_THREADS="1")
 CHECK = os.path.join(ROOT, "tests", "_torch_sharded_check.py")
 
 # the helper's cases, by its names (task-N-M-schedule)
@@ -244,7 +247,8 @@ def test_transform_state_checkpoints_cross_mesh_sizes(tmp_path):
         assert got.tf_state[0][k].shape == (4,) + tuple(v.shape)
         for row in got.tf_state[0][k]:
             np.testing.assert_array_equal(row.numpy(), v.numpy())
-        np.testing.assert_array_equal(got1.tf_state[0][k].numpy(),
+        assert got1.tf_state[0][k].shape == (1,) + tuple(v.shape)
+        np.testing.assert_array_equal(got1.tf_state[0][k][0].numpy(),
                                       v.numpy())
     store1 = CheckpointStore(str(tmp_path / "one"))
     one.save_transform_state(store1, 1, got1)
@@ -272,7 +276,11 @@ def test_policy_placement_replicates_on_a_solo_mesh():
     pol = LMPolicy(pool.spec, device="cpu")
     placed = pol.place_params(big, pool)
     assert placed["w"].device == pool.device
-    assert pol.place_params(small, one) is small
+    # the one-device engine is the mesh engine at one shard: replicated,
+    # the leaves already on its device (no copy)
+    assert one.num_shards == 1
+    placed = pol.place_params(small, one)
+    assert all(placed[k] is small[k] for k in small)
 
 
 def test_replicate_and_put_batch_in_solo():

@@ -29,7 +29,9 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ENV = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+# one OpenMP thread a child: the suite's xdist workers share the cores
+ENV = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+           OMP_NUM_THREADS="1")
 SMALL = ["--arch", "qwen3-0.6b", "--smoke", "--d-model", "64", "--layers",
          "2", "--batch", "4", "--seq", "32", "--log-every", "1",
          "--device", "cpu"]

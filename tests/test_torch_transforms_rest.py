@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -188,8 +189,8 @@ def test_repro_pool_state_with_telemetry_and_moments_carries_across():
     assert arrays["tf_state.0.mean"].shape == (1, 29)
     assert arrays["telemetry.wait_hist"].shape == (1, 8)
     tps = pool_state_from_numpy(tp, arrays)
-    assert tps.tf_state[0]["mean"].shape == (29,)
-    assert tps.telemetry.served.shape == ()
+    assert tps.tf_state[0]["mean"].shape == (1, 29)
+    assert tps.telemetry.served.shape == (1,)
     back = pool_state_to_numpy(tp, tps)
     assert set(back) == set(arrays)
     for k, v in arrays.items():
@@ -218,7 +219,7 @@ def test_transform_state_checkpoint_crosses_both_ways(tmp_path):
     got = tp.restore_transform_state(tstore, 4, fresh)
     for k in ("count", "mean", "m2"):
         np.testing.assert_array_equal(got.tf_state[0][k].numpy(),
-                                      np.asarray(jps.tf_state[0][k])[0])
+                                      np.asarray(jps.tf_state[0][k]))
     # the port's own moments, saved by the port, restored by repro
     tstore2 = CheckpointStore(str(tmp_path / "t"))
     path = tp.save_transform_state(tstore2, 4, tps)
@@ -229,7 +230,7 @@ def test_transform_state_checkpoint_crosses_both_ways(tmp_path):
     jgot = jp.restore_transform_state(JaxStore(str(tmp_path / "t")), 4,
                                       jfresh)
     for k in ("count", "mean", "m2"):
-        np.testing.assert_array_equal(np.asarray(jgot.tf_state[0][k])[0],
+        np.testing.assert_array_equal(np.asarray(jgot.tf_state[0][k]),
                                       tps.tf_state[0][k].numpy())
     # a restored pool continues with the restored moments
     _, ts1 = tp.recv(tp.restore_transform_state(tstore2, 4, fresh))
