@@ -3402,6 +3402,366 @@ def tooling_phase(engine_rows: list[dict], parent: str | None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------- #
+# phase 9: the model-parallel steps on the card
+# ---------------------------------------------------------------------- #
+# (arch, overrides, batch, seq) of the sharded prefills (phase 3's);
+# the sharded serve (phase 3's qwen3 serve) and train step (phase 7's)
+MESH_PREFILLS = [("qwen3-0.6b", {}, 4, 8192),
+                 ("starcoder2-3b", {"attn_type": "sliding", "window": 4096},
+                  1, 8192)]
+MESH_SERVE = ("qwen3-0.6b", 8, 1024, 1056, 32)   # batch, prompt, cache, steps
+MESH_TRAIN_WARMUP, MESH_TRAIN_TIMED = 2, 5
+
+
+def on_mesh(mesh):
+    """The sharded steps' scope and shard function: ``BASELINE_RULES`` on
+    ``mesh``, plain tensors meeting DTensors as replicated ones."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed.sharding import BASELINE_RULES, make_shard_fn
+
+    return implicit_replication(), make_shard_fn(mesh, BASELINE_RULES)
+
+
+def placed(mesh, params, batch) -> tuple:
+    """``params`` and ``batch`` laid out on ``mesh`` by their plans."""
+    from repro_torch.distributed.sharding import (BASELINE_RULES,
+                                                  param_shardings, place)
+    from repro_torch.launch.steps import batch_shardings
+
+    return (place(params, param_shardings(mesh, params, BASELINE_RULES),
+                  mesh),
+            place(batch, batch_shardings(mesh, batch, BASELINE_RULES), mesh))
+
+
+def timed_calls(fn, calls: int) -> tuple[float, float, dict, object]:
+    """``calls`` of ``fn`` with the counts set to 0 just before and read
+    just after: (ms a call, peak GB, launches, the last result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / calls * 1e3
+    launches = {k: f.launches for k, f in counters().items()}
+    return ms, torch.cuda.max_memory_allocated() / 1e9, launches, out
+
+
+def mesh_prefill(mesh, arch: str, overrides: dict, batch: int, seq: int
+                 ) -> dict:
+    """``make_prefill_step`` with and without ``mesh`` on one model and
+    one prompt: next tokens identical, the last-position logits' largest
+    difference, flash launches a call equal (one a layer), no input
+    copied; ms a call and peak memory of each."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.steps import make_prefill_step, synth_batch
+    from repro_torch.models import ShapeSpec
+
+    model, params = model_params(arch, attn_impl="blocked", **overrides)
+    cfg = model.cfg
+    inputs = synth_batch(model, ShapeSpec("prefill", "prefill", seq, batch),
+                         torch.Generator(device=DEV).manual_seed(SEED))
+    plain = make_prefill_step(model, seq)
+    sharded = make_prefill_step(model, seq, mesh)
+    copies = flash_attention.copies
+    scope, shard = on_mesh(mesh)
+    with torch.no_grad():
+        want, _ = model.prefill(params, inputs, max_len=seq)
+        with scope:
+            got, _ = model.prefill(*placed(mesh, params, inputs),
+                                   max_len=seq, shard=shard)
+        logit_diff = float((got.full_tensor().float() - want.float()).abs()
+                           .max())
+        del got, want
+        rows = {}
+        for name, step in (("plain", plain), ("sharded", sharded)):
+            step(params, inputs)                            # warm-up
+            ms, peak, launches, (nxt, cache) = timed_calls(
+                lambda step=step: step(params, inputs), 2)
+            del cache
+            rows[name] = {"ms_per_call": ms, "peak_gb": peak,
+                          "launches": launches, "next": nxt}
+    flash = {k: r["launches"]["flash_attention"] / 2 for k, r in rows.items()}
+    if flash["sharded"] != cfg.n_layers or flash["plain"] != cfg.n_layers:
+        raise AssertionError(f"mesh prefill {arch}: flash launches a call "
+                             f"{flash}, want {cfg.n_layers}")
+    if not torch.equal(rows["sharded"]["next"], rows["plain"]["next"]):
+        raise AssertionError(f"mesh prefill {arch}: next tokens differ")
+    if flash_attention.copies != copies:
+        raise AssertionError(f"mesh prefill {arch}: flash_attention copied "
+                             f"{flash_attention.copies - copies} inputs")
+    out = {"model": arch, "attn_type": cfg.attn_type, "batch": batch,
+           "seq_len": seq, "layers": cfg.n_layers,
+           "ms_per_call": rows["sharded"]["ms_per_call"],
+           "plain_ms_per_call": rows["plain"]["ms_per_call"],
+           "peak_gb": rows["sharded"]["peak_gb"],
+           "plain_peak_gb": rows["plain"]["peak_gb"],
+           "flash_launches_per_call": flash["sharded"],
+           "flash_copies": flash_attention.copies - copies,
+           "next_tokens_equal": True, "max_logit_diff": logit_diff,
+           "launches": rows["sharded"]["launches"], "card": CARD}
+    log(f"  mesh prefill {arch} {cfg.attn_type} B={batch} S={seq} on a "
+        f"(1, 1) mesh: {out['ms_per_call']:.1f} ms a call sharded, "
+        f"{out['plain_ms_per_call']:.1f} unsharded; peak "
+        f"{out['peak_gb']:.2f} GB against {out['plain_peak_gb']:.2f}; next "
+        f"tokens equal, largest logit difference {logit_diff}; flash "
+        f"launches a call {flash['sharded']} (unsharded {flash['plain']}), "
+        f"copies 0; {CARD}")
+    del model, params, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve(mesh, arch: str, batch: int, prompt: int, max_len: int,
+               steps: int) -> dict:
+    """A prefill of ``batch`` prompts into a ``max_len`` cache, then
+    ``steps`` greedy ``make_serve_step`` tokens, with and without
+    ``mesh``: every token identical, the caches' largest difference; ms
+    a step of each."""
+    import torch
+
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          synth_batch)
+    from repro_torch.models import ShapeSpec
+
+    model, params = model_params(arch, attn_impl="blocked")
+    inputs = synth_batch(model, ShapeSpec("serve", "prefill", prompt, batch),
+                         torch.Generator(device=DEV).manual_seed(SEED + 1))
+    rows = {}
+    with torch.no_grad():
+        for name, m in (("plain", None), ("sharded", mesh)):
+            prefill = make_prefill_step(model, max_len, m)
+            serve = make_serve_step(model, m)
+            nxt, cache = prefill(params, inputs)
+            toks = [nxt]
+            nxt, cache = serve(params, cache, {"tokens": nxt[:, None]})
+            toks.append(nxt)                               # the warm-up
+            state = [nxt, cache]
+
+            def one(serve=serve, state=state):
+                state[0], state[1] = serve(params, state[1],
+                                           {"tokens": state[0][:, None]})
+                return state[0]
+
+            ms, peak, launches, _ = timed_calls(
+                lambda: toks.append(one()), steps - 1)
+            k = state[1]["k"]
+            rows[name] = {"ms_per_step": ms, "peak_gb": peak,
+                          "launches": launches,
+                          "tokens": torch.stack(toks, 1),
+                          "k": k.full_tensor() if hasattr(k, "full_tensor")
+                          else k}
+            del cache, state
+    if not torch.equal(rows["sharded"]["tokens"], rows["plain"]["tokens"]):
+        raise AssertionError(f"mesh serve {arch}: tokens differ")
+    kdiff = float((rows["sharded"]["k"].float() - rows["plain"]["k"].float())
+                  .abs().max())
+    out = {"model": arch, "batch": batch, "prompt": prompt,
+           "max_len": max_len, "steps": steps,
+           "ms_per_step": rows["sharded"]["ms_per_step"],
+           "plain_ms_per_step": rows["plain"]["ms_per_step"],
+           "peak_gb": rows["sharded"]["peak_gb"],
+           "plain_peak_gb": rows["plain"]["peak_gb"],
+           "tokens_equal": True, "max_cache_diff": kdiff,
+           "launches": rows["sharded"]["launches"], "card": CARD}
+    log(f"  mesh serve {arch} B={batch} prompt {prompt} cache {max_len}, "
+        f"{steps} steps on a (1, 1) mesh: {out['ms_per_step']:.2f} ms a step "
+        f"sharded, {out['plain_ms_per_step']:.2f} unsharded (DTensor's host "
+        f"cost); every token equal, largest K-cache difference {kdiff}; "
+        f"peak {out['peak_gb']:.2f} GB against {out['plain_peak_gb']:.2f}; "
+        f"{CARD}")
+    del model, params, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train(mesh) -> dict:
+    """Phase 7's train step (``TRAIN_MODEL``, blocked, B=``TRAIN_B``
+    S=``TRAIN_S``) with and without ``mesh`` from the same state on the
+    same batches: ``MESH_TRAIN_WARMUP`` steps, then ``MESH_TRAIN_TIMED``
+    timed; every loss within 1e-5 relative, the parameters' largest
+    difference, flash launches a step equal (one a layer); ms a step
+    and peak memory of each."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import BatchSpec, SyntheticSource
+    from repro_torch.distributed.sharding import BASELINE_RULES
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config(TRAIN_MODEL, attn_impl="blocked")
+    model = build_model(cfg, DEV)
+    opt = adamw(weight_decay=0.01)
+    state0 = init_train_state(model, opt,
+                              torch.Generator(device=DEV).manual_seed(SEED))
+    n = MESH_TRAIN_WARMUP + MESH_TRAIN_TIMED
+    lr = linear_warmup_cosine(3e-4, 2, n)
+    src = SyntheticSource(cfg.vocab, branching=8, seed=1)
+    spec = BatchSpec(TRAIN_B, TRAIN_S, cfg.vocab)
+    batches = [{k: torch.from_numpy(v).to(DEV)
+                for k, v in src.batch(spec, t).items()} for t in range(n)]
+    rows = {}
+    copies = flash_attention.copies
+    for name, m in (("plain", None), ("sharded", mesh)):
+        step = make_train_step(model, opt, lr, m, BASELINE_RULES)
+        state, losses = state0, []
+        for t in range(MESH_TRAIN_WARMUP):
+            state, met = step(state, batches[t])
+            losses.append(met["loss"])
+        it = iter(batches[MESH_TRAIN_WARMUP:])
+
+        def one(step=step):
+            nonlocal state
+            state, met = step(state, next(it))
+            losses.append(met["loss"])
+
+        ms, peak, launches, _ = timed_calls(one, MESH_TRAIN_TIMED)
+        rows[name] = {"ms_per_step": ms, "peak_gb": peak,
+                      "launches": launches,
+                      "losses": [float(x) for x in losses],
+                      "params": [x.full_tensor() if hasattr(x, "full_tensor")
+                                 else x for x in tree_leaves(state.params)]}
+        del state
+        torch.cuda.empty_cache()
+    lp, ls = (np.asarray(rows[k]["losses"]) for k in ("plain", "sharded"))
+    if not (np.isfinite(ls).all() and np.all(np.abs(ls - lp)
+                                             <= 1e-5 * np.abs(lp))):
+        raise AssertionError(f"mesh train: losses {ls} against {lp}")
+    pdiff = max(float((a.float() - b.float()).abs().max()) for a, b in
+                zip(rows["sharded"]["params"], rows["plain"]["params"]))
+    flash = {k: r["launches"]["flash_attention"] / MESH_TRAIN_TIMED
+             for k, r in rows.items()}
+    if flash["sharded"] != cfg.n_layers or flash["plain"] != cfg.n_layers \
+            or flash_attention.copies != copies:
+        raise AssertionError(f"mesh train: flash launches a step {flash}, "
+                             f"want {cfg.n_layers}; copies "
+                             f"{flash_attention.copies - copies}")
+    out = {"model": cfg.name, "batch": TRAIN_B, "seq_len": TRAIN_S,
+           "timed_steps": MESH_TRAIN_TIMED,
+           "ms_per_step": rows["sharded"]["ms_per_step"],
+           "plain_ms_per_step": rows["plain"]["ms_per_step"],
+           "peak_gb": rows["sharded"]["peak_gb"],
+           "plain_peak_gb": rows["plain"]["peak_gb"],
+           "losses": rows["sharded"]["losses"],
+           "plain_losses": rows["plain"]["losses"],
+           "max_loss_rel_diff": float(np.max(np.abs(ls - lp) / np.abs(lp))),
+           "max_param_diff": pdiff,
+           "flash_launches_per_step": flash["sharded"],
+           "flash_copies": flash_attention.copies - copies,
+           "launches": rows["sharded"]["launches"], "card": CARD}
+    log(f"  mesh train {cfg.name} blocked B={TRAIN_B} S={TRAIN_S} on a "
+        f"(1, 1) mesh: {out['ms_per_step']:.2f} ms a step sharded, "
+        f"{out['plain_ms_per_step']:.2f} unsharded; losses within "
+        f"{out['max_loss_rel_diff']:.3g} relative, largest parameter "
+        f"difference {pdiff}; flash launches a step {flash['sharded']} "
+        f"(unsharded {flash['plain']}); peak {out['peak_gb']:.2f} GB "
+        f"against {out['plain_peak_gb']:.2f}; {CARD}")
+    del model, state0, batches, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def gloo_dtensor_main(argv: list[str]) -> int:
+    """``chip_smoke.py gloo_dtensor <rank> <port>``: one of two processes
+    sharing the card over gloo; one DTensor all-gather of a CUDA tensor
+    sharded over a mesh of the two; prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    rank, port = int(argv[0]), argv[1]
+    if DEV == "cuda":
+        torch.cuda.set_device(0)        # both processes share the card
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    try:
+        mesh = init_device_mesh(DEV, (2,))
+        full = torch.arange(8, dtype=torch.float32, device=DEV)
+        got = distribute_tensor(full, mesh, [Shard(0)],
+                                src_data_rank=None).full_tensor()
+        ok = bool(torch.equal(got, full)) and got.device.type == DEV
+        print(json.dumps({"rank": rank, "equal": ok}))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def gloo_dtensor_try() -> dict:
+    """Whether two processes sharing the card can all-gather a CUDA
+    DTensor over gloo (the port stages nothing through the host for
+    it); never fails the run."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "gloo_dtensor", str(i),
+         port], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for i in (0, 1)]
+    result = {"ran": True, "error": None}
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=120)
+            lines = stdout.strip().splitlines()
+            if p.returncode != 0 or not lines or not json.loads(
+                    lines[-1])["equal"]:
+                # the exit code and the exception's own line, not the
+                # warnings around it
+                said = [ln.strip() for ln in (stderr + stdout).splitlines()
+                        if "Error" in ln or "error" in ln]
+                result = {"ran": False, "error": f"exit {p.returncode}: "
+                          + (said[-1] if said else (stderr + stdout)[-600:]
+                             .strip())}
+    except subprocess.TimeoutExpired:
+        result = {"ran": False, "error": "timed out after 120 s"}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log(f"  gloo DTensor all-gather of a CUDA tensor, 2 processes on one "
+        f"card: {'ran' if result['ran'] else 'did not run'}"
+        + ("" if result["ran"] else f": {result['error']!r}"))
+    return result
+
+
+def mesh_phase() -> dict:
+    """A process group of one over nccl and a (1, 1) ``DeviceMesh`` of the
+    card (``make_debug_mesh``), the model-parallel steps under
+    ``BASELINE_RULES`` at full width against the unsharded steps on the
+    same weights, the group destroyed at the end; then the two-process
+    gloo all-gather."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    mesh = make_debug_mesh(device=DEV)
+    try:
+        if tuple(mesh.shape) != (1, 1) or dist.get_backend() != (
+                "nccl" if DEV == "cuda" else "gloo"):
+            raise AssertionError(f"mesh {mesh}, {dist.get_backend()}")
+        rows = [mesh_prefill(mesh, *MESH_PREFILLS[0]),
+                mesh_serve(mesh, *MESH_SERVE),
+                mesh_prefill(mesh, *MESH_PREFILLS[1]),
+                mesh_train(mesh)]
+    finally:
+        dist.destroy_process_group()
+    return {"rows": rows, "gloo_cuda_all_gather": gloo_dtensor_try()}
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -3544,6 +3904,13 @@ def main(argv: list[str]) -> int:
         for k, v in r["launches"].items():
             kernels[k]["launches"] += v
 
+    log(f"phase 9: the model-parallel steps on the card {at()}")
+    mesh = mesh_phase()
+    log(json.dumps({"mesh_runs": mesh, "card": card}))
+    for r in mesh["rows"]:
+        for k, v in r["launches"].items():
+            kernels[k]["launches"] += v
+
     log(f"done {at()}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
@@ -3621,5 +3988,7 @@ def train_turns(argv: list[str]) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["turns"]:
         sys.exit(train_turns(sys.argv[2:]))
+    if sys.argv[1:2] == ["gloo_dtensor"]:
+        sys.exit(gloo_dtensor_main(sys.argv[2:]))
     sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["rank"]
              else main(sys.argv[1:]))

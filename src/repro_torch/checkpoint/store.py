@@ -15,6 +15,14 @@ two packages in either direction:
     them on a daemon thread;
   * ``install_preemption_handler`` makes SIGTERM set ``preempted``, so a
     trainer saves at its next step boundary and exits.
+
+A tree of DTensors (the model-parallel train state, ``launch/steps.py``)
+is saved as full tensors: every rank takes part in gathering each leaf
+(``full_tensor``, a collective, so every rank calls ``save``), and rank 0
+alone writes, in the same layout, so a sharded run's checkpoint loads
+into one process and into ``repro``.  ``restore`` with ``shardings``
+(specs, ``distributed/sharding.py``) and their ``mesh`` gives each rank
+its own shards of the full files, moving nothing between ranks.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from repro_torch.models.common import is_dtensor
 
 _SEP = "__"
 
@@ -55,15 +65,31 @@ def _map_with_key(fn: Callable[[str, torch.Tensor], Any], tree: Any,
     return tree
 
 
-def _flatten(tree: Any) -> dict[str, np.ndarray]:
+def _flatten(tree: Any) -> tuple[dict[str, np.ndarray], bool]:
+    """The leaves as host arrays, and whether any was a DTensor (then
+    gathered whole: a collective)."""
     flat: dict[str, np.ndarray] = {}
+    sharded = []
 
     def put(key: str, leaf: torch.Tensor) -> torch.Tensor:
+        if is_dtensor(leaf):
+            sharded.append(key)
+            leaf = leaf.full_tensor()
         flat[key] = leaf.detach().cpu().numpy()
         return leaf
 
     _map_with_key(put, tree)
-    return flat
+    return flat, bool(sharded)
+
+
+def _writes(sharded: bool) -> bool:
+    """Whether this process writes: always for a tree of its own, only
+    rank 0 of the job for a gathered DTensor tree."""
+    if not sharded:
+        return True
+    import torch.distributed as dist
+
+    return dist.get_rank() == 0
 
 
 class CheckpointStore:
@@ -95,15 +121,19 @@ class CheckpointStore:
     def save(self, step: int, tree: Any, meta: dict | None = None) -> str:
         """Write ``tree`` at ``step`` now; a step already on disk stays."""
         self.wait()  # never race a pending write
-        if step in self.steps():
-            return os.path.join(self.dir, f"step_{step}")
-        return self._write(step, _flatten(tree), meta or {})
+        path = os.path.join(self.dir, f"step_{step}")
+        flat, sharded = _flatten(tree)   # every rank gathers
+        if step in self.steps() or not _writes(sharded):
+            return path
+        return self._write(step, flat, meta or {})
 
     def save_async(self, step: int, tree: Any, meta: dict | None = None
                    ) -> None:
         """Copy ``tree`` to the host now, write it on a thread."""
         self.wait()
-        flat = _flatten(tree)
+        flat, sharded = _flatten(tree)
+        if not _writes(sharded):
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, flat, meta or {}), daemon=True)
         self._thread.start()
@@ -134,9 +164,13 @@ class CheckpointStore:
                           ignore_errors=True)
         return final
 
-    def restore(self, step: int, like: Any) -> Any:
+    def restore(self, step: int, like: Any, shardings: Any = None,
+                mesh: Any = None) -> Any:
         """The tree saved at ``step``, in the structure of ``like``, each
-        leaf in its ``like`` leaf's dtype and on its device."""
+        leaf in its ``like`` leaf's dtype and on its device; with
+        ``shardings`` (a spec tree) on ``mesh``, each leaf a DTensor laid
+        out by its spec, every rank keeping its shard of the full
+        file."""
         d = os.path.join(self.dir, f"step_{step}")
 
         def load(key: str, leaf: torch.Tensor) -> torch.Tensor:
@@ -147,7 +181,12 @@ class CheckpointStore:
             return torch.from_numpy(np.ascontiguousarray(arr)).reshape(
                 arr.shape).to(dtype=leaf.dtype, device=leaf.device)
 
-        return _map_with_key(load, like)
+        tree = _map_with_key(load, like)
+        if shardings is None:
+            return tree
+        from repro_torch.distributed.sharding import place
+
+        return place(tree, shardings, mesh)
 
     def meta(self, step: int) -> dict:
         with open(os.path.join(self.dir, f"step_{step}", "meta.json")) as f:

@@ -11,14 +11,24 @@ choice, by name: ``nccl`` when every process has a card of its own,
 ranks on one card); nothing picks another.  The JAX package's
 ``force_host_device_count`` has no counterpart here: D shards of one
 process share its device (``make_env_mesh(D)`` without a job).
+
+``make_debug_mesh`` is the model-parallel steps' ``("data", "model")``
+``DeviceMesh`` over the job's processes (``launch/steps.py``).  The TPU
+v5e roofline constants of ``repro``'s module are not carried over: the
+card's are in ``distributed/analytic.py``.  ``repro``'s
+``make_production_mesh`` (16 x 16 and 2 x 16 x 16 devices) waits for
+ROADMAP A19b; its plans need no devices (``distributed/sharding.py``
+takes a mesh's shape).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any
 
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.engine import make_env_mesh
 
 # the address ``initialize_multihost`` joined, for provenance
@@ -65,4 +75,40 @@ def multihost_info() -> dict[str, Any]:
             "backend": dist.get_backend()}
 
 
-__all__ = ["initialize_multihost", "make_env_mesh", "multihost_info"]
+def make_debug_mesh(devices: int | None = None,
+                    device: torch.device | str | None = None) -> Any:
+    """A ``DeviceMesh`` named ``("data", "model")`` over the job's
+    processes, one device each, shaped by ``repro``'s rule: ``model`` is
+    2 when the process count n is even and above 1, else 1, and
+    ``data`` is n / model.  Without a process group it joins one: the
+    job torchrun describes in the environment (``WORLD_SIZE`` above 1,
+    ``init_method="env://"``), else a group of this process alone, over
+    ``nccl`` on the card and ``gloo`` on the CPU.  It runs on the card
+    unless ``device`` is the CPU.  ``devices``, if given, must be the
+    process count."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev = resolve_device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if not dist.is_initialized():
+        if dev.type == "cuda":
+            index = dev.index if dev.index is not None else int(
+                os.environ.get("LOCAL_RANK", "0")) % torch.cuda.device_count()
+            torch.cuda.set_device(index)
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            dist.init_process_group(backend, init_method="env://")
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(),
+                                    world_size=1, rank=0)
+    n = dist.get_world_size()
+    if devices is not None and int(devices) != n:
+        raise ValueError(f"devices={devices}: the job has {n} processes, "
+                         "one device each")
+    model = 2 if n % 2 == 0 and n > 1 else 1
+    return init_device_mesh(dev.type, (n // model, model),
+                            mesh_dim_names=("data", "model"))
+
+
+__all__ = ["initialize_multihost", "make_debug_mesh", "make_env_mesh",
+           "multihost_info"]

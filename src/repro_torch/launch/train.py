@@ -1,5 +1,5 @@
-"""The LM trainer (``repro/launch/train.py``): any ``--arch`` of the
-families the port runs (dense, MoE, hybrid) on one device, with
+"""The LM trainer (``repro/launch/train.py``): any ``--arch`` on one
+device, or a dense or vlm one on the ``--mesh debug`` mesh, with
 checkpoints and restart.
 
 Checkpoints are atomic and written on a thread (``CheckpointStore``);
@@ -14,6 +14,20 @@ had (a batch is a function of the step).  One JSON line every
         --ckpt-every 50 [--device cpu]
 
 It runs on the card unless ``--device`` names another device.
+
+``--mesh debug`` trains the model-parallel step on
+``launch/mesh.py::make_debug_mesh`` under ``BASELINE_RULES``: the state
+laid out by ``train_state_shardings``, each batch by
+``batch_shardings``.  Every rank builds the same state from the same
+seed and keeps its shards; rank 0 writes full checkpoints and a restart
+restores each rank's shards.  A SIGTERM to any rank stops them all at
+the same step (one all-reduce of a flag a step).  Over several
+processes start it with torchrun, which sets the job's environment:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch qwen3-0.6b --smoke --mesh debug --device cpu ...
+
+(over nccl on the card, one card a process; over gloo on the CPU).
 """
 
 from __future__ import annotations
@@ -49,16 +63,19 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 
 def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            "--mesh: the sharded train step is not ported (ROADMAP A19)")
 
     import torch
 
     from repro_torch.checkpoint.store import CheckpointStore
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import BatchSpec, SyntheticSource
-    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.distributed.sharding import BASELINE_RULES, place
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import (
+        init_train_state,
+        make_train_step,
+        train_state_shardings,
+    )
     from repro_torch.models import build_model
     from repro_torch.models.common import count_params
     from repro_torch.optim import adamw, linear_warmup_cosine
@@ -87,7 +104,16 @@ def main(argv: list[str] | None = None) -> None:
     print(f"arch={cfg.name} params={n_params:,} (~{n_params / 1e6:.1f}M) "
           f"device={device}", flush=True)
     lr_fn = linear_warmup_cosine(args.lr, args.warmup, args.steps)
-    train_step = make_train_step(model, opt, lr_fn,
+    mesh = plan = None
+    rules = BASELINE_RULES
+    if args.mesh == "debug":
+        model.check_mesh(args.mesh)     # before joining a process group
+        mesh = make_debug_mesh(device=device)
+        plan = train_state_shardings(mesh, state, rules)
+        state = place(state, plan, mesh)
+        print(f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+              f"rank={torch.distributed.get_rank()}", flush=True)
+    train_step = make_train_step(model, opt, lr_fn, mesh, rules,
                                  microbatches=args.microbatches)
 
     store = None
@@ -97,7 +123,7 @@ def main(argv: list[str] | None = None) -> None:
         store.install_preemption_handler()
         last = store.latest_step()
         if last is not None:
-            state = store.restore(last, state)
+            state = store.restore(last, state, plan, mesh)
             start_step = int(state.step)
             print(f"restored checkpoint step {start_step}", flush=True)
 
@@ -119,10 +145,11 @@ def main(argv: list[str] | None = None) -> None:
                    "tokens_per_s": round(tps, 1), "time_s": round(dt, 1)}
             history.append(rec)
             print(json.dumps(rec), flush=True)
-        if store and ((step + 1) % args.ckpt_every == 0
-                      or store.preempted.is_set()):
+        stop = store is not None and _any_rank(store.preempted.is_set(),
+                                                mesh, device)
+        if store and ((step + 1) % args.ckpt_every == 0 or stop):
             store.save_async(step + 1, state, {"arch": cfg.name})
-            if store.preempted.is_set():
+            if stop:
                 store.wait()
                 print("preempted: checkpoint flushed, exiting", flush=True)
                 return
@@ -134,6 +161,23 @@ def main(argv: list[str] | None = None) -> None:
     if args.out_json:
         with open(args.out_json, "w") as f:
             json.dump(history, f)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def _any_rank(flag: bool, mesh, device) -> bool:
+    """``flag`` of any rank of the mesh's job (this rank's alone without
+    a mesh)."""
+    if mesh is None:
+        return flag
+    import torch
+    import torch.distributed as dist
+
+    t = torch.tensor([int(flag)], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
 
 
 if __name__ == "__main__":

@@ -20,6 +20,14 @@ full-sequence head's logits and XLA drops the rest (eager PyTorch would
 compute all of it: 10 GB and 10 TFLOP at qwen3-0.6b, B=4, S=8192);
 ``softmax_xent`` forms the f32 copy of the logits again in the backward
 (``torch.utils.checkpoint``), where XLA decides itself what to keep.
+
+``train_loss``, ``prefill`` and ``decode_step`` take ``repro``'s
+``shard`` (``launch/steps.py`` makes a mesh's).  The decoder stack of
+the dense and vlm families has its shard points; an MoE, hybrid, xLSTM
+or Whisper model refuses a mesh (ROADMAP A19b).  Under a mesh a fresh
+cache is laid out by ``launch/steps.py::cache_shardings``, each rank
+allocating only its shard, and the loss makes vocab-sharded logits
+whole along the vocab before its logsumexp.
 """
 
 from __future__ import annotations
@@ -32,7 +40,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import transformer, whisper, xlstm
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import (
+    ModelConfig,
+    ShardFn,
+    is_dtensor,
+    no_shard,
+    shard_mesh,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +102,14 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     the logsumexp in f32; with ``mask``, the mean over the tokens it
     marks.  Under autograd only ``logits`` itself is kept for the
     backward, which forms its f32 copy again: at qwen3-0.6b's vocab
-    that copy is the largest tensor of a train step."""
+    that copy is the largest tensor of a train step.  DTensor logits
+    sharded on the vocab are gathered along it first."""
+    if is_dtensor(logits):
+        from torch.distributed.tensor import Replicate, Shard
+
+        last = Shard(logits.ndim - 1)
+        want = [Replicate() if p == last else p for p in logits.placements]
+        logits = logits.redistribute(logits.device_mesh, want)
     if not (torch.is_grad_enabled() and logits.requires_grad):
         return _xent(logits, labels, mask)
     return checkpoint(_xent, logits, labels, mask, use_reentrant=False)
@@ -113,7 +134,31 @@ class Model:
             return xlstm.xlstm_lm_init(gen, cfg, self.device)
         return transformer.lm_init(gen, cfg, self.device)
 
-    def train_loss(self, params: dict[str, Any], batch: dict[str, Any]
+    def check_mesh(self, mesh: Any) -> None:
+        """Refuse a mesh (any value but None) for a family whose shard
+        points are not ported: MoE, hybrid, xLSTM and Whisper (ROADMAP
+        A19b)."""
+        cfg = self.cfg
+        if mesh is not None and (
+                cfg.moe is not None or cfg.ssm is not None
+                or cfg.family in ("ssm", "encdec")):
+            raise NotImplementedError(
+                f"{cfg.name} ({cfg.family}): the shard points of the MoE, "
+                "SSM, xLSTM and Whisper layers are not ported; run it "
+                "without a mesh (ROADMAP A19b)")
+
+    def _fresh_cache(self, batch: int, max_len: int, shard: ShardFn
+                     ) -> dict[str, Any]:
+        mesh = shard_mesh(shard)
+        if mesh is None:
+            return self.init_cache(batch, max_len)
+        from repro_torch.launch.steps import sharded_cache
+
+        return sharded_cache(Model(self.cfg, "meta").init_cache(
+            batch, max_len), mesh, shard.rules)
+
+    def train_loss(self, params: dict[str, Any], batch: dict[str, Any],
+                   shard: ShardFn = no_shard
                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """``(loss, {"xent", "aux"})`` of next-token prediction over
         ``batch["tokens"]`` (B, S) against ``batch["labels"]``, masked by
@@ -123,6 +168,7 @@ class Model:
         d); a vlm ``patch_embeds`` (B, P, d) before the tokens and
         ``positions`` (B, P + S, 3), its loss over the text region."""
         cfg = self.cfg
+        self.check_mesh(shard_mesh(shard))
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if cfg.family == "encdec":
             enc = whisper.encode(params, batch["frames"], cfg)
@@ -133,13 +179,14 @@ class Model:
             x, _, aux = transformer.lm_hidden(
                 params, batch["tokens"], cfg,
                 input_embeds=batch["patch_embeds"],
-                positions=batch["positions"])
+                positions=batch["positions"], shard=shard)
             # the loss only over the text region, after the patch prefix
-            logits = transformer.lm_head(
-                params, x[:, batch["patch_embeds"].shape[1]:], cfg)
+            logits = shard(transformer.lm_head(
+                params, x[:, batch["patch_embeds"].shape[1]:], cfg),
+                ("batch", "seq", "vocab"))
         else:
             logits, _, aux = transformer.lm_apply(params, batch["tokens"],
-                                                  cfg)
+                                                  cfg, shard=shard)
         xent = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
         return xent + aux, {"xent": xent, "aux": aux}
 
@@ -195,7 +242,8 @@ class Model:
         raise ValueError(f"unknown cell kind {shape.kind!r}")
 
     def prefill(self, params: dict[str, Any], batch: dict[str, Any],
-                max_len: int) -> tuple[torch.Tensor, dict[str, Any]]:
+                max_len: int, shard: ShardFn = no_shard
+                ) -> tuple[torch.Tensor, dict[str, Any]]:
         """The prompt ``batch["tokens"]`` (B, S) into a fresh cache of
         ``max_len`` -> (last-position logits (B, V), cache).  An encdec
         model encodes ``batch["frames"]`` first; a vlm takes an optional
@@ -205,6 +253,7 @@ class Model:
         kernel; an xLSTM keeps no cache of positions (``max_len``
         unused)."""
         cfg = self.cfg
+        self.check_mesh(shard_mesh(shard))
         tokens = batch["tokens"]
         B = tokens.shape[0]
         if cfg.family == "encdec":
@@ -221,16 +270,19 @@ class Model:
         x, cache, _ = transformer.lm_hidden(
             params, tokens, cfg, input_embeds=batch.get("patch_embeds"),
             positions=batch.get("positions"),
-            cache=self.init_cache(B, max_len))
-        return transformer.lm_head(params, x[:, -1], cfg), cache
+            cache=self._fresh_cache(B, max_len, shard), shard=shard)
+        return shard(transformer.lm_head(params, x[:, -1], cfg),
+                     ("batch", "vocab")), cache
 
     def decode_step(self, params: dict[str, Any], tokens: torch.Tensor,
                     cache: dict[str, Any],
-                    positions: torch.Tensor | None = None
+                    positions: torch.Tensor | None = None,
+                    shard: ShardFn = no_shard
                     ) -> tuple[torch.Tensor, dict[str, Any]]:
         """tokens (B, 1) -> (logits (B, V), new cache); a vlm needs its
         ``positions`` (B, 1, 3)."""
         cfg = self.cfg
+        self.check_mesh(shard_mesh(shard))
         if cfg.family == "encdec":
             logits, cache = whisper.decode(params, tokens, None, cfg, cache)
         elif cfg.family == "ssm":
@@ -239,7 +291,8 @@ class Model:
             cache = {"states": states, "len": cache["len"] + 1}
         else:
             logits, cache, _ = transformer.lm_apply(
-                params, tokens, cfg, positions=positions, cache=cache)
+                params, tokens, cfg, positions=positions, cache=cache,
+                shard=shard)
         return logits[:, -1], cache
 
 

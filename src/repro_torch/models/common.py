@@ -22,11 +22,36 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+import sys
+from typing import Any, Callable
 
 import torch
 
 from repro_torch.utils.tree import tree_leaves
+
+# ``shard(x, logical_names) -> x``: a model's shard point, where
+# ``repro`` places ``with_sharding_constraint``
+# (``distributed/sharding.py::make_shard_fn`` makes the mesh's)
+ShardFn = Callable[[torch.Tensor, tuple[str | None, ...]], torch.Tensor]
+
+
+def no_shard(x: torch.Tensor, names: tuple[str | None, ...]
+             ) -> torch.Tensor:
+    """The single-device shard point: ``x`` as it is, no op."""
+    return x
+
+
+def shard_mesh(shard: ShardFn) -> Any:
+    """The ``DeviceMesh`` of a mesh's shard function, None for
+    ``no_shard``."""
+    return getattr(shard, "mesh", None)
+
+
+def is_dtensor(x: Any) -> bool:
+    """Whether ``x`` is a DTensor (none exists before
+    ``torch.distributed.tensor`` is imported, so this imports nothing)."""
+    dt = sys.modules.get("torch.distributed.tensor")
+    return dt is not None and isinstance(x, dt.DTensor)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,6 +188,6 @@ def model_flops_per_token(cfg: ModelConfig) -> float:
     return 6.0 * (total + d * cfg.vocab)
 
 
-__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "XLSTMConfig",
-           "count_params", "dense_init", "embed_init",
+__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "ShardFn", "XLSTMConfig",
+           "count_params", "is_dtensor", "no_shard", "shard_mesh", "dense_init", "embed_init",
            "model_flops_per_token"]

@@ -17,6 +17,13 @@ rows into the cache tensors it is given (views of the stacked
 passed in.  The write starts at ``min(cache_len, L -
 S)``, clamped as ``dynamic_update_slice`` clamps, and is an index op on
 the device: ``cache_len`` never leaves the card.
+
+``shard`` is ``repro``'s shard points (q, k, v after the rotation, the
+attention output, the MLP's hidden and output), ``no_shard`` by
+default.  Under a mesh the tensors are DTensors: the blocked attention
+runs the kernel on each rank's local heads
+(``models/blocked_attention.py``), and a cache whose positions are
+sharded takes its new rows on the rank that holds them (``_write_rows``).
 """
 
 from __future__ import annotations
@@ -31,7 +38,13 @@ from repro_torch.models.blocked_attention import (
     banded_attention,
     online_causal_attention,
 )
-from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.models.common import (
+    ModelConfig,
+    ShardFn,
+    dense_init,
+    is_dtensor,
+    no_shard,
+)
 
 
 # --------------------------------------------------------------------- #
@@ -154,6 +167,24 @@ def sliding_mask(S: int, T: int, window: int, offset: int = 0, device=None
     return ((kpos <= qpos) & (kpos > qpos - window))[None, None]
 
 
+def split_whole(x: torch.Tensor, dim: int, parts: int) -> torch.Tensor:
+    """``x``, ready for dim ``dim`` to be split into ``parts`` leading
+    parts: a DTensor whose shards of that dim do not divide ``parts`` is
+    first gathered along it (DTensor refuses such a reshape; GSPMD
+    reshards).  A plain tensor is returned as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, ps = x.device_mesh, x.placements
+    extent = math.prod(mesh.size(i) for i, p in enumerate(ps)
+                       if p == Shard(dim))
+    if parts % extent == 0:
+        return x
+    return x.redistribute(mesh, [Replicate() if p == Shard(dim) else p
+                                 for p in ps])
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask: torch.Tensor | None, cfg: ModelConfig) -> torch.Tensor:
     """Masked GQA attention, f32 softmax.  q: (B, S, Hq, D), k/v:
@@ -161,12 +192,12 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
-    qg = q.reshape(B, S, Hkv, G, D)
+    qg = split_whole(q, 2, Hkv).reshape(B, S, Hkv, G, D)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).reshape(B, Hq, S, T)
     scores = scores.float() / math.sqrt(float(cfg.hd))
     if mask is not None:
         scores = torch.where(mask, scores, -1e30)
-    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    w = split_whole(torch.softmax(scores, dim=-1).to(q.dtype), 1, Hkv)
     o = torch.einsum("bkgst,btkd->bskgd", w.reshape(B, Hkv, G, S, T), v)
     return o.reshape(B, S, Hq, D)
 
@@ -213,10 +244,45 @@ def _dequant_kv(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype
 
 def _write_rows(caches: tuple[torch.Tensor, ...],
                 rows: tuple[torch.Tensor, ...], index: torch.Tensor) -> None:
-    """Write ``rows[i]`` into ``caches[i]`` at positions ``index`` of
-    dim 1, in place."""
+    """Write ``rows[i]`` into ``caches[i]`` at positions ``index`` (a run
+    of consecutive positions) of dim 1, in place."""
     for cache, new in zip(caches, rows):
-        cache.index_copy_(1, index, new.to(cache.dtype))
+        if is_dtensor(cache):
+            _write_local_rows(cache, new, index)
+        else:
+            cache.index_copy_(1, index, new.to(cache.dtype))
+
+
+def _write_local_rows(cache, new, index) -> None:
+    """``_write_rows`` into a DTensor cache, on each rank's own shard.
+    The new rows are made whole along the positions (they are few: the
+    prompt, or one token).  Where the positions are not sharded each
+    rank writes them with ``index_copy_``; where they are, a rank holds
+    positions ``lo .. lo + Ll - 1`` and a write at a position on the
+    card (``cache_len``) must land on the rank that holds it without a
+    host read, so every rank rewrites its whole shard, each row from
+    the new rows where its position is in the run and from itself
+    elsewhere: one pass over the shard a write."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    mesh, cp = cache.device_mesh, tuple(cache.placements)
+    want = [Replicate() if p == Shard(1) else p for p in cp]
+    new = new.redistribute(mesh, want) if is_dtensor(new) else new
+    local = cache.to_local()
+    rows = (new.to_local() if is_dtensor(new) else new).to(local.dtype)
+    if not any(p == Shard(1) and mesh.size(i) > 1 for i, p in enumerate(cp)):
+        local.index_copy_(1, index, rows)
+        return
+    _, offset = compute_local_shape_and_global_offset(cache.shape, mesh, cp)
+    src = (offset[1] - index[0]
+           + torch.arange(local.shape[1], device=local.device))
+    hit = (src >= 0) & (src < rows.shape[1])
+    picked = rows.index_select(1, src.clamp(0, rows.shape[1] - 1))
+    hit = hit.view((1, -1) + (1,) * (local.ndim - 2))
+    local.copy_(torch.where(hit, picked, local))
 
 
 def _slice_index(cache_len: torch.Tensor, S: int, L: int) -> torch.Tensor:
@@ -241,6 +307,7 @@ def attention(
     cache_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
     cache_scales: tuple[torch.Tensor, torch.Tensor] | None = None,
     cache_len: torch.Tensor | None = None,
+    shard: ShardFn = no_shard,
 ) -> torch.Tensor:
     """GQA attention over ``x`` (B, S, d) -> (B, S, d); ``rope`` is
     ``rope_tables`` of the positions, ``layer_window`` this layer's
@@ -254,14 +321,15 @@ def attention(
     (and ``cache_scales``) in place: they are ``repro``'s new cache."""
     B, S, _ = x.shape
     cd = cfg.compute_dtype
-    q = (x @ p["wq"].to(cd)).reshape(B, S, cfg.n_heads, cfg.hd)
-    k = (x @ p["wk"].to(cd)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = (x @ p["wv"].to(cd)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    q, k, v = (split_whole(x @ p[w].to(cd), 2, n).reshape(B, S, n, cfg.hd)
+               for w, n in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                            ("wv", cfg.n_kv_heads)))
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q)
         k = rms_head_norm(p["k_norm"], k)
-    q = apply_rope(q, rope, cfg)
-    k = apply_rope(k, rope, cfg)
+    q = shard(apply_rope(q, rope, cfg), ("batch", "seq", "heads", None))
+    k = shard(apply_rope(k, rope, cfg), ("batch", "seq", "kv_heads", None))
+    v = shard(v, ("batch", "seq", "kv_heads", None))
 
     window = cfg.window if cfg.attn_type == "sliding" else 0
     # this layer's window; 0 = full (a global layer, or not sliding)
@@ -278,10 +346,12 @@ def attention(
             mask = (sliding_mask(S, S, win, device=dev) if win
                     else causal_mask(S, S, device=dev))
             out = mha(q, k, v, mask, cfg)
-        return _attn_out(p, out, cfg)
+        return _attn_out(p, out, cfg, shard)
 
     ck, cv = cache_kv
     L = ck.shape[1]
+    if is_dtensor(cache_len):       # replicated: the local value is whole
+        cache_len = cache_len.to_local()
     qpos = cache_len + torch.arange(S, device=dev)[:, None]
     kpos = torch.arange(L, device=dev)[None, :]
     if cache_scales is not None:
@@ -296,7 +366,7 @@ def attention(
             valid = valid & (kpos > qpos - win)
         out = mha(q, _dequant_kv(ck, k_sc, cd), _dequant_kv(cv, v_sc, cd),
                   valid[None, None], cfg)
-        return _attn_out(p, out, cfg)
+        return _attn_out(p, out, cfg, shard)
     if cfg.windowed_cache and window and window < L:
         # ring cache (decode only): the write slot wraps modulo L
         if S != 1:
@@ -309,18 +379,20 @@ def attention(
         if use_blocked and S == L:
             # prefill from scratch (cache_len == 0 by Model.prefill's
             # contract): blocked attention over x itself
-            return _attn_out(p, _blocked_self_attention(q, k, v, win), cfg)
+            return _attn_out(p, _blocked_self_attention(q, k, v, win), cfg,
+                             shard)
         valid = kpos <= qpos                        # causal incl. history
         if win:
             valid = valid & (kpos > qpos - win)
         mask = valid[None, None]
-    return _attn_out(p, mha(q, ck, cv, mask, cfg), cfg)
+    return _attn_out(p, mha(q, ck, cv, mask, cfg), cfg, shard)
 
 
-def _attn_out(p: dict[str, Any], out: torch.Tensor, cfg: ModelConfig
-              ) -> torch.Tensor:
+def _attn_out(p: dict[str, Any], out: torch.Tensor, cfg: ModelConfig,
+              shard: ShardFn) -> torch.Tensor:
     B, S = out.shape[:2]
-    return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(cfg.compute_dtype)
+    out = out.reshape(B, S, cfg.q_dim) @ p["wo"].to(cfg.compute_dtype)
+    return shard(out, ("batch", "seq", "embed"))
 
 
 def _blocked_self_attention(q: torch.Tensor, k: torch.Tensor,
@@ -352,13 +424,14 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, device,
 
 
 def apply_mlp(p: dict[str, torch.Tensor], x: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
+              cfg: ModelConfig, shard: ShardFn = no_shard) -> torch.Tensor:
     cd = cfg.compute_dtype
     if cfg.mlp_type == "swiglu":
         h = F.silu(x @ p["wg"].to(cd)) * (x @ p["wi"].to(cd))
     else:  # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(x @ p["wi"].to(cd), approximate="tanh")
-    return h @ p["wo"].to(cd)
+    h = shard(h, ("batch", "seq", "mlp"))
+    return shard(h @ p["wo"].to(cd), ("batch", "seq", "embed"))
 
 
 __all__ = [

@@ -16,6 +16,12 @@ B, L, Hkv, hd), ``len`` a 0-d int32 (plus ``k_scale``/``v_scale`` for
 the int8 cache, ``ssm_h``/``ssm_tail`` for a hybrid), written in place
 (``models/layers.py::attention``, ``decoder_layer``).  The LM policy's
 own cached decode lives in ``rl/policy_lm.py``.
+
+``shard`` is ``repro``'s shard points (the embeddings, each layer's
+output, the logits; ``no_shard`` by default).  Under a mesh the weights
+are DTensors and the embedding is ``F.embedding``, which DTensor runs
+on a vocab-sharded table (``repro`` indexes; on one device the port
+indexes too).
 """
 
 from __future__ import annotations
@@ -23,8 +29,16 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.models.common import ModelConfig, dense_init, embed_init
+from repro_torch.models.common import (
+    ModelConfig,
+    ShardFn,
+    dense_init,
+    embed_init,
+    is_dtensor,
+    no_shard,
+)
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
@@ -108,11 +122,46 @@ def static_layer_windows(cfg: ModelConfig) -> list[int]:
             for i in range(cfg.n_layers)]
 
 
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``tokens``.  A DTensor table is looked up
+    vocab-parallel: gathered along its FSDP dim, each rank looks the
+    tokens up in its own vocab rows, zero where a token lies in another
+    rank's rows, and the result is the ``Partial`` sum over the vocab's
+    mesh dims (the next shard point reduces it)."""
+    if not is_dtensor(table):
+        return table[tokens.long()]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    mesh = table.device_mesh
+    tp = [p if p == Shard(0) else Replicate() for p in table.placements]
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    kp = [p if p == Shard(0) and t != Shard(0) else Replicate()
+          for p, t in zip(tokens.placements, tp)]
+    table, tokens = table.redistribute(mesh, tp), tokens.redistribute(mesh, kp)
+    # a rank's gradient of the table covers its own batch rows only: a
+    # partial sum over the mesh dims that shard the tokens
+    local = table.to_local(grad_placements=[
+        Partial() if k == Shard(0) else t for t, k in zip(tp, kp)])
+    _, offset = compute_local_shape_and_global_offset(table.shape, mesh, tp)
+    rel = tokens.to_local().long() - offset[0]
+    hit = (rel >= 0) & (rel < local.shape[0])
+    rows = local[rel.clamp(0, local.shape[0] - 1)].masked_fill(
+        ~hit[..., None], 0)
+    out = [Partial() if t == Shard(0) else k for t, k in zip(tp, kp)]
+    return DTensor.from_local(rows, mesh, out, run_check=False)
+
+
 def decoder_layer(p: dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
                   rope: tuple[torch.Tensor, torch.Tensor] | None,
                   layer_window: int,
                   cache: dict[str, torch.Tensor] | None,
-                  cache_len: torch.Tensor | None
+                  cache_len: torch.Tensor | None,
+                  shard: ShardFn = no_shard
                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One pre-norm layer -> (x, the MoE aux loss or None without
     experts); ``cache`` is this layer's slice of the cache (without
@@ -125,7 +174,8 @@ def decoder_layer(p: dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     normed = apply_norm(p["attn_norm"], x, cfg)
     attn_out = attention(p["attn"], normed, cfg, rope,
                          layer_window=layer_window, cache_kv=cache_kv,
-                         cache_scales=cache_scales, cache_len=cache_len)
+                         cache_scales=cache_scales, cache_len=cache_len,
+                         shard=shard)
     if cfg.ssm is not None:
         # hymba: parallel attention + SSM heads, normed-mean fusion
         state = None if cache is None else (cache["ssm_h"],
@@ -141,17 +191,18 @@ def decoder_layer(p: dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     normed = apply_norm(p["mlp_norm"], x, cfg)
     if cfg.moe is not None:
         out, aux = apply_moe(p["moe"], normed, cfg)
-        return x + out, aux
+        return shard(x + out, ("batch", "seq", "embed")), aux
     if cfg.d_ff > 0:
-        x = x + apply_mlp(p["mlp"], normed, cfg)
-    return x, None
+        x = x + apply_mlp(p["mlp"], normed, cfg, shard)
+    return shard(x, ("batch", "seq", "embed")), None
 
 
 def lm_hidden(params: dict[str, Any], tokens: torch.Tensor | None,
               cfg: ModelConfig, *,
               input_embeds: torch.Tensor | None = None,
               positions: torch.Tensor | None = None,
-              cache: dict[str, torch.Tensor] | None = None
+              cache: dict[str, torch.Tensor] | None = None,
+              shard: ShardFn = no_shard
               ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None,
                          torch.Tensor]:
     """The final-normed hidden state (B, S, d), the new cache and the
@@ -163,8 +214,9 @@ def lm_hidden(params: dict[str, Any], tokens: torch.Tensor | None,
     if input_embeds is not None:
         parts.append(input_embeds.to(cd))
     if tokens is not None:
-        parts.append(params["embed"][tokens.long()].to(cd))
+        parts.append(_embed(params["embed"], tokens).to(cd))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    x = shard(x, ("batch", "seq", "embed"))
     B, S, _ = x.shape
     cache_len = cache["len"] if cache is not None else None
     if positions is None:
@@ -179,7 +231,7 @@ def lm_hidden(params: dict[str, Any], tokens: torch.Tensor | None,
         if cache is not None:
             layer_cache = {k: v[i] for k, v in cache.items() if k != "len"}
         x, layer_aux = decoder_layer(layers[i], x, cfg, rope, w, layer_cache,
-                                     cache_len)
+                                     cache_len, shard)
         if layer_aux is not None:
             aux = aux + layer_aux
     new_cache = None
@@ -195,7 +247,8 @@ def lm_apply(params: dict[str, Any], tokens: torch.Tensor | None,
              cfg: ModelConfig, *,
              input_embeds: torch.Tensor | None = None,
              positions: torch.Tensor | None = None,
-             cache: dict[str, torch.Tensor] | None = None
+             cache: dict[str, torch.Tensor] | None = None,
+             shard: ShardFn = no_shard
              ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None,
                         torch.Tensor]:
     """(B, S) int tokens -> ``(logits (B, S, V) in the compute dtype,
@@ -207,8 +260,10 @@ def lm_apply(params: dict[str, Any], tokens: torch.Tensor | None,
     cache; ``aux`` is the MoE loss summed over layers, a 0-dim f32."""
     x, new_cache, aux = lm_hidden(params, tokens, cfg,
                                   input_embeds=input_embeds,
-                                  positions=positions, cache=cache)
-    return lm_head(params, x, cfg), new_cache, aux
+                                  positions=positions, cache=cache,
+                                  shard=shard)
+    return (shard(lm_head(params, x, cfg), ("batch", "seq", "vocab")),
+            new_cache, aux)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -28,7 +28,7 @@ the served block back into ``lanes``' tensors.  A caller must not reuse
 the caches or lanes it passed in.  Entry points run on ``cuda`` unless
 ``device="cpu"`` is asked for.  ``place_params`` puts the params on a
 sharded pool's mesh: replicated, the only placement the port has (a
-policy sharded across processes is ROADMAP A19).
+policy sharded across processes is ROADMAP A19b).
 """
 
 from __future__ import annotations
@@ -192,7 +192,7 @@ class LMPolicy:
         its ``min_shard_params``, and in solo, where every shard shares
         the process's device, so ``params`` come back on the pool's
         device.  A policy the rule would shard across processes raises
-        (ROADMAP A19)."""
+        (ROADMAP A19b)."""
         from repro_torch.distributed.sharding import policy_shardings
         from repro_torch.utils.tree import is_value, tree_leaves, tree_map
 
@@ -204,7 +204,7 @@ class LMPolicy:
             raise NotImplementedError(
                 f"a policy of {sum(x.numel() for x in tree_leaves(params))}"
                 " params would be sharded across the mesh's processes; only"
-                " replicated placement is ported (ROADMAP A19)")
+                " replicated placement is ported (ROADMAP A19b)")
         return tree_map(lambda x: x.to(pool.device), params)
 
     def init_lanes(self, num_envs: int) -> LMLaneState:

@@ -384,17 +384,23 @@ def test_shapes_and_synth_batch():
 
 
 def test_what_is_not_ported_raises(monkeypatch):
-    """Only the model-parallel steps (A19) are not ported: every arch of
-    the registry builds and draws its smoke weights on the CPU."""
+    """Only the shard points of the MoE, hybrid, xLSTM and Whisper
+    models (A19b) are not ported: every arch of the registry builds and
+    draws its smoke weights on the CPU, and those four families refuse a
+    mesh in the serving steps (the decoder stack's mesh:
+    tests/test_torch_sharded_steps.py)."""
     _, tcfg = configs("qwen3")
     for name in tconfigs.list_archs():
         model = build_model(get_smoke_config(name), "cpu")
         assert model.init(torch.Generator().manual_seed(0))
+    for name in ("granite-moe-3b-a800m", "hymba-1.5b", "xlstm-125m",
+                 "whisper-large-v3"):
+        unported = build_model(get_smoke_config(name), "cpu")
+        with pytest.raises(NotImplementedError, match="A19b"):
+            tsteps.make_prefill_step(unported, 8, mesh=object())
+        with pytest.raises(NotImplementedError, match="A19b"):
+            tsteps.make_serve_step(unported, mesh=object())
     model = build_model(tcfg, "cpu")
-    with pytest.raises(NotImplementedError, match="A19"):
-        tsteps.make_prefill_step(model, 8, mesh=object())
-    with pytest.raises(NotImplementedError, match="A19"):
-        tsteps.make_serve_step(model, mesh=object())
     with pytest.raises(ValueError, match="do not fit"):
         model.prefill(model.init(torch.Generator().manual_seed(0)),
                       {"tokens": torch.zeros((1, 9), dtype=torch.int32)},

@@ -280,6 +280,30 @@ def test_running_the_port_imports_neither_jax_nor_repro():
         "    decompress_tree, init_error)\n"
         "g = {'w': torch.randn(300)}\n"
         "decompress_tree(compress_tree(g, init_error(g))[0], g)\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch.distributed.sharding import (BASELINE_RULES,\n"
+        "    ZERO1_RULES, bytes_per_device, param_shardings)\n"
+        "from repro_torch.launch.mesh import make_debug_mesh\n"
+        "from repro_torch.launch.steps import (batch_shardings,\n"
+        "    cache_shardings, train_state_shardings)\n"
+        "mesh = make_debug_mesh(device='cpu')\n"
+        "cfg = get_smoke_config('qwen3-0.6b').replace(attn_impl='blocked')\n"
+        "model = build_model(cfg, 'cpu')\n"
+        "state = init_train_state(model, adamw(),\n"
+        "                         torch.Generator().manual_seed(0))\n"
+        "plan = train_state_shardings({'data': 16, 'model': 16},\n"
+        "    train_state_shapes(model, adamw()), ZERO1_RULES)\n"
+        "batch = {k: torch.from_numpy(v) for k, v in SyntheticSource(\n"
+        "    cfg.vocab).batch(BatchSpec(2, 8, cfg.vocab), 0).items()}\n"
+        "state, _ = make_train_step(model, adamw(), constant(1e-3), mesh)(\n"
+        "    state, batch)\n"
+        "nxt, cache = make_prefill_step(model, 8, mesh)(state.params,\n"
+        "    {'tokens': batch['tokens']})\n"
+        "store = CheckpointStore(tempfile.mkdtemp())\n"
+        "store.save(1, state)\n"
+        "store.restore(1, state, train_state_shardings(mesh, state,\n"
+        "    BASELINE_RULES), mesh)\n"
+        "dist.destroy_process_group()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
