@@ -248,13 +248,17 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+# H100 SXM peaks (launch/mesh.py, from NVIDIA's data sheet at 700 W):
+# HBM bytes/s, f32 ops/s outside the tensor cores, used for the 32-bit
+# integer work too, and the dense bf16 tensor-core rate, the floor of
+# attention's products; outside the repository this import fails
+from repro_torch.launch.mesh import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S,
+    PEAK_FLOPS_BF16 as BF16_TENSOR_OPS_PER_S,
+    PEAK_FLOPS_F32 as F32_OPS_PER_S,
+)
+
 SEED = 0
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 ops/s
-# outside the tensor cores, used for the 32-bit integer work too, and the
-# dense bf16 tensor-core rate, the floor of attention's products
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_TENSOR_OPS_PER_S = 989e12
 # f32 operations of one Ant substep in csrc/env_step.cu, counting each
 # cosf as one: legs 4 x 7 + contacts 4 + thrust 12 + normal 16
 # + joints 8 x 11 + torso 1 + 9 + 7 + 3 + 2 + 9 + 6 + reward 2 + 15 + 2 + 3
@@ -3412,6 +3416,61 @@ MESH_PREFILLS = [("qwen3-0.6b", {}, 4, 8192),
                   1, 8192)]
 MESH_SERVE = ("qwen3-0.6b", 8, 1024, 1056, 32)   # batch, prompt, cache, steps
 MESH_TRAIN_WARMUP, MESH_TRAIN_TIMED = 2, 5
+# the MoE, hybrid, Whisper and xLSTM families at full width: phase 3's
+# granite prefill cell and a hymba prefill; Whisper's 8 clips with a
+# 16-token prompt and an xLSTM prompt of one 256-token chunk, each then
+# served 16 greedy steps (batch, prompt, cache, steps)
+MESH_FAMILY_PREFILLS = [("granite-moe-3b-a800m", {}, 4, 4096),
+                        ("hymba-1.5b", {}, 1, 8192)]
+MESH_FAMILY_SERVES = [("whisper-large-v3", 8, 16, 32, 16),
+                      ("xlstm-125m", 8, 256, 256, 16)]
+# the dry run of this cell on the 16 x 16 fake mesh (launch/dryrun.py)
+MESH_DRYRUN = ("qwen3-14b", "train_4k")
+# sharded against unsharded in bf16: each difference within this share
+# of the largest magnitude of its unsharded leaf
+MESH_REL_TOL = 2e-2
+
+
+def whole(x):
+    """A DTensor's full value; a plain tensor as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def on_host(cache):
+    """A cache's tensors copied to the host: the unsharded row's cache
+    kept for ``cache_diffs`` without counting in the sharded row's peak
+    memory."""
+    from repro_torch.utils.tree import tree_map
+
+    return tree_map(lambda t: whole(t).cpu(), cache)
+
+
+def cache_diffs(got, want) -> dict:
+    """The largest difference of each cache entry (``k``, ``v``,
+    ``ssm_h``, ``xk``, the xLSTM's ``states``, ...; ``len`` apart)
+    sharded against unsharded, absolute and over the entry's largest
+    magnitude, on the host."""
+    from repro_torch.utils.tree import tree_leaves
+
+    out = {}
+    for key in want:
+        if key == "len":
+            continue
+        diff = peak = 0.0
+        for a, b in zip(tree_leaves(got[key]), tree_leaves(want[key])):
+            a, b = whole(a).float().cpu(), b.float().cpu()
+            diff = max(diff, float((a - b).abs().max()))
+            peak = max(peak, float(b.abs().max()))
+        out[key] = {"max_abs_diff": diff, "rel": diff / max(peak, 1e-30)}
+    return out
+
+
+def check_rel(what: str, diffs: dict) -> None:
+    bad = {k: v for k, v in diffs.items() if not v["rel"] <= MESH_REL_TOL}
+    if bad:
+        raise AssertionError(f"{what}: sharded against unsharded beyond "
+                             f"{MESH_REL_TOL} of the largest magnitude: "
+                             f"{bad}")
 
 
 def on_mesh(mesh):
@@ -3455,9 +3514,11 @@ def timed_calls(fn, calls: int) -> tuple[float, float, dict, object]:
 def mesh_prefill(mesh, arch: str, overrides: dict, batch: int, seq: int
                  ) -> dict:
     """``make_prefill_step`` with and without ``mesh`` on one model and
-    one prompt: next tokens identical, the last-position logits' largest
-    difference, flash launches a call equal (one a layer), no input
-    copied; ms a call and peak memory of each."""
+    one prompt: next tokens identical, the last-position logits' and
+    every cache entry's largest difference (each within
+    ``MESH_REL_TOL`` of its largest magnitude), flash launches a call
+    equal (one a layer), no input copied; ms a call and peak memory of
+    each."""
     import torch
 
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -3479,15 +3540,21 @@ def mesh_prefill(mesh, arch: str, overrides: dict, batch: int, seq: int
                                    max_len=seq, shard=shard)
         logit_diff = float((got.full_tensor().float() - want.float()).abs()
                            .max())
+        logit_rel = logit_diff / float(want.float().abs().max())
         del got, want
         rows = {}
         for name, step in (("plain", plain), ("sharded", sharded)):
             step(params, inputs)                            # warm-up
             ms, peak, launches, (nxt, cache) = timed_calls(
                 lambda step=step: step(params, inputs), 2)
-            del cache
             rows[name] = {"ms_per_call": ms, "peak_gb": peak,
-                          "launches": launches, "next": nxt}
+                          "launches": launches, "next": nxt,
+                          "cache": on_host(cache)}
+            del cache
+        caches = cache_diffs(rows["sharded"].pop("cache"),
+                             rows["plain"].pop("cache"))
+    check_rel(f"mesh prefill {arch}", dict(
+        caches, logits={"max_abs_diff": logit_diff, "rel": logit_rel}))
     flash = {k: r["launches"]["flash_attention"] / 2 for k, r in rows.items()}
     if flash["sharded"] != cfg.n_layers or flash["plain"] != cfg.n_layers:
         raise AssertionError(f"mesh prefill {arch}: flash launches a call "
@@ -3501,17 +3568,24 @@ def mesh_prefill(mesh, arch: str, overrides: dict, batch: int, seq: int
            "seq_len": seq, "layers": cfg.n_layers,
            "ms_per_call": rows["sharded"]["ms_per_call"],
            "plain_ms_per_call": rows["plain"]["ms_per_call"],
+           "sharded_over_plain": (rows["sharded"]["ms_per_call"]
+                                  / rows["plain"]["ms_per_call"]),
            "peak_gb": rows["sharded"]["peak_gb"],
            "plain_peak_gb": rows["plain"]["peak_gb"],
            "flash_launches_per_call": flash["sharded"],
+           "plain_flash_launches_per_call": flash["plain"],
            "flash_copies": flash_attention.copies - copies,
            "next_tokens_equal": True, "max_logit_diff": logit_diff,
+           "logit_rel_diff": logit_rel, "cache_diffs": caches,
            "launches": rows["sharded"]["launches"], "card": CARD}
     log(f"  mesh prefill {arch} {cfg.attn_type} B={batch} S={seq} on a "
         f"(1, 1) mesh: {out['ms_per_call']:.1f} ms a call sharded, "
-        f"{out['plain_ms_per_call']:.1f} unsharded; peak "
+        f"{out['plain_ms_per_call']:.1f} unsharded "
+        f"({out['sharded_over_plain']:.3f}x); peak "
         f"{out['peak_gb']:.2f} GB against {out['plain_peak_gb']:.2f}; next "
-        f"tokens equal, largest logit difference {logit_diff}; flash "
+        f"tokens equal, largest logit difference {logit_diff} "
+        f"({logit_rel:.3g} of the largest), cache "
+        f"{ {k: v['max_abs_diff'] for k, v in caches.items()} }; flash "
         f"launches a call {flash['sharded']} (unsharded {flash['plain']}), "
         f"copies 0; {CARD}")
     del model, params, rows
@@ -3523,8 +3597,10 @@ def mesh_serve(mesh, arch: str, batch: int, prompt: int, max_len: int,
                steps: int) -> dict:
     """A prefill of ``batch`` prompts into a ``max_len`` cache, then
     ``steps`` greedy ``make_serve_step`` tokens, with and without
-    ``mesh``: every token identical, the caches' largest difference; ms
-    a step of each."""
+    ``mesh``: every token identical, every cache entry's largest
+    difference (each within ``MESH_REL_TOL`` of its largest magnitude:
+    the KV rows, Whisper's cross K/V, an xLSTM's states), flash launches
+    equal; ms a step and peak memory of each."""
     import torch
 
     from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
@@ -3552,30 +3628,41 @@ def mesh_serve(mesh, arch: str, batch: int, prompt: int, max_len: int,
 
             ms, peak, launches, _ = timed_calls(
                 lambda: toks.append(one()), steps - 1)
-            k = state[1]["k"]
             rows[name] = {"ms_per_step": ms, "peak_gb": peak,
                           "launches": launches,
                           "tokens": torch.stack(toks, 1),
-                          "k": k.full_tensor() if hasattr(k, "full_tensor")
-                          else k}
+                          "cache": on_host(state[1])}
             del cache, state
     if not torch.equal(rows["sharded"]["tokens"], rows["plain"]["tokens"]):
         raise AssertionError(f"mesh serve {arch}: tokens differ")
-    kdiff = float((rows["sharded"]["k"].float() - rows["plain"]["k"].float())
-                  .abs().max())
+    caches = cache_diffs(rows["sharded"].pop("cache"),
+                         rows["plain"].pop("cache"))
+    check_rel(f"mesh serve {arch}", caches)
+    flash = {k: r["launches"].get("flash_attention", 0)
+             for k, r in rows.items()}
+    if flash["sharded"] != flash["plain"]:
+        raise AssertionError(f"mesh serve {arch}: flash launches {flash}")
     out = {"model": arch, "batch": batch, "prompt": prompt,
            "max_len": max_len, "steps": steps,
            "ms_per_step": rows["sharded"]["ms_per_step"],
            "plain_ms_per_step": rows["plain"]["ms_per_step"],
+           "sharded_over_plain": (rows["sharded"]["ms_per_step"]
+                                  / rows["plain"]["ms_per_step"]),
            "peak_gb": rows["sharded"]["peak_gb"],
            "plain_peak_gb": rows["plain"]["peak_gb"],
-           "tokens_equal": True, "max_cache_diff": kdiff,
+           "tokens_equal": True,
+           "max_cache_diff": max(v["max_abs_diff"] for v in caches.values()),
+           "cache_diffs": caches, "flash_launches": flash["sharded"],
+           "plain_flash_launches": flash["plain"],
            "launches": rows["sharded"]["launches"], "card": CARD}
     log(f"  mesh serve {arch} B={batch} prompt {prompt} cache {max_len}, "
         f"{steps} steps on a (1, 1) mesh: {out['ms_per_step']:.2f} ms a step "
-        f"sharded, {out['plain_ms_per_step']:.2f} unsharded (DTensor's host "
-        f"cost); every token equal, largest K-cache difference {kdiff}; "
-        f"peak {out['peak_gb']:.2f} GB against {out['plain_peak_gb']:.2f}; "
+        f"sharded, {out['plain_ms_per_step']:.2f} unsharded "
+        f"({out['sharded_over_plain']:.3f}x, DTensor's host cost); every "
+        f"token equal, largest cache differences "
+        f"{ {k: v['max_abs_diff'] for k, v in caches.items()} }; flash "
+        f"launches {flash['sharded']} (unsharded {flash['plain']}); peak "
+        f"{out['peak_gb']:.2f} GB against {out['plain_peak_gb']:.2f}; "
         f"{CARD}")
     del model, params, rows
     torch.cuda.empty_cache()
@@ -3630,8 +3717,7 @@ def mesh_train(mesh) -> dict:
         rows[name] = {"ms_per_step": ms, "peak_gb": peak,
                       "launches": launches,
                       "losses": [float(x) for x in losses],
-                      "params": [x.full_tensor() if hasattr(x, "full_tensor")
-                                 else x for x in tree_leaves(state.params)]}
+                      "params": [whole(x) for x in tree_leaves(state.params)]}
         del state
         torch.cuda.empty_cache()
     lp, ls = (np.asarray(rows[k]["losses"]) for k in ("plain", "sharded"))
@@ -3738,28 +3824,93 @@ def gloo_dtensor_try() -> dict:
     return result
 
 
+def dryrun_start(arch: str, shape: str) -> tuple:
+    """``python -m repro_torch.launch.dryrun`` on the cell, started in a
+    process of its own: one rank of a fake 256-rank group runs the
+    sharded step on meta tensors, on the host's CPU alone, so it runs
+    beside the card's rows; ``dryrun_row`` reads it."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return proc, arch, shape, time.perf_counter()
+
+
+def dryrun_row(started: tuple) -> dict:
+    """The dry run's row: no number in it is a measurement; the H100
+    roofline of the production mesh."""
+    proc, arch, shape, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"dry run {arch} {shape}: exit "
+                             f"{proc.returncode}: {stderr[-2000:]}")
+    res = json.loads(stdout[stdout.index("{"):])
+    roof, coll = res["roofline"], res["collectives"]
+    if res["status"] != "ok" or res["devices"] != 256 \
+            or coll["total_count"] <= 0:
+        raise AssertionError(f"dry run {arch} {shape}: {res}")
+    out = {"arch": arch, "shape": shape, "mesh": res["mesh"],
+           "devices": res["devices"], "wall_s": time.perf_counter() - t0,
+           "flops_per_device": res["flops_per_device"],
+           "argument_bytes_per_device":
+               res["memory_analysis"]["argument_size_in_bytes"],
+           "collectives": {k: v for k, v in coll.items()
+                           if not isinstance(v, dict) or v["count"]},
+           "roofline": roof}
+    log(f"  dry run {arch} {shape} on the {res['mesh']} fake mesh (meta "
+        f"tensors, no device runs; H100 constants): bound "
+        f"{roof['step_time_bound_s']:.4g} s ({roof['dominant']}: compute "
+        f"{roof['compute_s']:.4g}, memory {roof['memory_s']:.4g}, "
+        f"collective {roof['collective_s']:.4g} s), mfu bound "
+        f"{roof['mfu_bound']:.4f}; {coll['total_count']} collectives, "
+        f"{coll['total_operand_bytes']} operand bytes a rank; "
+        f"{res['flops_per_device']:.4g} FLOPs a rank counted; "
+        f"{out['argument_bytes_per_device']} argument bytes a rank; done "
+        f"{out['wall_s']:.1f} s after its start, beside the card's rows")
+    return out
+
+
 def mesh_phase() -> dict:
     """A process group of one over nccl and a (1, 1) ``DeviceMesh`` of the
     card (``make_debug_mesh``), the model-parallel steps under
     ``BASELINE_RULES`` at full width against the unsharded steps on the
-    same weights, the group destroyed at the end; then the two-process
-    gloo all-gather."""
+    same weights (the dense decoders, then the MoE, hybrid, Whisper and
+    xLSTM families), the group destroyed at the end; then the
+    two-process gloo all-gather; the dry run of ``MESH_DRYRUN`` runs on
+    the host beside them."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_debug_mesh
 
-    mesh = make_debug_mesh(device=DEV)
+    dryrun = dryrun_start(*MESH_DRYRUN)
     try:
-        if tuple(mesh.shape) != (1, 1) or dist.get_backend() != (
-                "nccl" if DEV == "cuda" else "gloo"):
-            raise AssertionError(f"mesh {mesh}, {dist.get_backend()}")
-        rows = [mesh_prefill(mesh, *MESH_PREFILLS[0]),
-                mesh_serve(mesh, *MESH_SERVE),
-                mesh_prefill(mesh, *MESH_PREFILLS[1]),
-                mesh_train(mesh)]
-    finally:
-        dist.destroy_process_group()
-    return {"rows": rows, "gloo_cuda_all_gather": gloo_dtensor_try()}
+        mesh = make_debug_mesh(device=DEV)
+        try:
+            if tuple(mesh.shape) != (1, 1) or dist.get_backend() != (
+                    "nccl" if DEV == "cuda" else "gloo"):
+                raise AssertionError(f"mesh {mesh}, {dist.get_backend()}")
+            rows = [mesh_prefill(mesh, *MESH_PREFILLS[0]),
+                    mesh_serve(mesh, *MESH_SERVE),
+                    mesh_prefill(mesh, *MESH_PREFILLS[1]),
+                    mesh_train(mesh)]
+            rows += [mesh_prefill(mesh, *cell)
+                     for cell in MESH_FAMILY_PREFILLS]
+            rows += [mesh_serve(mesh, *cell) for cell in MESH_FAMILY_SERVES]
+        finally:
+            dist.destroy_process_group()
+        gloo = gloo_dtensor_try()
+    except BaseException:
+        dryrun[0].kill()            # the phase failed: stop the dry run
+        dryrun[0].wait()
+        raise
+    return {"rows": rows, "gloo_cuda_all_gather": gloo,
+            "dryrun": dryrun_row(dryrun)}
 
 
 def main(argv: list[str]) -> int:

@@ -22,11 +22,11 @@ a mesh's *shape*, axis names to extents in mesh order (a dict, or a
 **Policies.**  ``policy_shardings`` is the JAX package's Seed-RL
 placement rule as a plan: a policy smaller than ``min_shard_params`` is
 replicated on every shard; a larger one over a mesh of several shards
-would put each leaf's largest divisible dim on the mesh (FSDP over the
-env mesh).  The port places replicated policies only
-(``rl/policy_lm.py::place_params``): a sharded policy across processes
-is ROADMAP A19b.  ``disaggregated_env_mesh`` and ``host_broadcast`` are
-``rl/ppo.py::train_disaggregated``'s env mesh and hand-off.
+puts each leaf's largest divisible dim on the mesh (FSDP over the env
+mesh).  ``rl/policy_lm.py::place_params`` places it: across processes
+as DTensors over the env mesh's ranks, in solo (every shard on one
+device) replicated.  ``disaggregated_env_mesh`` and ``host_broadcast``
+are ``rl/ppo.py::train_disaggregated``'s env mesh and hand-off.
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ BASELINE_RULES = RuleSet({
     "mlp": "model",
     "vocab": "model",
     "expert": "model",
-    "capacity": "model",   # MoE: expert slots when E does not divide
+    "capacity": "model",   # repro's rule; none of its shard points names it
     "kv_seq": "model",
     "layers": None,
     "enc_seq": None,

@@ -13,16 +13,18 @@ ranks on one card); nothing picks another.  The JAX package's
 process share its device (``make_env_mesh(D)`` without a job).
 
 ``make_debug_mesh`` is the model-parallel steps' ``("data", "model")``
-``DeviceMesh`` over the job's processes (``launch/steps.py``).  The TPU
-v5e roofline constants of ``repro``'s module are not carried over: the
-card's are in ``distributed/analytic.py``.  ``repro``'s
-``make_production_mesh`` (16 x 16 and 2 x 16 x 16 devices) waits for
-ROADMAP A19b; its plans need no devices (``distributed/sharding.py``
-takes a mesh's shape).
+``DeviceMesh`` over the job's processes (``launch/steps.py``), and
+``make_production_mesh`` ``repro``'s 16 x 16 and 2 x 16 x 16 meshes
+over a job of 256 or 512 processes (``launch/dryrun.py`` builds it
+over a fake process group; the plans alone need no devices:
+``distributed/sharding.py`` takes a mesh's shape).  Where ``repro``
+keeps its TPU v5e roofline constants, this module keeps the card's:
+H100 SXM, one process a card.
 """
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Any
 
@@ -75,6 +77,71 @@ def multihost_info() -> dict[str, Any]:
             "backend": dist.get_backend()}
 
 
+# H100 SXM roofline constants, per card (NVIDIA H100 data sheet, SXM5,
+# 700 W): dense bf16 tensor-core FLOP/s, HBM3 bytes/s, f32 FLOP/s
+# outside the tensor cores, and NVLink 4's bytes/s a card (18 links of
+# 25 GB/s each way: 450 GB/s each way, 900 GB/s both ways, the data
+# sheet's figure), the rate a collective between cards of one host
+# moves at; ``repro``'s ``ICI_BW``
+PEAK_FLOPS_BF16 = 989e12
+HBM_BW = 3.35e12
+PEAK_FLOPS_F32 = 67e12
+NVLINK_BW = 450e9
+
+# repro's production meshes: axis names -> shape
+PRODUCTION_MESHES = {False: (("data", "model"), (16, 16)),
+                     True: (("pod", "data", "model"), (2, 16, 16))}
+
+
+def _join(dev: torch.device, solo: bool) -> None:
+    """Join a process group if none is up: the job torchrun describes in
+    the environment (``WORLD_SIZE`` above 1, ``init_method="env://"``),
+    else, with ``solo``, a group of this process alone; over ``nccl`` on
+    the card (this process's card: ``dev``'s index, else ``LOCAL_RANK``
+    modulo the cards) and ``gloo`` on the CPU."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return
+    if dev.type == "cuda":
+        index = dev.index if dev.index is not None else int(
+            os.environ.get("LOCAL_RANK", "0")) % torch.cuda.device_count()
+        torch.cuda.set_device(index)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        dist.init_process_group(backend, init_method="env://")
+    elif solo:
+        dist.init_process_group(backend, store=dist.HashStore(),
+                                world_size=1, rank=0)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: torch.device | str | None = None) -> Any:
+    """``repro``'s production ``DeviceMesh``: ``("data", "model")`` 16 x
+    16, or with ``multi_pod`` ``("pod", "data", "model")`` 2 x 16 x 16,
+    over a job of exactly 256 or 512 processes, one device each (the
+    job's group, or torchrun's, joined as ``make_debug_mesh`` joins it).
+    Any other job size raises ``ValueError``.  It runs on the card
+    unless ``device`` is the CPU (or the job's backend is ``"fake"``,
+    the dry run's, where no device computes)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    names, shape = PRODUCTION_MESHES[bool(multi_pod)]
+    need = math.prod(shape)
+    dev = None
+    if not (dist.is_initialized() and dist.get_backend() == "fake"):
+        dev = resolve_device(device)
+        _join(dev, solo=False)
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if n != need:
+        raise ValueError(
+            f"the {'x'.join(map(str, shape))} production mesh needs a job "
+            f"of {need} processes, one device each; this job has {n}")
+    return init_device_mesh(dev.type if dev is not None else "cpu", shape,
+                            mesh_dim_names=names)
+
+
 def make_debug_mesh(devices: int | None = None,
                     device: torch.device | str | None = None) -> Any:
     """A ``DeviceMesh`` named ``("data", "model")`` over the job's
@@ -90,17 +157,7 @@ def make_debug_mesh(devices: int | None = None,
     from torch.distributed.device_mesh import init_device_mesh
 
     dev = resolve_device(device)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
-    if not dist.is_initialized():
-        if dev.type == "cuda":
-            index = dev.index if dev.index is not None else int(
-                os.environ.get("LOCAL_RANK", "0")) % torch.cuda.device_count()
-            torch.cuda.set_device(index)
-        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-            dist.init_process_group(backend, init_method="env://")
-        else:
-            dist.init_process_group(backend, store=dist.HashStore(),
-                                    world_size=1, rank=0)
+    _join(dev, solo=True)
     n = dist.get_world_size()
     if devices is not None and int(devices) != n:
         raise ValueError(f"devices={devices}: the job has {n} processes, "
@@ -110,5 +167,6 @@ def make_debug_mesh(devices: int | None = None,
                             mesh_dim_names=("data", "model"))
 
 
-__all__ = ["initialize_multihost", "make_debug_mesh", "make_env_mesh",
-           "multihost_info"]
+__all__ = ["HBM_BW", "NVLINK_BW", "PEAK_FLOPS_BF16", "PEAK_FLOPS_F32",
+           "PRODUCTION_MESHES", "initialize_multihost", "make_debug_mesh",
+           "make_env_mesh", "make_production_mesh", "multihost_info"]

@@ -24,8 +24,8 @@ and the updated state is put back on its plan (under ``ZERO1_RULES``
 the update runs on the optimizer state's data shards and the new
 parameters are gathered).  Next tokens and metrics come back whole, as
 plain tensors on the rank's device; caches and states stay DTensors.
-The decoder stack of the dense and vlm families is ported; an MoE,
-hybrid, xLSTM or Whisper model refuses a mesh (ROADMAP A19b).
+Every family runs on a mesh: the decoder stacks (dense, MoE, hybrid,
+vlm), the xLSTM and Whisper.
 """
 
 from __future__ import annotations
@@ -129,17 +129,29 @@ def cache_shardings(mesh: Any, cache_shape: Any, rules: RuleSet) -> Any:
         cache_shape)
 
 
-def sharded_cache(cache_shape: Any, mesh: Any, rules: RuleSet) -> Any:
+def sharded_cache(cache_shape: Any, mesh: Any, rules: RuleSet,
+                  device: torch.device | str | None = None) -> Any:
     """A zero cache of ``cache_shape``'s shapes and dtypes (meta tensors)
     laid out by ``cache_shardings``, each rank allocating only its
-    shard."""
-    from torch.distributed.tensor import zeros
+    shard, on ``device`` (default the mesh's; the dry run's ``meta``
+    allocates nothing)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
 
-    return tree_map(
-        lambda leaf, spec: zeros(tuple(leaf.shape), dtype=leaf.dtype,
-                                 device_mesh=mesh,
-                                 placements=placements(spec, mesh)),
-        cache_shape, cache_shardings(mesh, cache_shape, rules))
+    dev = torch.device(device if device is not None else mesh.device_type)
+
+    def one(leaf: torch.Tensor, spec: Spec) -> torch.Tensor:
+        want = placements(spec, mesh)
+        local, _ = compute_local_shape_and_global_offset(leaf.shape, mesh,
+                                                         want)
+        return DTensor.from_local(
+            torch.zeros(local, dtype=leaf.dtype, device=dev), mesh, want,
+            run_check=False, shape=leaf.shape, stride=leaf.stride())
+
+    return tree_map(one, cache_shape,
+                    cache_shardings(mesh, cache_shape, rules))
 
 
 def train_state_shardings(mesh: Any, state_shape: TrainState,
@@ -235,7 +247,6 @@ def make_train_step(model: Model, optimizer: Optimizer, lr_fn: Callable,
     ``loss`` and ``lr``, 0-dim tensors on the model's device (reading
     one waits for the step).  With a ``mesh``, the model-parallel step
     under ``rules`` (the module's docstring)."""
-    model.check_mesh(mesh)
     shard = make_shard_fn(mesh, rules)
 
     def train_step(state: TrainState, batch: dict[str, Any]):
@@ -288,7 +299,6 @@ def make_prefill_step(model: Model, seq_len: int, mesh: Any = None,
     with a cache of ``seq_len`` positions, the next token greedy; with a
     ``mesh``, the parameters, batch and cache laid out by their
     plans."""
-    model.check_mesh(mesh)
     shard = make_shard_fn(mesh, rules)
 
     def prefill_step(params, batch):
@@ -310,7 +320,6 @@ def make_serve_step(model: Model, mesh: Any = None,
     """``serve_step(params, cache, batch) -> (next_token (B,) int32,
     cache)``: one greedy token per sequence against the cache; with a
     ``mesh``, every argument laid out by its plan."""
-    model.check_mesh(mesh)
     shard = make_shard_fn(mesh, rules)
 
     def serve_step(params, cache, batch):

@@ -1,6 +1,5 @@
 """The LM trainer (``repro/launch/train.py``): any ``--arch`` on one
-device, or a dense or vlm one on the ``--mesh debug`` mesh, with
-checkpoints and restart.
+device or on the ``--mesh debug`` mesh, with checkpoints and restart.
 
 Checkpoints are atomic and written on a thread (``CheckpointStore``);
 SIGTERM flushes one at the next step boundary and exits 0; a run
@@ -107,7 +106,6 @@ def main(argv: list[str] | None = None) -> None:
     mesh = plan = None
     rules = BASELINE_RULES
     if args.mesh == "debug":
-        model.check_mesh(args.mesh)     # before joining a process group
         mesh = make_debug_mesh(device=device)
         plan = train_state_shardings(mesh, state, rules)
         state = place(state, plan, mesh)

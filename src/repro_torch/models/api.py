@@ -22,12 +22,12 @@ compute all of it: 10 GB and 10 TFLOP at qwen3-0.6b, B=4, S=8192);
 (``torch.utils.checkpoint``), where XLA decides itself what to keep.
 
 ``train_loss``, ``prefill`` and ``decode_step`` take ``repro``'s
-``shard`` (``launch/steps.py`` makes a mesh's).  The decoder stack of
-the dense and vlm families has its shard points; an MoE, hybrid, xLSTM
-or Whisper model refuses a mesh (ROADMAP A19b).  Under a mesh a fresh
-cache is laid out by ``launch/steps.py::cache_shardings``, each rank
-allocating only its shard, and the loss makes vocab-sharded logits
-whole along the vocab before its logsumexp.
+``shard`` (``launch/steps.py`` makes a mesh's) and hand it to every
+family, as ``repro`` does.  Under a mesh a fresh cache is laid out by
+``launch/steps.py::cache_shardings``, each rank allocating only its
+shard, and the loss makes vocab-sharded logits whole along the vocab
+before its logsumexp.  ``cache_specs`` is a decode cell's cache on the
+meta device (the dry run's, ``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -134,19 +134,6 @@ class Model:
             return xlstm.xlstm_lm_init(gen, cfg, self.device)
         return transformer.lm_init(gen, cfg, self.device)
 
-    def check_mesh(self, mesh: Any) -> None:
-        """Refuse a mesh (any value but None) for a family whose shard
-        points are not ported: MoE, hybrid, xLSTM and Whisper (ROADMAP
-        A19b)."""
-        cfg = self.cfg
-        if mesh is not None and (
-                cfg.moe is not None or cfg.ssm is not None
-                or cfg.family in ("ssm", "encdec")):
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}): the shard points of the MoE, "
-                "SSM, xLSTM and Whisper layers are not ported; run it "
-                "without a mesh (ROADMAP A19b)")
-
     def _fresh_cache(self, batch: int, max_len: int, shard: ShardFn
                      ) -> dict[str, Any]:
         mesh = shard_mesh(shard)
@@ -155,7 +142,7 @@ class Model:
         from repro_torch.launch.steps import sharded_cache
 
         return sharded_cache(Model(self.cfg, "meta").init_cache(
-            batch, max_len), mesh, shard.rules)
+            batch, max_len), mesh, shard.rules, self.device)
 
     def train_loss(self, params: dict[str, Any], batch: dict[str, Any],
                    shard: ShardFn = no_shard
@@ -168,13 +155,14 @@ class Model:
         d); a vlm ``patch_embeds`` (B, P, d) before the tokens and
         ``positions`` (B, P + S, 3), its loss over the text region."""
         cfg = self.cfg
-        self.check_mesh(shard_mesh(shard))
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if cfg.family == "encdec":
-            enc = whisper.encode(params, batch["frames"], cfg)
-            logits, _ = whisper.decode(params, batch["tokens"], enc, cfg)
+            enc = whisper.encode(params, batch["frames"], cfg, shard)
+            logits, _ = whisper.decode(params, batch["tokens"], enc, cfg,
+                                       shard=shard)
         elif cfg.family == "ssm":
-            logits, _ = xlstm.xlstm_lm_apply(params, batch["tokens"], cfg)
+            logits, _ = xlstm.xlstm_lm_apply(params, batch["tokens"], cfg,
+                                             shard=shard)
         elif cfg.family == "vlm":
             x, _, aux = transformer.lm_hidden(
                 params, batch["tokens"], cfg,
@@ -204,6 +192,13 @@ class Model:
                     "len": torch.zeros((), dtype=torch.int32,
                                        device=self.device)}
         return transformer.init_cache(cfg, batch, max_len, self.device)
+
+    def cache_specs(self, shape: ShapeSpec) -> dict[str, Any]:
+        """The cache of a decode cell (``shape.global_batch`` sequences,
+        ``shape.seq_len`` positions) as tensors on the ``meta`` device:
+        shapes and dtypes, nothing allocated."""
+        return Model(self.cfg, "meta").init_cache(shape.global_batch,
+                                                  shape.seq_len)
 
     def input_specs(self, shape: ShapeSpec
                     ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
@@ -253,20 +248,23 @@ class Model:
         kernel; an xLSTM keeps no cache of positions (``max_len``
         unused)."""
         cfg = self.cfg
-        self.check_mesh(shard_mesh(shard))
+        cd = cfg.compute_dtype
         tokens = batch["tokens"]
         B = tokens.shape[0]
         if cfg.family == "encdec":
-            enc = whisper.encode(params, batch["frames"], cfg)
-            x, cache = whisper.decode_hidden(params, tokens, enc, cfg,
-                                             self.init_cache(B, max_len))
-            return x[:, -1] @ params["lm_head"].to(cfg.compute_dtype), cache
+            enc = whisper.encode(params, batch["frames"], cfg, shard)
+            x, cache = whisper.decode_hidden(
+                params, tokens, enc, cfg,
+                self._fresh_cache(B, max_len, shard), shard)
+            return shard(x[:, -1] @ params["lm_head"].to(cd),
+                         ("batch", "vocab")), cache
         if cfg.family == "ssm":
-            x, states = xlstm.xlstm_hidden(params, tokens, cfg)
+            x, states = xlstm.xlstm_hidden(params, tokens, cfg, shard=shard)
             cache = {"states": states,
                      "len": torch.tensor(tokens.shape[1], dtype=torch.int32,
                                          device=self.device)}
-            return x[:, -1] @ params["embed"].T.to(cfg.compute_dtype), cache
+            return shard(x[:, -1] @ params["embed"].T.to(cd),
+                         ("batch", "vocab")), cache
         x, cache, _ = transformer.lm_hidden(
             params, tokens, cfg, input_embeds=batch.get("patch_embeds"),
             positions=batch.get("positions"),
@@ -282,12 +280,12 @@ class Model:
         """tokens (B, 1) -> (logits (B, V), new cache); a vlm needs its
         ``positions`` (B, 1, 3)."""
         cfg = self.cfg
-        self.check_mesh(shard_mesh(shard))
         if cfg.family == "encdec":
-            logits, cache = whisper.decode(params, tokens, None, cfg, cache)
+            logits, cache = whisper.decode(params, tokens, None, cfg, cache,
+                                           shard)
         elif cfg.family == "ssm":
             logits, states = xlstm.xlstm_lm_apply(params, tokens, cfg,
-                                                  cache["states"])
+                                                  cache["states"], shard)
             cache = {"states": states, "len": cache["len"] + 1}
         else:
             logits, cache, _ = transformer.lm_apply(

@@ -253,6 +253,22 @@ def _write_rows(caches: tuple[torch.Tensor, ...],
             cache.index_copy_(1, index, new.to(cache.dtype))
 
 
+def copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``, in place, where ``dst`` may be a DTensor view
+    of a cache: ``src`` laid out as ``dst`` (a plain ``src`` is the
+    whole value, as implicit replication reads it) and copied into the
+    rank's own shard."""
+    if not is_dtensor(dst):
+        dst.copy_(src)
+        return
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh, want = dst.device_mesh, dst.placements
+    src = (src.redistribute(mesh, want) if is_dtensor(src) else
+           distribute_tensor(src, mesh, want, src_data_rank=None))
+    dst.to_local().copy_(src.to_local())
+
+
 def _write_local_rows(cache, new, index) -> None:
     """``_write_rows`` into a DTensor cache, on each rank's own shard.
     The new rows are made whole along the positions (they are few: the
@@ -406,6 +422,43 @@ def _blocked_self_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 # --------------------------------------------------------------------- #
+# embeddings
+# --------------------------------------------------------------------- #
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``tokens``.  A DTensor table is looked up
+    vocab-parallel: gathered along its FSDP dim, each rank looks the
+    tokens up in its own vocab rows, zero where a token lies in another
+    rank's rows, and the result is the ``Partial`` sum over the vocab's
+    mesh dims (the next shard point reduces it)."""
+    if not is_dtensor(table):
+        return table[tokens.long()]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    mesh = table.device_mesh
+    tp = [p if p == Shard(0) else Replicate() for p in table.placements]
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    kp = [p if p == Shard(0) and t != Shard(0) else Replicate()
+          for p, t in zip(tokens.placements, tp)]
+    table, tokens = table.redistribute(mesh, tp), tokens.redistribute(mesh, kp)
+    # a rank's gradient of the table covers its own batch rows only: a
+    # partial sum over the mesh dims that shard the tokens
+    local = table.to_local(grad_placements=[
+        Partial() if k == Shard(0) else t for t, k in zip(tp, kp)])
+    _, offset = compute_local_shape_and_global_offset(table.shape, mesh, tp)
+    rel = tokens.to_local().long() - offset[0]
+    hit = (rel >= 0) & (rel < local.shape[0])
+    rows = local[rel.clamp(0, local.shape[0] - 1)].masked_fill(
+        ~hit[..., None], 0)
+    out = [Partial() if t == Shard(0) else k for t, k in zip(tp, kp)]
+    return DTensor.from_local(rows, mesh, out, run_check=False)
+
+
+# --------------------------------------------------------------------- #
 # MLP
 # --------------------------------------------------------------------- #
 def mlp_init(gen: torch.Generator, cfg: ModelConfig, device,
@@ -436,6 +489,7 @@ def apply_mlp(p: dict[str, torch.Tensor], x: torch.Tensor,
 
 __all__ = [
     "apply_mlp", "apply_norm", "apply_rope", "attention", "attn_init",
-    "causal_mask", "init_kv_cache", "mha", "mlp_init", "norm_init",
-    "rms_head_norm", "rope_freqs", "rope_tables", "sliding_mask",
+    "causal_mask", "copy_into", "embed_rows", "init_kv_cache", "mha",
+    "mlp_init", "norm_init", "rms_head_norm", "rope_freqs", "rope_tables",
+    "sliding_mask",
 ]

@@ -13,6 +13,12 @@ across the S / chunk chunks one small step each, as ``lax.scan`` does.
 The f32 products are associated in another order than XLA's, so the
 results agree in the last bits of f32 only.  ``repro`` computes all of
 it in jnp, outside any Pallas kernel, so it is plain PyTorch here too.
+
+Under a mesh the branch runs on DTensors between ``repro``'s two shard
+points: d_inner over ``mlp`` and the output.  The scan is per channel,
+so a model-sharded d_inner needs no collective inside it; the chunk
+reshapes and the doubling's shifts run along ``seq``, which no rule of
+these shards.
 """
 
 from __future__ import annotations
@@ -22,7 +28,12 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.models.common import (
+    ModelConfig,
+    ShardFn,
+    dense_init,
+    no_shard,
+)
 
 
 def ssm_init(gen: torch.Generator, cfg: ModelConfig, device,
@@ -98,12 +109,15 @@ def _chunked_scan(h0: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 
 def apply_ssm(p: dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
-              state: tuple[torch.Tensor, torch.Tensor] | None = None
+              state: tuple[torch.Tensor, torch.Tensor] | None = None,
+              shard: ShardFn = no_shard
               ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """x: (B, S, d); ``state`` = (h (B, di, n), conv_tail (B, W-1, di))
     of the tokens before x, zeros if None -> (out (B, S, d), new state
     in the compute dtype).  S == 1 is the decode step; S > 1 must be a
-    multiple of ``min(cfg.ssm.chunk, S)``."""
+    multiple of ``min(cfg.ssm.chunk, S)``.  ``shard`` is ``repro``'s two
+    shard points: the conv's output over ``mlp`` (d_inner) and the
+    branch's output."""
     sc = cfg.ssm
     cd = cfg.compute_dtype
     B, S, d = x.shape
@@ -113,7 +127,7 @@ def apply_ssm(p: dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     xs, z = xz[..., :di], xz[..., di:]
     tail = state[1] if state is not None else None
     xs, new_tail = _causal_conv(xs, p["conv"].to(cd), tail)
-    xs = F.silu(xs)
+    xs = shard(F.silu(xs), ("batch", "seq", "mlp"))
 
     # jax.nn.softplus is logaddexp(x, 0); torch's softplus is x itself
     # past its threshold
@@ -144,7 +158,7 @@ def apply_ssm(p: dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     y = y.to(cd) + xs * p["D"].to(cd)
     y = y * F.silu(z)
     out = y @ p["out_proj"].to(cd)
-    return out, (h_last.to(cd), new_tail)
+    return shard(out, ("batch", "seq", "embed")), (h_last.to(cd), new_tail)
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, layers: int, device

@@ -18,10 +18,10 @@ the int8 cache, ``ssm_h``/``ssm_tail`` for a hybrid), written in place
 own cached decode lives in ``rl/policy_lm.py``.
 
 ``shard`` is ``repro``'s shard points (the embeddings, each layer's
-output, the logits; ``no_shard`` by default).  Under a mesh the weights
-are DTensors and the embedding is ``F.embedding``, which DTensor runs
-on a vocab-sharded table (``repro`` indexes; on one device the port
-indexes too).
+output, the logits; ``no_shard`` by default), passed on to the
+attention, the MLP, the experts (``models/moe.py``) and the SSM branch
+(``models/ssm.py``).  Under a mesh the weights are DTensors and the
+embedding is looked up vocab-parallel (``layers.py::embed_rows``).
 """
 
 from __future__ import annotations
@@ -29,14 +29,12 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models.common import (
     ModelConfig,
     ShardFn,
     dense_init,
     embed_init,
-    is_dtensor,
     no_shard,
 )
 from repro_torch.models.layers import (
@@ -44,6 +42,8 @@ from repro_torch.models.layers import (
     apply_norm,
     attention,
     attn_init,
+    copy_into,
+    embed_rows,
     init_kv_cache,
     mlp_init,
     norm_init,
@@ -122,40 +122,6 @@ def static_layer_windows(cfg: ModelConfig) -> list[int]:
             for i in range(cfg.n_layers)]
 
 
-def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """The rows of ``tokens``.  A DTensor table is looked up
-    vocab-parallel: gathered along its FSDP dim, each rank looks the
-    tokens up in its own vocab rows, zero where a token lies in another
-    rank's rows, and the result is the ``Partial`` sum over the vocab's
-    mesh dims (the next shard point reduces it)."""
-    if not is_dtensor(table):
-        return table[tokens.long()]
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor._utils import (
-        compute_local_shape_and_global_offset,
-    )
-
-    mesh = table.device_mesh
-    tp = [p if p == Shard(0) else Replicate() for p in table.placements]
-    if not is_dtensor(tokens):
-        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
-                                    run_check=False)
-    kp = [p if p == Shard(0) and t != Shard(0) else Replicate()
-          for p, t in zip(tokens.placements, tp)]
-    table, tokens = table.redistribute(mesh, tp), tokens.redistribute(mesh, kp)
-    # a rank's gradient of the table covers its own batch rows only: a
-    # partial sum over the mesh dims that shard the tokens
-    local = table.to_local(grad_placements=[
-        Partial() if k == Shard(0) else t for t, k in zip(tp, kp)])
-    _, offset = compute_local_shape_and_global_offset(table.shape, mesh, tp)
-    rel = tokens.to_local().long() - offset[0]
-    hit = (rel >= 0) & (rel < local.shape[0])
-    rows = local[rel.clamp(0, local.shape[0] - 1)].masked_fill(
-        ~hit[..., None], 0)
-    out = [Partial() if t == Shard(0) else k for t, k in zip(tp, kp)]
-    return DTensor.from_local(rows, mesh, out, run_check=False)
-
-
 def decoder_layer(p: dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
                   rope: tuple[torch.Tensor, torch.Tensor] | None,
                   layer_window: int,
@@ -180,17 +146,17 @@ def decoder_layer(p: dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
         # hymba: parallel attention + SSM heads, normed-mean fusion
         state = None if cache is None else (cache["ssm_h"],
                                             cache["ssm_tail"])
-        ssm_out, (h, tail) = apply_ssm(p["ssm"], normed, cfg, state)
+        ssm_out, (h, tail) = apply_ssm(p["ssm"], normed, cfg, state, shard)
         if cache is not None:
-            cache["ssm_h"].copy_(h)
-            cache["ssm_tail"].copy_(tail)
+            copy_into(cache["ssm_h"], h)
+            copy_into(cache["ssm_tail"], tail)
         x = x + 0.5 * (apply_norm(p["attn_out_norm"], attn_out, cfg)
                        + apply_norm(p["ssm_out_norm"], ssm_out, cfg))
     else:
         x = x + attn_out
     normed = apply_norm(p["mlp_norm"], x, cfg)
     if cfg.moe is not None:
-        out, aux = apply_moe(p["moe"], normed, cfg)
+        out, aux = apply_moe(p["moe"], normed, cfg, shard)
         return shard(x + out, ("batch", "seq", "embed")), aux
     if cfg.d_ff > 0:
         x = x + apply_mlp(p["mlp"], normed, cfg, shard)
@@ -214,7 +180,7 @@ def lm_hidden(params: dict[str, Any], tokens: torch.Tensor | None,
     if input_embeds is not None:
         parts.append(input_embeds.to(cd))
     if tokens is not None:
-        parts.append(_embed(params["embed"], tokens).to(cd))
+        parts.append(embed_rows(params["embed"], tokens).to(cd))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     x = shard(x, ("batch", "seq", "embed"))
     B, S, _ = x.shape

@@ -16,6 +16,12 @@ it in place, as its other caches (``models/layers.py::attention``), so
 a caller must not reuse a cache it passed in.  The decoder reads its
 positions from ``len`` clamped so that ``len + S <= max_seq``, as
 ``lax.dynamic_slice`` clamps its start.
+
+``shard`` is ``repro``'s shard points (the encoder's input, the
+decoder's embeddings, each MLP and each layer's output, the logits).
+Under a mesh ``mha`` runs on DTensors; heads whose sharded columns do
+not split whole (20 heads over a model axis of 16) are gathered first
+(``layers.py::split_whole``).
 """
 
 from __future__ import annotations
@@ -24,7 +30,14 @@ from typing import Any
 
 import torch
 
-from repro_torch.models.common import ModelConfig, dense_init, embed_init
+from repro_torch.models.common import (
+    ModelConfig,
+    ShardFn,
+    dense_init,
+    embed_init,
+    is_dtensor,
+    no_shard,
+)
 from repro_torch.models.layers import (
     _slice_index,
     _write_rows,
@@ -32,10 +45,13 @@ from repro_torch.models.layers import (
     apply_norm,
     attn_init,
     causal_mask,
+    copy_into,
+    embed_rows,
     init_kv_cache,
     mha,
     mlp_init,
     norm_init,
+    split_whole,
 )
 from repro_torch.models.transformer import unstack_layers
 
@@ -47,14 +63,21 @@ def _sinusoidal(S: int, d: int, device) -> torch.Tensor:
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
+def _heads(x: torch.Tensor, w: torch.Tensor, n: int, cfg: ModelConfig
+           ) -> torch.Tensor:
+    """``x @ w`` (B, S, n * hd) as (B, S, n, hd); a DTensor whose
+    sharded columns do not split into whole heads is gathered first
+    (``layers.py::split_whole``)."""
+    B, S = x.shape[:2]
+    return split_whole(x @ w.to(cfg.compute_dtype), 2, n).reshape(
+        B, S, n, cfg.hd)
+
+
 def _proj_qkv(p: dict[str, torch.Tensor], x: torch.Tensor,
               cfg: ModelConfig) -> tuple[torch.Tensor, ...]:
-    cd = cfg.compute_dtype
-    B, S, _ = x.shape
-    q = (x @ p["wq"].to(cd)).reshape(B, S, cfg.n_heads, cfg.hd)
-    k = (x @ p["wk"].to(cd)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = (x @ p["wv"].to(cd)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    return q, k, v
+    return (_heads(x, p["wq"], cfg.n_heads, cfg),
+            _heads(x, p["wk"], cfg.n_kv_heads, cfg),
+            _heads(x, p["wv"], cfg.n_kv_heads, cfg))
 
 
 def whisper_init(gen: torch.Generator, cfg: ModelConfig, device
@@ -93,24 +116,30 @@ def whisper_init(gen: torch.Generator, cfg: ModelConfig, device
     }
 
 
-def encode(params: dict[str, Any], frames: torch.Tensor, cfg: ModelConfig
-           ) -> torch.Tensor:
-    """frames (B, T, d) stub embeddings -> encoder states (B, T, d)."""
+def encode(params: dict[str, Any], frames: torch.Tensor, cfg: ModelConfig,
+           shard: ShardFn = no_shard) -> torch.Tensor:
+    """frames (B, T, d) stub embeddings -> encoder states (B, T, d);
+    ``shard`` at ``repro``'s points (the input, each MLP, each layer's
+    output)."""
     cd = cfg.compute_dtype
     B, T, d = frames.shape
     x = frames.to(cd) + _sinusoidal(T, d, frames.device).to(cd)[None]
+    x = shard(x, ("batch", "seq", "embed"))
     for lp in unstack_layers(params["enc_layers"], cfg.enc_layers):
         normed = apply_norm(lp["attn_norm"], x, cfg)
         q, k, v = _proj_qkv(lp["attn"], normed, cfg)
         out = mha(q, k, v, None, cfg).reshape(B, T, cfg.q_dim)
         x = x + out @ lp["attn"]["wo"].to(cd)
-        x = x + apply_mlp(lp["mlp"], apply_norm(lp["mlp_norm"], x, cfg), cfg)
+        x = x + apply_mlp(lp["mlp"], apply_norm(lp["mlp_norm"], x, cfg), cfg,
+                          shard)
+        x = shard(x, ("batch", "seq", "embed"))
     return apply_norm(params["enc_norm"], x, cfg)
 
 
 def decode_hidden(params: dict[str, Any], tokens: torch.Tensor,
                   enc_out: torch.Tensor | None, cfg: ModelConfig,
-                  cache: dict[str, torch.Tensor] | None = None
+                  cache: dict[str, torch.Tensor] | None = None,
+                  shard: ShardFn = no_shard
                   ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None]:
     """The decoder's final-normed hidden state (B, S, d) and the new
     cache (None without one).  Without a cache: causal self-attention
@@ -118,19 +147,34 @@ def decode_hidden(params: dict[str, Any], tokens: torch.Tensor,
     self-attention K/V rows are written at ``len`` and attend to the
     history; ``enc_out`` given (a prefill) builds the cross K/V and
     writes them to ``xk``/``xv``, None (a decode step) reads them
-    there."""
+    there.  ``shard`` at ``repro``'s points (the embeddings, each MLP,
+    each layer's output); the cross K/V are written into the rank's own
+    shard of ``xk``/``xv``."""
     cd = cfg.compute_dtype
     B, S = tokens.shape
     dev = tokens.device
-    x = params["dec_embed"][tokens.long()].to(cd)
+    x = embed_rows(params["dec_embed"], tokens).to(cd)
+    table = params["dec_pos"]
+    if is_dtensor(table):               # positions are picked whole
+        from torch.distributed.tensor import Replicate
+
+        table = table.redistribute(table.device_mesh,
+                                   [Replicate()] * table.device_mesh.ndim)
     if cache is None:
-        pos = params["dec_pos"][:S]
+        pos = table[:S]
         cache_len = None
     else:
         cache_len = cache["len"]
-        pos = params["dec_pos"].index_select(
-            0, _slice_index(cache_len, S, cfg.max_seq))
-    x = x + pos.to(cd)[None]
+        if is_dtensor(cache_len):       # replicated: the local value
+            cache_len = cache_len.to_local()
+        index = _slice_index(cache_len, S, cfg.max_seq)
+        if is_dtensor(table):
+            from torch.distributed.tensor import DTensor
+
+            index = DTensor.from_local(index, table.device_mesh,
+                                       table.placements, run_check=False)
+        pos = table.index_select(0, index)
+    x = shard(x + pos.to(cd)[None], ("batch", "seq", "embed"))
     build_cross = cache is None or enc_out is not None
     layers = unstack_layers(params["dec_layers"], cfg.n_layers)
     for i, lp in enumerate(layers):
@@ -150,21 +194,21 @@ def decode_hidden(params: dict[str, Any], tokens: torch.Tensor,
 
         # cross-attention over the encoder states
         xa = lp["cross_attn"]
-        qc = (apply_norm(lp["cross_norm"], x, cfg) @ xa["wq"].to(cd)
-              ).reshape(B, S, cfg.n_heads, cfg.hd)
+        qc = _heads(apply_norm(lp["cross_norm"], x, cfg), xa["wq"],
+                    cfg.n_heads, cfg)
         if build_cross:
-            kc = (enc_out @ xa["wk"].to(cd)).reshape(B, -1, cfg.n_kv_heads,
-                                                     cfg.hd)
-            vc = (enc_out @ xa["wv"].to(cd)).reshape(B, -1, cfg.n_kv_heads,
-                                                     cfg.hd)
+            kc = _heads(enc_out, xa["wk"], cfg.n_kv_heads, cfg)
+            vc = _heads(enc_out, xa["wv"], cfg.n_kv_heads, cfg)
             if cache is not None:
-                cache["xk"][i].copy_(kc)
-                cache["xv"][i].copy_(vc)
+                copy_into(cache["xk"][i], kc)
+                copy_into(cache["xv"][i], vc)
         else:
             kc, vc = cache["xk"][i], cache["xv"][i]
         out = mha(qc, kc, vc, None, cfg)
         x = x + out.reshape(B, S, cfg.q_dim) @ xa["wo"].to(cd)
-        x = x + apply_mlp(lp["mlp"], apply_norm(lp["mlp_norm"], x, cfg), cfg)
+        x = x + apply_mlp(lp["mlp"], apply_norm(lp["mlp_norm"], x, cfg), cfg,
+                          shard)
+        x = shard(x, ("batch", "seq", "embed"))
     new_cache = None
     if cache is not None:
         # written in place: the cache's tensors are the new cache
@@ -175,12 +219,14 @@ def decode_hidden(params: dict[str, Any], tokens: torch.Tensor,
 
 def decode(params: dict[str, Any], tokens: torch.Tensor,
            enc_out: torch.Tensor | None, cfg: ModelConfig,
-           cache: dict[str, torch.Tensor] | None = None
+           cache: dict[str, torch.Tensor] | None = None,
+           shard: ShardFn = no_shard
            ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None]:
     """``decode_hidden`` then the LM head: (logits (B, S, V) in the
-    compute dtype, the new cache)."""
-    x, cache = decode_hidden(params, tokens, enc_out, cfg, cache)
-    return x @ params["lm_head"].to(cfg.compute_dtype), cache
+    compute dtype, sharded over ``vocab``, the new cache)."""
+    x, cache = decode_hidden(params, tokens, enc_out, cfg, cache, shard)
+    return shard(x @ params["lm_head"].to(cfg.compute_dtype),
+                 ("batch", "seq", "vocab")), cache
 
 
 def init_whisper_cache(cfg: ModelConfig, batch: int, max_len: int, device

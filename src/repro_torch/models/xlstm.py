@@ -26,6 +26,11 @@ and a finite gradient.
 
 Dtypes are ``repro``'s: the mLSTM state returns in the compute dtype
 (bf16 in a served cache), the sLSTM state ``(h, c, n, m)`` stays f32.
+
+``shard`` is ``repro``'s shard points: the residual stream after the
+embedding and after each block, and the vocab-sharded logits.  Under a
+mesh the mLSTM runs on DTensors; the sLSTM's token loop runs on each
+rank's own batch rows as plain tensors (``_slstm_rows_local``).
 """
 
 from __future__ import annotations
@@ -36,8 +41,20 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ModelConfig, dense_init, embed_init
-from repro_torch.models.layers import apply_norm, norm_init
+from repro_torch.models.common import (
+    ModelConfig,
+    ShardFn,
+    dense_init,
+    embed_init,
+    is_dtensor,
+    no_shard,
+)
+from repro_torch.models.layers import (
+    apply_norm,
+    embed_rows,
+    norm_init,
+    split_whole,
+)
 
 _CLIP = 8.0
 
@@ -75,7 +92,12 @@ def _head_groupnorm(x: torch.Tensor, scale: torch.Tensor, H: int
     xf = x.float()
     out = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
     B, S, _, dh = x.shape
-    return (out.reshape(B, S, H * dh) * scale.float()).to(x.dtype)
+    out = out.reshape(B, S, H * dh)
+    if is_dtensor(out):
+        # the gradient laid out as the merged heads are: the reshape's
+        # backward cannot split a dim sharded over more ranks than heads
+        out = out.redistribute(out.device_mesh, out.placements)
+    return (out * scale.float()).to(x.dtype)
 
 
 def _mlstm_chunk(qc, kc, vc, lic, lfc, C_in, n_in):
@@ -108,6 +130,22 @@ def _mlstm_chunk(qc, kc, vc, lic, lfc, C_in, n_in):
     return h, C_out, n_out
 
 
+def _logsigmoid(z: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; on a DTensor, of each rank's shard (a
+    ``Partial`` made whole first): DTensor has no rule for its
+    backward."""
+    if not is_dtensor(z):
+        return F.logsigmoid(z)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = z.device_mesh
+    want = [Replicate() if p.is_partial() else p for p in z.placements]
+    z = z.redistribute(mesh, want)
+    return DTensor.from_local(F.logsigmoid(z.to_local()), mesh, want,
+                              run_check=False, shape=z.shape,
+                              stride=z.stride())
+
+
 def apply_mlstm(p: dict[str, torch.Tensor], x: torch.Tensor,
                 cfg: ModelConfig,
                 state: tuple[torch.Tensor, torch.Tensor] | None = None
@@ -121,11 +159,11 @@ def apply_mlstm(p: dict[str, torch.Tensor], x: torch.Tensor,
     H = cfg.n_heads
     _, dh = mlstm_dims(cfg)
 
-    q = (x @ p["wq"].to(cd)).reshape(B, S, H, dh)
-    k = (x @ p["wk"].to(cd)).reshape(B, S, H, dh) / math.sqrt(float(dh))
-    v = (x @ p["wv"].to(cd)).reshape(B, S, H, dh)
+    q, k, v = (split_whole(x @ p[w].to(cd), 2, H).reshape(B, S, H, dh)
+               for w in ("wq", "wk", "wv"))
+    k = k / math.sqrt(float(dh))
     logi = torch.clamp((x @ p["wi"].to(cd)).float(), -_CLIP, _CLIP)
-    logf = F.logsigmoid((x @ p["wf"].to(cd)).float())
+    logf = _logsigmoid((x @ p["wf"].to(cd)).float())
     og = torch.sigmoid(x @ p["wog"].to(cd))
     qf, kf, vf = q.float(), k.float(), v.float()
 
@@ -202,12 +240,31 @@ def apply_slstm(p: dict[str, torch.Tensor], x: torch.Tensor,
     if state is None:
         state = tuple(x.new_zeros((B, d), dtype=torch.float32)
                       for _ in range(4))
-    h, c, n, m = state
     # every token's four input projections at once: (B, S, 4, d)
     w = torch.cat([p[f"w{g}"].float() for g in GATES], dim=1)
     xw = (x.float() @ w).reshape(B, S, 4, d)
     # the block-diagonal recurrent matrices, gates side by side
     r = torch.stack([p[f"r{g}"].float() for g in GATES], dim=1)  # H,4,dh,dh
+    scan = _slstm_rows_local if is_dtensor(xw) else _slstm_scan
+    hs, state = scan(xw, r, state, H)
+    # group norm + gated FFN (xLSTM's post-up-projection)
+    ms = (hs * hs).mean(dim=-1, keepdim=True)
+    hs = (hs * torch.rsqrt(ms + 1e-6) * p["gn_scale"].float()).to(cd)
+    ff = p["up"].shape[1] // 2
+    u = hs @ p["up"].to(cd)
+    hs = F.gelu(u[..., :ff], approximate="tanh") * u[..., ff:]
+    return hs @ p["down"].to(cd), state
+
+
+def _slstm_scan(xw: torch.Tensor, r: torch.Tensor,
+                state: tuple[torch.Tensor, ...], H: int
+                ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+    """The sLSTM's recurrence over xw (B, S, 4, d), the input
+    projections, with the recurrent matrices r (H, 4, dh, dh) from
+    ``state`` -> (every token's h (B, S, d), the last state)."""
+    B, S, _, d = xw.shape
+    dh = d // H
+    h, c, n, m = state
     hs = []
     for t in range(S):
         rec = torch.einsum("bhi,hgij->bghj", h.reshape(B, H, dh), r)
@@ -221,14 +278,33 @@ def apply_slstm(p: dict[str, torch.Tensor], x: torch.Tensor,
         h = torch.sigmoid(ot) * c / torch.clamp_min(n, 1e-6)
         m = m_new
         hs.append(h)
-    hs = torch.stack(hs, dim=1)                             # (B, S, d)
-    # group norm + gated FFN (xLSTM's post-up-projection)
-    ms = (hs * hs).mean(dim=-1, keepdim=True)
-    hs = (hs * torch.rsqrt(ms + 1e-6) * p["gn_scale"].float()).to(cd)
-    ff = p["up"].shape[1] // 2
-    u = hs @ p["up"].to(cd)
-    hs = F.gelu(u[..., :ff], approximate="tanh") * u[..., ff:]
-    return hs @ p["down"].to(cd), (h, c, n, m)
+    return torch.stack(hs, dim=1), (h, c, n, m)
+
+
+def _slstm_rows_local(xw, r, state, H: int):
+    """``_slstm_scan`` over DTensors, on each rank's own batch rows: the
+    recurrence is per row, so a rank runs the token loop on plain
+    tensors (one op a step, not one DTensor dispatch) with the whole
+    recurrent matrices, whose gradient is then partial over the batch's
+    mesh dims.  The rows come back as DTensors laid out as xw's."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = xw.device_mesh
+    R = Replicate()
+    rp = [q if q == Shard(0) else R for q in xw.placements]
+    xw = xw.redistribute(mesh, rp)
+    if not is_dtensor(r):
+        r = DTensor.from_local(r, mesh, [R] * mesh.ndim, run_check=False)
+    r = r.redistribute(mesh, [R] * mesh.ndim).to_local(grad_placements=[
+        Partial() if q == Shard(0) else R for q in rp])
+    state = tuple(s.redistribute(mesh, rp).to_local() if is_dtensor(s)
+                  else DTensor.from_local(s, mesh, [R] * mesh.ndim,
+                                          run_check=False)
+                  .redistribute(mesh, rp).to_local() for s in state)
+    hs, state = _slstm_scan(xw.to_local(), r, state, H)
+    return (DTensor.from_local(hs, mesh, rp, run_check=False),
+            tuple(DTensor.from_local(s, mesh, rp, run_check=False)
+                  for s in state))
 
 
 # --------------------------------------------------------------------- #
@@ -270,11 +346,15 @@ def init_xlstm_states(cfg: ModelConfig, batch: int, device) -> list[Any]:
 
 
 def xlstm_hidden(params: dict[str, Any], tokens: torch.Tensor,
-                 cfg: ModelConfig, state: list[Any] | None = None
+                 cfg: ModelConfig, state: list[Any] | None = None,
+                 shard: ShardFn = no_shard
                  ) -> tuple[torch.Tensor, list[Any]]:
     """tokens (B, S) -> (the final-normed hidden state (B, S, d), the
-    new per-layer states); ``state`` is None on a first call."""
-    x = params["embed"][tokens.long()].to(cfg.compute_dtype)
+    new per-layer states); ``state`` is None on a first call.
+    ``shard`` is ``repro``'s shard points on the residual stream (the
+    embeddings and each block's output)."""
+    x = shard(embed_rows(params["embed"], tokens).to(cfg.compute_dtype),
+              ("batch", "seq", "embed"))
     new_states: list[Any] = []
     for i, (kind, blk) in enumerate(zip(xlstm_block_kinds(cfg),
                                         params["layers"])):
@@ -282,18 +362,20 @@ def xlstm_hidden(params: dict[str, Any], tokens: torch.Tensor,
         normed = apply_norm(blk["norm"], x, cfg)
         apply = apply_mlstm if kind == "mlstm" else apply_slstm
         out, st = apply(blk[kind], normed, cfg, st)
-        x = x + out
+        x = shard(x + out, ("batch", "seq", "embed"))
         new_states.append(st)
     return apply_norm(params["final_norm"], x, cfg), new_states
 
 
 def xlstm_lm_apply(params: dict[str, Any], tokens: torch.Tensor,
-                   cfg: ModelConfig, state: list[Any] | None = None
+                   cfg: ModelConfig, state: list[Any] | None = None,
+                   shard: ShardFn = no_shard
                    ) -> tuple[torch.Tensor, list[Any]]:
     """tokens (B, S) -> (logits (B, S, V) in the compute dtype, the new
-    per-layer states)."""
-    x, states = xlstm_hidden(params, tokens, cfg, state)
-    return x @ params["embed"].T.to(cfg.compute_dtype), states
+    per-layer states); the logits sharded over ``vocab``."""
+    x, states = xlstm_hidden(params, tokens, cfg, state, shard)
+    return shard(x @ params["embed"].T.to(cfg.compute_dtype),
+                 ("batch", "seq", "vocab")), states
 
 
 __all__ = ["apply_mlstm", "apply_slstm", "init_xlstm_states",

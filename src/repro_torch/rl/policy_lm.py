@@ -27,8 +27,8 @@ of 32 lanes x 161 positions is 0.6 GB), and ``act``/``act_full`` write
 the served block back into ``lanes``' tensors.  A caller must not reuse
 the caches or lanes it passed in.  Entry points run on ``cuda`` unless
 ``device="cpu"`` is asked for.  ``place_params`` puts the params on a
-sharded pool's mesh: replicated, the only placement the port has (a
-policy sharded across processes is ROADMAP A19b).
+sharded pool's mesh: replicated, or, for a large policy over several
+processes, sharded across them and gathered at each use.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ from repro_torch import random
 from repro_torch.core.device import resolve_device
 from repro_torch.core.specs import EnvSpec, TimeStep
 from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.models.common import ModelConfig, dense_init, is_dtensor
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
@@ -58,8 +58,10 @@ from repro_torch.models.transformer import (
 )
 from repro_torch.models.xlstm import xlstm_block_kinds
 from repro_torch.utils.tree import (
+    is_value,
     tree_dataclass,
     tree_gather,
+    tree_leaves,
     tree_leaves_with_path,
     tree_map,
 )
@@ -188,24 +190,31 @@ class LMPolicy:
     def place_params(self, params: dict[str, Any], pool: Any
                      ) -> dict[str, Any]:
         """The Seed-RL placement over the pool's mesh
-        (``distributed/sharding.py::policy_shardings``): replicated below
-        its ``min_shard_params``, and in solo, where every shard shares
-        the process's device, so ``params`` come back on the pool's
-        device.  A policy the rule would shard across processes raises
-        (ROADMAP A19b)."""
+        (``distributed/sharding.py::policy_shardings``).  Below its
+        ``min_shard_params``, or in solo, where every shard shares the
+        process's device, the params come back replicated on the pool's
+        device.  A policy the rule shards over a mesh of several
+        processes is FSDP over them: each leaf the plan shards becomes a
+        DTensor, ``Shard(dim)`` over ``EnvMesh.device_mesh()`` (every
+        rank keeps its slice of the full leaf it holds, so placing moves
+        no data), the rest stays whole on the pool's device;
+        ``decode_step`` and ``full_forward`` gather each weight at use.
+        Every process of the mesh calls it."""
         from repro_torch.distributed.sharding import policy_shardings
-        from repro_torch.utils.tree import is_value, tree_leaves, tree_map
 
         mesh = getattr(pool, "mesh", None)
         if mesh is None:
             return params
         plan = policy_shardings(mesh, params)
-        if mesh.is_multiprocess and tree_leaves(plan, is_leaf=is_value):
-            raise NotImplementedError(
-                f"a policy of {sum(x.numel() for x in tree_leaves(params))}"
-                " params would be sharded across the mesh's processes; only"
-                " replicated placement is ported (ROADMAP A19b)")
-        return tree_map(lambda x: x.to(pool.device), params)
+        if not (mesh.is_multiprocess and tree_leaves(plan, is_leaf=is_value)):
+            return tree_map(lambda x: x.to(pool.device), params)
+        from torch.distributed.tensor import Shard, distribute_tensor
+
+        dmesh = mesh.device_mesh()
+        return tree_map(
+            lambda x, dim: x.to(pool.device) if dim is None else
+            distribute_tensor(x.to(pool.device), dmesh, [Shard(dim)],
+                              src_data_rank=None), params, plan)
 
     def init_lanes(self, num_envs: int) -> LMLaneState:
         cfg = self.cfg
@@ -249,6 +258,7 @@ class LMPolicy:
         (clamped to the last slot, as ``dynamic_update_slice`` clamps)."""
         cfg = self.cfg
         cd = cfg.compute_dtype
+        params = gathered(params)
         B = tokens.shape[0]
         pos = lengths.to(torch.int32)
         rows = torch.arange(B, device=tokens.device)
@@ -292,7 +302,7 @@ class LMPolicy:
         """No-cache forward over the whole (padded) history, (B, T) int32
         with ``lengths`` (B,) valid tokens: the logits of each lane's
         last valid position."""
-        logits_all = lm_apply(params, history, self.cfg)[0]
+        logits_all = lm_apply(gathered(params), history, self.cfg)[0]
         idx = torch.clamp(lengths.long() - 1, 0, history.shape[1] - 1)
         return logits_all[torch.arange(history.shape[0],
                                        device=idx.device), idx]
@@ -342,6 +352,14 @@ class LMPolicy:
         blk = blk.replace(length=pos + 1)
         actions, logp = _select(logits, key)
         return actions, logp, _scatter_(lanes, ids, blk)
+
+
+def gathered(params: dict[str, Any]) -> dict[str, Any]:
+    """``params`` with every DTensor leaf (a policy placed across
+    processes by ``place_params``) gathered whole: the weights a forward
+    reads, as GSPMD gathers an FSDP-sharded weight at its use."""
+    return tree_map(lambda x: x.full_tensor() if is_dtensor(x) else x,
+                    params)
 
 
 def _scatter_(lanes: LMLaneState, ids: torch.Tensor, blk: LMLaneState

@@ -1,0 +1,182 @@
+"""The port's dry run, ``python -m repro_torch.launch.dryrun``, the
+counterpart of ``repro``'s (tests/test_system.py's dry-run tests), and
+``launch/mesh.py::make_production_mesh``.
+
+One process joins a fake process group as rank 0 of 256 (or 512) ranks
+and runs a cell's sharded step once on meta tensors; no device computes,
+so it runs here.  Held:
+
+* ``xlstm-125m decode_32k``: status "ok" on 256 devices, the roofline's
+  dominant term one of the three;
+* ``qwen3-0.6b long_500k``: "skipped" (full attention);
+* ``qwen3-0.6b train_4k``: collectives counted, and the argument bytes
+  a rank equal to ``bytes_per_device`` of the train state's and the
+  batch's plans, computed here on the mesh's shape alone;
+* ``--multi-pod``: 512 devices on the 2 x 16 x 16 mesh;
+* the per-rank counting on a sharded matmul and a gather of known
+  shapes, in this process;
+* ``make_production_mesh`` refuses a job of another size than 256 (or
+  512 with ``multi_pod``), naming the size it needs.
+
+The four cells run at once, one subprocess each, with one OpenMP thread.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite's xdist workers share the cores
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ENV = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+           OMP_NUM_THREADS="1")
+CELLS = {
+    "xlstm": ["--arch", "xlstm-125m", "--shape", "decode_32k"],
+    "skip": ["--arch", "qwen3-0.6b", "--shape", "long_500k"],
+    "train": ["--arch", "qwen3-0.6b", "--shape", "train_4k"],
+    "multi_pod": ["--arch", "xlstm-125m", "--shape", "decode_32k",
+                  "--multi-pod"],
+}
+
+
+@pytest.fixture(scope="module")
+def cells():
+    """Every cell's JSON, the dry runs started together."""
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+        env=ENV, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for name, args in CELLS.items()}
+    out = {}
+    try:
+        for name, p in procs.items():
+            stdout, stderr = p.communicate(timeout=120)
+            assert p.returncode == 0, (name, stderr[-3000:])
+            out[name] = json.loads(stdout[stdout.index("{"):])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    return out
+
+
+def test_dryrun_cell_subprocess(cells):
+    res = cells["xlstm"]
+    assert res["status"] == "ok"
+    assert res["devices"] == 256 and res["mesh"] == "16x16"
+    assert res["roofline"]["dominant"] in ("compute", "memory",
+                                           "collective")
+    assert res["flops_per_device"] > 0
+    assert res["memory_analysis"]["temp_size_in_bytes"] is None
+
+
+def test_dryrun_skip_rule(cells):
+    assert cells["skip"]["status"] == "skipped"
+    assert "sub-quadratic" in cells["skip"]["reason"]
+
+
+def test_dryrun_train_cell_counts_collectives_and_plan_bytes(cells):
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (
+        BASELINE_RULES,
+        bytes_per_device,
+    )
+    from repro_torch.launch.steps import (
+        batch_shardings,
+        train_state_shapes,
+        train_state_shardings,
+    )
+    from repro_torch.models.api import SHAPES, Model
+    from repro_torch.optim import adamw
+
+    res = cells["train"]
+    assert res["status"] == "ok" and res["kind"] == "train"
+    coll = res["collectives"]
+    assert coll["total_count"] > 0 and coll["total_operand_bytes"] > 0
+    assert coll["all-gather"]["count"] > 0
+    mesh = {"data": 16, "model": 16}
+    model = Model(get_config("qwen3-0.6b"), "meta")
+    state = train_state_shapes(model, adamw())
+    specs = model.input_specs(SHAPES["train_4k"])
+    batch = {k: torch.empty(s, dtype=d, device="meta")
+             for k, (s, d) in specs.items()}
+    want = (bytes_per_device(state, train_state_shardings(
+        mesh, state, BASELINE_RULES), mesh)
+        + bytes_per_device(batch, batch_shardings(mesh, specs,
+                                                  BASELINE_RULES), mesh))
+    assert res["memory_analysis"]["argument_size_in_bytes"] == want
+    roof = res["roofline"]
+    assert roof["step_time_bound_s"] == max(
+        roof["compute_s"], roof["memory_s"], roof["collective_s"])
+
+
+def test_dryrun_multi_pod(cells):
+    res = cells["multi_pod"]
+    assert res["status"] == "ok"
+    assert res["devices"] == 512 and res["mesh"] == "2x16x16"
+    # the same cell on 256 devices holds more a rank
+    assert (res["memory_analysis"]["argument_size_in_bytes"]
+            < cells["xlstm"]["memory_analysis"]["argument_size_in_bytes"])
+
+
+def test_dryrun_counts_a_sharded_matmul_per_rank():
+    """A (256, 1024) x (1024, 4096) matmul, rows over ``data`` and the
+    weight's columns over ``model`` of the 16 x 16 mesh: each rank
+    computes its (16, 256) block of the output, 2 * 16 * 1024 * 256
+    FLOPs, with no collective; gathering the output's columns is one
+    all-gather of that f32 block, 16384 bytes in a rank."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    assert not dist.is_initialized()
+    dryrun.join_fake_group(256)
+    try:
+        mesh = make_production_mesh()
+        x = distribute_tensor(torch.empty(256, 1024, device="meta"), mesh,
+                              [Shard(0), Replicate()], src_data_rank=None)
+        w = distribute_tensor(torch.empty(1024, 4096, device="meta"), mesh,
+                              [Replicate(), Shard(1)], src_data_rank=None)
+        flops = dryrun._local_flops_mode()
+        coll = dryrun._collective_bytes_mode()
+        with CommDebugMode() as comm, coll, flops:
+            y = x @ w
+            assert y.placements == (Shard(0), Shard(1))
+            y.redistribute(mesh, [Shard(0), Replicate()])
+    finally:
+        dist.destroy_process_group()
+    assert flops.flops == 2 * 16 * 1024 * 256
+    assert dryrun._comm_counts(comm) == {"all-gather": 1}
+    assert coll.bytes == {"all-gather": 16 * 256 * 4}
+
+
+def test_production_mesh_refuses_a_wrong_world_size():
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="job of 256 processes"):
+        make_production_mesh(device="cpu")
+    dryrun.join_fake_group(8)
+    try:
+        with pytest.raises(ValueError, match="job of 256 processes.*has 8"):
+            make_production_mesh()
+    finally:
+        dist.destroy_process_group()
+    dryrun.join_fake_group(256)
+    try:
+        with pytest.raises(ValueError, match="job of 512 processes.*has 256"):
+            make_production_mesh(multi_pod=True)
+        mesh = make_production_mesh()
+        assert mesh.mesh_dim_names == ("data", "model")
+        assert tuple(mesh.shape) == (16, 16)
+    finally:
+        dist.destroy_process_group()

@@ -303,7 +303,15 @@ def test_running_the_port_imports_neither_jax_nor_repro():
         "store.save(1, state)\n"
         "store.restore(1, state, train_state_shardings(mesh, state,\n"
         "    BASELINE_RULES), mesh)\n"
+        "moe = build_model(get_smoke_config('granite-moe-3b-a800m'), 'cpu')\n"
+        "moe_state = init_train_state(moe, adamw(),\n"
+        "                             torch.Generator().manual_seed(0))\n"
+        "make_train_step(moe, adamw(), constant(1e-3), mesh)(moe_state,\n"
+        "                                                    batch)\n"
         "dist.destroy_process_group()\n"
+        "from repro_torch.launch import dryrun\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    dryrun.main(['--arch', 'qwen3-0.6b', '--shape', 'long_500k'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
@@ -345,7 +353,9 @@ def test_port_sources_import_neither_jax_nor_repro():
                  ("optim", "compression.py"),
                  ("distributed", "analytic.py"),
                  ("configs", "qwen3_14b.py"), ("configs", "llama3_2_3b.py"),
-                 ("configs", "starcoder2_3b.py")):
+                 ("configs", "starcoder2_3b.py"), ("launch", "dryrun.py"),
+                 ("launch", "mesh.py"), ("models", "moe.py"),
+                 ("models", "xlstm.py"), ("models", "whisper.py")):
         assert os.path.join(ROOT, "src", "repro_torch", *part) in files
     offenders = []
     for path in files:

@@ -9,9 +9,9 @@ the CPU (``--device cpu``), held to ``repro``'s own criteria
   checkpoint and 20 more (rtol 1e-4, as ``repro``'s test);
 * SIGTERM mid-run flushes a checkpoint and exits 0, and the run started
   again from it ends with the straight run's loss (rtol 1e-4);
-* without a card it refuses to start unless ``--device cpu`` is given,
-  and ``--mesh debug`` of an MoE model names ROADMAP A19b (the dense
-  decoder's mesh: tests/test_torch_sharded_steps.py);
+* without a card it refuses to start unless ``--device cpu`` is given
+  (``--mesh debug`` on 2 ranks, a dense and an MoE model:
+  tests/test_torch_sharded_steps.py);
 * ``--arch xlstm-125m --smoke`` trains as ``repro``'s CLI does (the
   same logged steps and learning rates, finite losses starting at about
   ln(vocab) and falling below it, the two within 0.1): the CLI needs no
@@ -136,6 +136,3 @@ def test_cli_refuses_what_it_cannot_run(monkeypatch):
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(["--arch", "qwen3-0.6b", "--smoke", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="A19b"):
-        cli.main(["--arch", "granite-moe-3b-a800m", "--smoke", "--mesh",
-                  "debug", "--device", "cpu"])

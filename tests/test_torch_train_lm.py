@@ -262,10 +262,34 @@ def test_train_step_leaves_its_input_state_and_refuses_a_mesh():
         assert v.grad is None
     assert int(new.step) == 1 and bool(torch.isfinite(metrics["loss"]))
     assert not torch.equal(new.params["embed"], state.params["embed"])
-    moe = build_model(get_smoke_config("granite-moe-3b-a800m"), "cpu")
-    with pytest.raises(NotImplementedError, match="A19b"):
-        tsteps.make_train_step(moe, opt, toptim.constant(1e-3),
-                               mesh=object())
+    # an MoE train step on a (1, 1) mesh of this process alone (gloo):
+    # the unsharded step's loss, aux loss and parameters
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    moe = build_model(get_smoke_config("granite-moe-3b-a800m").replace(
+        compute_dtype=torch.float32), "cpu")
+    state = tsteps.init_train_state(moe, opt,
+                                    torch.Generator().manual_seed(0))
+    batch = tsteps.synth_batch(moe, ShapeSpec("t", "train", 16, 2),
+                               torch.Generator().manual_seed(1))
+    assert not dist.is_initialized()
+    mesh = make_debug_mesh(device="cpu")
+    try:
+        got = [tsteps.make_train_step(moe, opt, toptim.constant(1e-3), m)(
+            state, batch) for m in (None, mesh)]
+        params = [{k: v.full_tensor() if hasattr(v, "full_tensor") else v
+                   for k, v in tree_leaves_with_path(new.params)}
+                  for new, _ in got]
+    finally:
+        dist.destroy_process_group()
+    (_, plain), (_, sharded) = got
+    for k in ("loss", "xent", "aux"):
+        torch.testing.assert_close(sharded[k], plain[k], rtol=1e-6, atol=0)
+    assert float(plain["aux"]) > 0
+    for k, v in params[0].items():
+        torch.testing.assert_close(params[1][k], v, rtol=0, atol=1e-6)
 
 
 def test_train_specs_and_synth_batch():
