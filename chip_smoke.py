@@ -2718,6 +2718,16 @@ def cross_check_lm_train(arch: str = "qwen3-0.6b", **overrides) -> None:
 RANK_N = 4096         # Ant-v3 lanes of the two-rank rows
 RANK_RECVS = 20       # recvs of the two-rank stream
 RANK_ITERS = 2        # iterations of train_disaggregated
+# train_device with PongClassic-v5's default CNN (1,687,719 params, past
+# policy_shardings' 2^20: 11 of its 12 leaves sharded over the 2 shards),
+# PPOConfig's defaults, the last iteration timed
+RANK_CNN_N, RANK_CNN_ITERS = 256, 2
+CNN_PARAMS, CNN_HALF = 1_687_719, 843_860
+# the LM policy collect across the ranks: TokenRagged-v0 N/M, greedy
+# recvs, and the lm-policy widened past 2^20 params
+# (tests/_torch_mesh_check.py's width)
+RANK_LM_N, RANK_LM_M, RANK_LM_STEPS, RANK_LM_LEN = 64, 32, 8, 16
+RANK_LM_WIDTH = {"d_model": 256, "d_ff": 1024, "head_dim": 64}
 
 
 def sorted_blocks(pool, tables, steps: int) -> list:
@@ -2861,11 +2871,164 @@ def drive_disaggregated(n: int, iters: int) -> dict:
                         for r in history]}
 
 
+def tree_bytes(tree) -> int:
+    from repro_torch.utils.tree import tree_leaves
+
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def halves_net(base):
+    """``base`` (``ActorCritic``) with ``sample``'s forward run in two
+    calls of half the rows each: the arithmetic of two ranks' collects,
+    each on its own M/2 rows, in one process."""
+
+    class Halves(base):
+        def sample(self, p, obs, key, rows=None):
+            import torch
+
+            forward = self.forward
+
+            def split(p, obs):
+                outs = [forward(p, h) for h in obs.chunk(2)]
+                return tuple(torch.cat(o) for o in zip(*outs))
+
+            self.forward = split
+            try:
+                return super().sample(p, obs, key, rows)
+            finally:
+                del self.forward
+
+    return Halves
+
+
+def cnn_train(n: int, iters: int, out: str | None = None,
+              halves: bool = False, deterministic: bool = True) -> dict:
+    """``train_device`` over PongClassic-v5 N=``n`` at D=2 with the
+    default CNN, ``PPOConfig``'s defaults, ``iters`` iterations, the
+    last timed: the bytes of the params this process held (as handed to
+    ``gather_policy``) and of its AdamW moments, the ``"policy"``
+    gathers of each iteration (``EnvMesh.log``), ms per iteration and
+    the path's launches; the final params, whole, go to ``out`` (an
+    ``.npz``) or into the row (``final``).  ``halves``: the collect's
+    forward in two calls of M/2 rows (``halves_net``), as the two
+    ranks run it.  ``deterministic``: cuDNN's deterministic algorithms
+    (its default ones are not: ``cnn_witness``)."""
+    import torch
+
+    import repro_torch
+    import repro_torch.rl.ppo as tppo
+    from repro_torch.kernels.backend import launch_counts
+    from repro_torch.utils.tree import tree_leaves_with_path
+
+    pool = repro_torch.make("PongClassic-v5", num_envs=n,
+                            engine="device-sharded", num_shards=2,
+                            device=DEV)
+    cfg = tppo.PPOConfig(total_steps=iters * 128 * n)
+    held, gathers, ends = [], [], []
+    gather, net = tppo.gather_policy, tppo.ActorCritic
+
+    def recorded(mesh, local, plan):
+        held.append(tree_bytes(local))
+        return gather(mesh, local, plan)
+
+    def logged(rec):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        gathers.append(pool.mesh.counts().get("policy", 0))
+
+    before = launch_counts()
+    torch.cuda.synchronize()
+    tppo.gather_policy = recorded
+    if halves:
+        tppo.ActorCritic = halves_net(net)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    t0 = time.perf_counter()
+    try:
+        state, _, history = tppo.train_device(pool, cfg, seed=SEED,
+                                              log_fn=logged)
+    finally:
+        tppo.gather_policy, tppo.ActorCritic = gather, net
+        torch.backends.cudnn.deterministic = was
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    params = {path: x.cpu().numpy() for path, x in
+              tree_leaves_with_path(state.params)}
+    for path, x in params.items():
+        if not np.isfinite(x).all():
+            raise AssertionError(f"cnn train_device: {path} not finite")
+    laps = np.diff([t0] + ends) * 1e3
+    row = {"task": "PongClassic-v5", "num_envs": n, "num_shards": 2,
+           "iterations": iters,
+           "epochs_x_minibatches": cfg.epochs * cfg.minibatches,
+           "params": sum(x.size for x in params.values()),
+           "held_param_bytes": held[0] if held else tree_bytes(
+               state.params),
+           "moment_bytes": tree_bytes((state.opt.mu, state.opt.nu)),
+           "whole_bytes": 3 * tree_bytes(state.params),
+           "policy_gathers_per_iter": np.diff([0] + gathers).tolist(),
+           "ms_per_iter": laps.tolist(), "launches": launches,
+           "loss": [r["loss"] for r in history]}
+    row["placed_bytes"] = row["held_param_bytes"] + row["moment_bytes"]
+    if out is None:
+        row["final"] = params
+    else:
+        np.savez(out, **params)
+    return row
+
+
+def rank_lm_policy() -> dict:
+    """The LM policy's greedy collect on TokenRagged-v0 at D=2, the
+    lm-policy widened past 2^20 params (weights from a seeded generator
+    on this process's device), placed by ``place_params`` and whole:
+    the whole mesh's actions of each, equal; the bytes held placed and
+    whole; ``decode_attention``'s launches."""
+    import hashlib
+
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels.backend import launch_counts
+    from repro_torch.rl.policy_lm import (
+        LMPolicy,
+        build_lm_collect_fn,
+        default_policy_config,
+    )
+    from repro_torch.utils.tree import tree_leaves
+
+    pool = repro_torch.make("TokenRagged-v0", num_envs=RANK_LM_N,
+                            batch_size=RANK_LM_M, engine="device-sharded",
+                            num_shards=2, device=DEV)
+    vocab = int(pool.spec.act_spec.maximum) + 1
+    cfg = default_policy_config(vocab, RANK_LM_LEN).replace(**RANK_LM_WIDTH)
+    pol = LMPolicy(pool.spec, cfg, max_len=RANK_LM_LEN, device=DEV)
+    params = pol.init(torch.Generator(device=DEV).manual_seed(SEED))
+    placed = pol.place_params(params, pool)
+    before = launch_counts()
+    acts = []
+    for p in (placed, params):
+        collect = build_lm_collect_fn(pool, pol, RANK_LM_STEPS, greedy=True)
+        ps, ts = pool.reset(repro_torch.random.PRNGKey(SEED))
+        *_, a = collect(ps, pol.init_lanes(RANK_LM_N), p, ts,
+                        repro_torch.random.PRNGKey(SEED + 1, device=DEV))
+        acts.append(pool.mesh.gather(a, "actions", dim=1).cpu())
+    if not torch.equal(acts[0], acts[1]):
+        raise AssertionError("lm policy: placed and whole actions differ")
+    return {"params": sum(x.numel() for x in tree_leaves(params)),
+            "held_bytes": tree_bytes(placed),
+            "whole_bytes": tree_bytes(params),
+            "actions_sha": hashlib.sha256(
+                acts[0].numpy().tobytes()).hexdigest(),
+            "decode_launches": launch_counts()["decode_attention"]
+            - before["decode_attention"]}
+
+
 def rank_main(argv: list[str]) -> int:
-    """``chip_smoke.py rank <process id> <port> <device> <lanes>``: one of
-    the two processes of the ranks rows, joined over gloo on localhost,
-    both on the same card: the D=2 stream, then ``train_disaggregated``;
-    prints one JSON line."""
+    """``chip_smoke.py rank <process id> <port> <device> <lanes> <dir>``:
+    one of the two processes of the ranks rows, joined over gloo on
+    localhost, both on the same card: the D=2 stream,
+    ``train_disaggregated``, ``train_device`` with the CNN sharded across
+    the two (its final params to ``<dir>/rank<id>.npz``) and the LM
+    policy placed across the two; prints one JSON line."""
     import torch
     import torch.distributed as dist
 
@@ -2873,7 +3036,8 @@ def rank_main(argv: list[str]) -> int:
     from repro_torch.launch.mesh import initialize_multihost
 
     global DEV
-    pid, port, DEV, n = int(argv[0]), argv[1], argv[2], int(argv[3])
+    pid, port, DEV, n, out = (int(argv[0]), argv[1], argv[2],
+                              int(argv[3]), argv[4])
     if DEV.startswith("cuda"):
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2888,7 +3052,10 @@ def rank_main(argv: list[str]) -> int:
     initialize_multihost(f"localhost:{port}", 2, pid, backend="gloo")
     reset_counts()
     out = {"pid": pid, "stream": rank_stream("Ant-v3", n, RANK_RECVS),
-           "disaggregated": drive_disaggregated(n, RANK_ITERS)}
+           "disaggregated": drive_disaggregated(n, RANK_ITERS),
+           "cnn": cnn_train(RANK_CNN_N, RANK_CNN_ITERS,
+                            os.path.join(out, f"rank{pid}.npz")),
+           "lm_policy": rank_lm_policy()}
     out["launches"] = {k: fn.launches for k, fn in counters().items()}
     dist.barrier()
     dist.destroy_process_group()
@@ -2900,31 +3067,40 @@ def ranks_phase() -> dict:
     """Two processes sharing the card over gloo, spawned here: their D=2
     Ant-v3 N=4096 stream and ``stats()`` must equal this process's solo
     D=2 run, compared by hash; then ``train_disaggregated`` with one env
-    rank and one learner rank, ``RANK_ITERS`` iterations."""
+    rank and one learner rank, ``RANK_ITERS`` iterations; then
+    ``train_device`` with PongClassic-v5's CNN sharded across the two
+    against solo's (``check_cnn_ranks``); and the LM policy placed
+    across the two collecting solo's actions."""
     import socket
+    import tempfile
 
     solo = rank_stream("Ant-v3", RANK_N, RANK_RECVS)
+    solo_cnn = cnn_train(RANK_CNN_N, RANK_CNN_ITERS, halves=True)
+    solo_lm = rank_lm_policy()
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = str(sock.getsockname()[1])
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "rank", str(i), port,
-         DEV, str(RANK_N)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for i in (0, 1)]
-    outs = []
-    try:
-        for p in procs:
-            stdout, stderr = p.communicate(timeout=600)
-            if p.returncode != 0:
-                raise AssertionError(f"rank failed ({p.returncode}): "
-                                     f"{stderr[-3000:]}")
-            outs.append(json.loads(stdout.strip().splitlines()[-1]))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "rank", str(i), port,
+             DEV, str(RANK_N), tmp], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for i in (0, 1)]
+        outs = []
+        try:
+            for p in procs:
+                stdout, stderr = p.communicate(timeout=600)
+                if p.returncode != 0:
+                    raise AssertionError(f"rank failed ({p.returncode}): "
+                                         f"{stderr[-3000:]}")
+                outs.append(json.loads(stdout.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        finals = [dict(np.load(os.path.join(tmp, f"rank{i}.npz")))
+                  for i in (0, 1)]
     for r in outs:
         got = r["stream"]
         if got["sha"] != solo["sha"] or got["stats"] != solo["stats"]:
@@ -2938,6 +3114,18 @@ def ranks_phase() -> dict:
         raise AssertionError("train_disaggregated: ranks disagree")
     if outs[0]["launches"]["env_step"] == 0 and DEV.startswith("cuda"):
         raise AssertionError("train_disaggregated: env_step never launched")
+    cnn = check_cnn_ranks(solo_cnn, outs, finals)
+    lm = [r["lm_policy"] for r in outs]
+    for r in lm:
+        if r["actions_sha"] != solo_lm["actions_sha"] or not (
+                r["whole_bytes"] / 2 <= r["held_bytes"] < r["whole_bytes"]):
+            raise AssertionError(f"lm policy across ranks: {r} against "
+                                 f"solo {solo_lm}")
+        if DEV.startswith("cuda") and r["decode_launches"] == 0:
+            raise AssertionError("lm policy: decode_attention never "
+                                 "launched")
+    launches = {k: sum(r["launches"][k] for r in outs)
+                + solo_cnn["launches"][k] for k in outs[0]["launches"]}
     row = {"ranks": 2, "backend": "gloo", "seconds":
            time.perf_counter() - t0, "stream_sha_equal": True,
            "solo_ms_per_recv": solo["ms_per_recv"],
@@ -2946,8 +3134,8 @@ def ranks_phase() -> dict:
            "rank_collectives_per_recv": [r["stream"]["collectives_per_recv"]
                                          for r in outs],
            "disaggregated": {"env": env, "learner": learner},
-           "launches": {k: sum(r["launches"][k] for r in outs)
-                        for k in outs[0]["launches"]}}
+           "cnn": cnn, "lm_policy": {"solo": solo_lm, "ranks": lm},
+           "launches": launches}
     log(f"  ranks: 2 processes on one card over gloo: Ant-v3 N={RANK_N} D=2 "
         f"sync, {RANK_RECVS} blocks and stats() equal solo's by hash; "
         f"{row['rank_ms_per_recv']} ms/recv against solo's "
@@ -2956,7 +3144,128 @@ def ranks_phase() -> dict:
         f"learner {learner['ms_per_iter']}, hand-off ms env "
         f"{env['handoff_ms_per_iter']} (rollout {env['rollout_ms']}) "
         f"learner {learner['handoff_ms_per_iter']}; {CARD}")
+    log(f"  ranks: LM policy of {solo_lm['params']} params placed across "
+        f"the 2: {[r['held_bytes'] for r in lm]} bytes a rank of "
+        f"{solo_lm['whole_bytes']}, {RANK_LM_STEPS} greedy recvs equal "
+        f"solo's; decode_attention launches "
+        f"{[r['decode_launches'] for r in lm]}")
     return row
+
+
+def check_cnn_ranks(solo: dict, outs: list[dict], finals: list[dict]
+                    ) -> dict:
+    """The ranks' ``train_device`` rows with the CNN sharded across them
+    against solo's at D=2, whose collect runs its forward in the ranks'
+    two halves (``halves_net``: the one thing a rank's arithmetic does
+    otherwise; at M rows in one call cuDNN and cuBLAS round apart, and
+    AdamW turns that rounding into steps of up to lr where a gradient
+    is all but 0: ``cnn_witness``).  Gated: the bytes each rank placed,
+    exactly half of every sharded leaf; ``1 + epochs * minibatches``
+    policy gathers an iteration (none solo); the path's kernels
+    launched; each leaf of each rank's final params within 1e-4 of its
+    largest magnitude of solo's, the losses within 1e-4 relative."""
+    want_gathers = [1 + solo["epochs_x_minibatches"]] * RANK_CNN_ITERS
+    whole = 3 * 4 * CNN_PARAMS
+    if solo["params"] != CNN_PARAMS or solo["placed_bytes"] != whole \
+            or solo["policy_gathers_per_iter"] != [0] * RANK_CNN_ITERS:
+        raise AssertionError(f"cnn solo: {solo}")
+    ranks = [r["cnn"] for r in outs]
+    solo_diff = {}
+    for r, final in zip(ranks, finals):
+        if r["placed_bytes"] != 3 * 4 * CNN_HALF or r["whole_bytes"] != whole:
+            raise AssertionError(f"cnn rank placed {r['placed_bytes']} "
+                                 f"bytes of {r['whole_bytes']}, want "
+                                 f"{3 * 4 * CNN_HALF} of {whole}")
+        if r["policy_gathers_per_iter"] != want_gathers:
+            raise AssertionError(f"cnn rank policy gathers "
+                                 f"{r['policy_gathers_per_iter']}, want "
+                                 f"{want_gathers}")
+        if DEV.startswith("cuda"):
+            read = {k: r["launches"][k] for k in ("pong_render",
+                                                   "grayscale", "resize")}
+            if not all(read.values()):
+                raise AssertionError(f"cnn rank launches {read}")
+        for k, want in solo["final"].items():
+            peak = max(float(np.abs(want).max()), 1e-30)
+            solo_diff[k] = max(solo_diff.get(k, 0.0), float(np.abs(
+                final[k] - want).max()) / peak)
+    loss_rel = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["loss"], solo["loss"]))
+    param_rel = max(solo_diff.values())
+    out = {"params": CNN_PARAMS, "placed_bytes": [r["placed_bytes"]
+                                                  for r in ranks],
+           "whole_bytes": whole,
+           "policy_gathers_per_iter": [r["policy_gathers_per_iter"]
+                                       for r in ranks],
+           "max_rel_param_diff_vs_solo": param_rel,
+           "max_rel_loss_diff_vs_solo": loss_rel,
+           "rel_param_diff_vs_solo": solo_diff,
+           "rank_ms_per_iter": [r["ms_per_iter"] for r in ranks],
+           "solo_ms_per_iter": solo["ms_per_iter"],
+           "rank_launches": [{k: r["launches"][k] for k in (
+               "pong_render", "grayscale", "resize")} for r in ranks],
+           "solo_launches": {k: solo["launches"][k] for k in (
+               "pong_render", "grayscale", "resize")},
+           "loss": {"solo": solo["loss"], "ranks": [r["loss"]
+                                                    for r in ranks]}}
+    log(f"  ranks: train_device PongClassic-v5 N={RANK_CNN_N} D=2 with the "
+        f"CNN sharded across the 2: {out['placed_bytes']} bytes of params "
+        f"+ mu + nu a rank against {whole} whole; policy gathers an "
+        f"iteration {out['policy_gathers_per_iter']} (1 + epochs x "
+        f"minibatches); against solo's (its collect forward in the ranks' "
+        f"halves) final params off by {param_rel:.3g} of a leaf's largest "
+        f"magnitude ({solo_diff}), losses by {loss_rel:.3g} relative; "
+        f"ms/iter ranks {out['rank_ms_per_iter']}, solo "
+        f"{solo['ms_per_iter']}; render/grayscale/resize launches ranks "
+        f"{out['rank_launches']} solo {out['solo_launches']}; {CARD}")
+    if not (param_rel <= 1e-4 and loss_rel <= 1e-4):
+        raise AssertionError(f"cnn: ranks against solo: params {param_rel}, "
+                             f"losses {out['loss']}")
+    return out
+
+
+def cnn_witness(argv: list[str]) -> int:
+    """``chip_smoke.py cnn_witness``: phase 6's solo CNN run
+    (``cnn_train``) four times in one process: with cuDNN's
+    deterministic algorithms at M rows a forward and in the ranks' two
+    halves, and twice with its default algorithms; prints each pair's
+    largest difference of a leaf's final params over its largest
+    magnitude, and of the losses, as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import repro_torch  # noqa: F401  (fails outside the repository)
+    from repro_torch.kernels.build import library
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    global CARD
+    CARD = card_line()
+    library()
+    runs = {"one_call": cnn_train(RANK_CNN_N, RANK_CNN_ITERS),
+            "halves": cnn_train(RANK_CNN_N, RANK_CNN_ITERS, halves=True),
+            "default_a": cnn_train(RANK_CNN_N, RANK_CNN_ITERS,
+                                   deterministic=False),
+            "default_b": cnn_train(RANK_CNN_N, RANK_CNN_ITERS,
+                                   deterministic=False)}
+
+    def apart(a: dict, b: dict) -> dict:
+        params = {k: float(np.abs(a["final"][k] - w).max())
+                  / max(float(np.abs(w).max()), 1e-30)
+                  for k, w in b["final"].items()}
+        return {"params": params, "max_param": max(params.values()),
+                "max_loss": max(abs(x - y) / abs(y) for x, y in
+                                zip(a["loss"], b["loss"]))}
+
+    out = {"card": CARD, "task": "PongClassic-v5", "num_envs": RANK_CNN_N,
+           "one_call_vs_halves": apart(runs["one_call"], runs["halves"]),
+           "default_vs_default": apart(runs["default_a"], runs["default_b"]),
+           "ms_per_iter": {k: r["ms_per_iter"] for k, r in runs.items()},
+           "loss": {k: r["loss"] for k, r in runs.items()}}
+    print(json.dumps(out))
+    return 0
 
 
 def drive_sharded_train(n: int = 4096, shards: int = 2, iters: int = 2
@@ -3758,6 +4067,88 @@ def mesh_train(mesh) -> dict:
     return out
 
 
+# the tracker of the dry run against the allocator: within this share of
+# the allocator's count, or this many bytes, whichever is larger
+MEM_REL_TOL, MEM_ABS_TOL = 0.10, 256 << 20
+
+
+def mesh_memory(mesh) -> dict:
+    """Phase 7's train step (``TRAIN_MODEL`` blocked, B=``TRAIN_B``
+    S=``TRAIN_S``) on ``mesh`` run twice with the kernels' plain
+    versions, so both sides allocate the same tensors: on meta tensors
+    under ``launch/dryrun.py::live_bytes_mode``, and on the card with
+    ``flash_attention``'s backend resolved to ``"reference"``.  The
+    tracker's peak of the step's own bytes against
+    ``torch.cuda.max_memory_allocated()`` less the bytes allocated before
+    the step, within ``MEM_REL_TOL`` or ``MEM_ABS_TOL``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import BASELINE_RULES
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import (
+        init_train_state,
+        make_train_step,
+        train_state_shapes,
+    )
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, constant
+
+    cfg = get_config(TRAIN_MODEL, attn_impl="blocked")
+    opt = adamw(weight_decay=0.01)
+    shape = (TRAIN_B, TRAIN_S)
+
+    meta = build_model(cfg, "meta")
+    step = make_train_step(meta, opt, constant(3e-4), mesh, BASELINE_RULES)
+    state = train_state_shapes(meta, opt)
+    batch = {k: torch.empty(shape, dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    live = dryrun.live_bytes_mode()
+    t0 = time.perf_counter()
+    with live:
+        step(state, batch)
+    meta_s = time.perf_counter() - t0
+
+    model = build_model(cfg, DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    state = init_train_state(model, opt, gen)
+    batch = {k: torch.randint(0, cfg.vocab, shape, generator=gen,
+                              dtype=torch.int32, device=DEV)
+             for k in ("tokens", "labels")}
+    step = make_train_step(model, opt, constant(3e-4), mesh, BASELINE_RULES)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    resolve = flash_ops.resolve_backend
+    flash_ops.resolve_backend = lambda backend, x: "reference"
+    try:
+        out = step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        flash_ops.resolve_backend = resolve
+    card = torch.cuda.max_memory_allocated() - before
+    loss = float(out[1]["loss"])
+    del out, state, batch, model
+    torch.cuda.empty_cache()
+    diff = abs(live.peak - card)
+    row = {"model": cfg.name, "batch": TRAIN_B, "seq_len": TRAIN_S,
+           "tracker_peak_bytes": live.peak, "allocator_peak_bytes": card,
+           "diff_bytes": diff, "rel_diff": diff / max(card, 1),
+           "meta_s": meta_s, "loss": loss, "card": CARD}
+    if not (np.isfinite(loss) and diff <= max(MEM_REL_TOL * card,
+                                              MEM_ABS_TOL)):
+        raise AssertionError(f"mesh memory: tracker {live.peak} bytes "
+                             f"against the allocator's {card}")
+    log(f"  mesh memory {cfg.name} B={TRAIN_B} S={TRAIN_S} train step on a "
+        f"(1, 1) mesh, plain kernels: the dry run's tracker on meta "
+        f"{live.peak} bytes, the allocator's peak on the card {card} "
+        f"bytes ({row['rel_diff']:.4f} apart; meta run {meta_s:.1f} s); "
+        f"{CARD}")
+    return row
+
+
 def gloo_dtensor_main(argv: list[str]) -> int:
     """``chip_smoke.py gloo_dtensor <rank> <port>``: one of two processes
     sharing the card over gloo; one DTensor all-gather of a CUDA tensor
@@ -3853,13 +4244,18 @@ def dryrun_row(started: tuple) -> dict:
     res = json.loads(stdout[stdout.index("{"):])
     roof, coll = res["roofline"], res["collectives"]
     if res["status"] != "ok" or res["devices"] != 256 \
-            or coll["total_count"] <= 0:
+            or coll["total_count"] <= 0 or not isinstance(
+                res["memory_analysis"]["temp_size_in_bytes"], int):
         raise AssertionError(f"dry run {arch} {shape}: {res}")
     out = {"arch": arch, "shape": shape, "mesh": res["mesh"],
            "devices": res["devices"], "wall_s": time.perf_counter() - t0,
            "flops_per_device": res["flops_per_device"],
            "argument_bytes_per_device":
                res["memory_analysis"]["argument_size_in_bytes"],
+           "temp_bytes_per_device":
+               res["memory_analysis"]["temp_size_in_bytes"],
+           "peak_bytes_per_device":
+               res["memory_analysis"]["peak_size_in_bytes"],
            "collectives": {k: v for k, v in coll.items()
                            if not isinstance(v, dict) or v["count"]},
            "roofline": roof}
@@ -3871,7 +4267,10 @@ def dryrun_row(started: tuple) -> dict:
         f"{roof['mfu_bound']:.4f}; {coll['total_count']} collectives, "
         f"{coll['total_operand_bytes']} operand bytes a rank; "
         f"{res['flops_per_device']:.4g} FLOPs a rank counted; "
-        f"{out['argument_bytes_per_device']} argument bytes a rank; done "
+        f"{out['argument_bytes_per_device']} argument bytes a rank, "
+        f"{out['temp_bytes_per_device']} temporary and "
+        f"{out['peak_bytes_per_device']} at the peak (the plain kernels' "
+        f"tensors, counted on meta); done "
         f"{out['wall_s']:.1f} s after its start, beside the card's rows")
     return out
 
@@ -3881,9 +4280,10 @@ def mesh_phase() -> dict:
     card (``make_debug_mesh``), the model-parallel steps under
     ``BASELINE_RULES`` at full width against the unsharded steps on the
     same weights (the dense decoders, then the MoE, hybrid, Whisper and
-    xLSTM families), the group destroyed at the end; then the
-    two-process gloo all-gather; the dry run of ``MESH_DRYRUN`` runs on
-    the host beside them."""
+    xLSTM families) and the dry run's memory tracker against the
+    allocator (``mesh_memory``), the group destroyed at the end; then
+    the two-process gloo all-gather; the dry run of ``MESH_DRYRUN`` runs
+    on the host beside them."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_debug_mesh
@@ -3902,6 +4302,7 @@ def mesh_phase() -> dict:
             rows += [mesh_prefill(mesh, *cell)
                      for cell in MESH_FAMILY_PREFILLS]
             rows += [mesh_serve(mesh, *cell) for cell in MESH_FAMILY_SERVES]
+            memory = mesh_memory(mesh)
         finally:
             dist.destroy_process_group()
         gloo = gloo_dtensor_try()
@@ -3909,7 +4310,7 @@ def mesh_phase() -> dict:
         dryrun[0].kill()            # the phase failed: stop the dry run
         dryrun[0].wait()
         raise
-    return {"rows": rows, "gloo_cuda_all_gather": gloo,
+    return {"rows": rows, "memory": memory, "gloo_cuda_all_gather": gloo,
             "dryrun": dryrun_row(dryrun)}
 
 
@@ -4141,5 +4542,7 @@ if __name__ == "__main__":
         sys.exit(train_turns(sys.argv[2:]))
     if sys.argv[1:2] == ["gloo_dtensor"]:
         sys.exit(gloo_dtensor_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["cnn_witness"]:
+        sys.exit(cnn_witness(sys.argv[2:]))
     sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["rank"]
              else main(sys.argv[1:]))

@@ -133,24 +133,10 @@ class EnvMesh:
         self.local_shards = 0 if self.index is None else self.num_shards // p
         self.first_shard = (self.index or 0) * (self.num_shards // p)
         self.log: list[tuple[str, int]] = []
-        self._device_mesh = None
 
     @property
     def is_multiprocess(self) -> bool:
         return len(self.ranks) > 1
-
-    def device_mesh(self) -> Any:
-        """A 1-D ``DeviceMesh`` named ``("env",)`` over the mesh's
-        processes, one device each (built once; every process of the job
-        makes the first call, as ``make_env_mesh``): where a policy
-        sharded across them lives (``rl/policy_lm.py::place_params``)."""
-        if self._device_mesh is None:
-            from torch.distributed.device_mesh import DeviceMesh
-
-            self._device_mesh = DeviceMesh(self.device.type,
-                                           list(self.ranks),
-                                           mesh_dim_names=("env",))
-        return self._device_mesh
 
     def counts(self) -> dict[str, int]:
         """Collectives issued since the last ``reset_log``, by kind."""

@@ -23,10 +23,17 @@ a mesh's *shape*, axis names to extents in mesh order (a dict, or a
 placement rule as a plan: a policy smaller than ``min_shard_params`` is
 replicated on every shard; a larger one over a mesh of several shards
 puts each leaf's largest divisible dim on the mesh (FSDP over the env
-mesh).  ``rl/policy_lm.py::place_params`` places it: across processes
-as DTensors over the env mesh's ranks, in solo (every shard on one
-device) replicated.  ``disaggregated_env_mesh`` and ``host_broadcast``
-are ``rl/ppo.py::train_disaggregated``'s env mesh and hand-off.
+mesh).  ``place_policy`` places it: across processes each sharded leaf
+becomes the process's contiguous slice (the rows of its D/P shards),
+``gather_policy`` makes the leaves whole again in one ``EnvMesh.gather``
+(counted as ``"policy"`` on ``EnvMesh.log``; over gloo a CUDA tensor is
+staged through the host) and ``take_rows`` cuts a whole tree, such as a
+gradient, to the slices.  In solo every shard shares one device, so
+nothing is cut and nothing is gathered.  ``rl/ppo.py::train_device``,
+``train_disaggregated``'s env processes and
+``rl/policy_lm.py::LMPolicy.place_params`` place their policies so.
+``disaggregated_env_mesh`` and ``host_broadcast`` are
+``train_disaggregated``'s env mesh and hand-off.
 """
 
 from __future__ import annotations
@@ -417,6 +424,84 @@ def policy_shardings(mesh: EnvMesh, params: Any,
     return tree_map(one, params)
 
 
+def _dims(plan: Any) -> list[int | None]:
+    """A plan's entries in tree order, None included."""
+    return tree_leaves(plan, is_leaf=lambda v: True)
+
+
+def cuts(mesh: EnvMesh | None, plan: Any) -> bool:
+    """Whether ``plan`` cuts any leaf across ``mesh``'s processes: it
+    shards one and the mesh spans several processes.  Never without a
+    mesh."""
+    return (mesh is not None and mesh.is_multiprocess
+            and any(d is not None for d in _dims(plan)))
+
+
+def take_rows(mesh: EnvMesh | None, tree: Any, plan: Any) -> Any:
+    """``tree``, whole leaves like the policy's (params, a gradient), cut
+    to this process's part by ``plan``: each sharded leaf's contiguous
+    slice of its dim, the rows of the process's D/P shards, as a tensor
+    of its own (the whole leaf can be freed); the other leaves as they
+    are.  Unchanged when the plan cuts nothing (``cuts``)."""
+    if not cuts(mesh, plan):
+        return tree
+    p, i = len(mesh.ranks), mesh.index
+
+    def one(x: torch.Tensor, dim: int | None) -> torch.Tensor:
+        if dim is None:
+            return x
+        n = x.shape[dim] // p
+        return x.narrow(dim, i * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+    return tree_map(one, tree, plan)
+
+
+def place_policy(mesh: EnvMesh, params: Any,
+                 min_shard_params: int = 1 << 20) -> tuple[Any, Any]:
+    """``(local, plan)``: ``policy_shardings``' plan of ``params`` over
+    ``mesh`` and the part of ``params`` this process holds by it
+    (``take_rows``).  Every process of the mesh holds the same whole
+    ``params`` (the same seed, or the same broadcast), so placing moves
+    no data.  In solo, or below ``min_shard_params``, ``local`` is
+    ``params``."""
+    plan = policy_shardings(mesh, params, min_shard_params)
+    return take_rows(mesh, params, plan), plan
+
+
+_ALIGN = 16     # bytes: each leaf's segment of a packed gather
+
+
+def gather_policy(mesh: EnvMesh | None, local: Any, plan: Any) -> Any:
+    """The whole policy from every process's ``local`` part: the sharded
+    leaves' bytes packed into one buffer (each leaf's segment padded to
+    16 bytes), one ``mesh.gather(..., "policy")`` of it, and each leaf
+    concatenated along its dim in process order; the other leaves as
+    they are.  Every process of the mesh calls it.  ``local`` itself
+    when the plan cuts nothing: no collective, nothing logged."""
+    if not cuts(mesh, plan):
+        return local
+    parts = [(x, d) for x, d in zip(tree_leaves(local), _dims(plan))
+             if d is not None]
+    sizes = [x.numel() * x.element_size() for x, _ in parts]
+    padded = [-(-n // _ALIGN) * _ALIGN for n in sizes]
+    buf = torch.zeros(sum(padded), dtype=torch.uint8,
+                      device=parts[0][0].device)
+    at = 0
+    for (x, _), n, step in zip(parts, sizes, padded):
+        buf[at:at + n] = x.contiguous().reshape(-1).view(torch.uint8)
+        at += step
+    rows = mesh.gather(buf, "policy").reshape(len(mesh.ranks), -1)
+    whole, at = [], 0
+    for (x, dim), n, step in zip(parts, sizes, padded):
+        whole.append(torch.cat([r[at:at + n].view(x.dtype).reshape(x.shape)
+                                for r in rows], dim=dim))
+        at += step
+    it = iter(whole)
+    return tree_map(lambda x, dim: x if dim is None else next(it),
+                    local, plan)
+
+
 def disaggregated_env_mesh(num_shards: int | None = None,
                            learner_process: int | None = None,
                            device: torch.device | str | None = None
@@ -481,8 +566,9 @@ class _Leaf:
 
 __all__ = [
     "BASELINE_RULES", "DP_RULES", "ENVPOOL_RULES", "FSDP", "RuleSet",
-    "SP_RULES", "ZERO1_RULES", "bytes_per_device", "disaggregated_env_mesh",
-    "host_broadcast", "make_shard_fn", "mesh_shape",
+    "SP_RULES", "ZERO1_RULES", "bytes_per_device", "cuts",
+    "disaggregated_env_mesh", "gather_policy", "host_broadcast",
+    "make_shard_fn", "mesh_shape", "place_policy", "take_rows",
     "no_shard", "opt_state_shardings", "param_logical_axes",
     "param_shardings", "placements", "policy_shardings",
     "place", "pool_state_shardings", "replicated", "resolve",

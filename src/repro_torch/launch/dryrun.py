@@ -21,10 +21,19 @@ machine without a card.  It records:
   op's shapes, a DTensor op's scaled to the rank's shard of its output
   (and over the mesh dims its output is a partial sum over);
 * the argument bytes per rank, the plan's ``bytes_per_device`` (held
-  against the placed shards' own bytes).
+  against the placed shards' own bytes);
+* the bytes a rank's step allocates (``live_bytes_mode``): the peak of
+  the live bytes of the storages the step creates, the rank's local
+  shards, as ``repro`` reads XLA's ``memory_analysis``:
+  ``temp_size_in_bytes`` is that peak less the output's new bytes, and
+  ``peak_size_in_bytes`` (also ``total_per_device``) the argument bytes
+  plus that peak.  It counts the tensors the eager step allocates; on
+  meta the kernels take their plain versions (``kernels/backend.py``),
+  so it counts the plain versions' tensors.  Allocator rounding,
+  library workspaces and memory a kernel takes without a tensor are not
+  counted.
 
-What XLA's ``memory_analysis`` reports and meta tensors cannot, the
-temporary bytes, is null.  The roofline takes ``repro``'s formulas with
+The roofline takes ``repro``'s formulas with
 the card's constants (``launch/mesh.py``: H100 SXM): compute and memory
 from ``distributed/analytic.py::cell_cost``, collectives at NVLink's
 rate.  On meta tensors the kernels take their plain versions
@@ -129,6 +138,83 @@ def _local_flops_mode():
             return out
 
     return LocalFlops()
+
+
+def live_bytes_mode():
+    """A dispatch mode that follows the storages the ops under it create:
+    ``.live``, the bytes of those still alive, ``.peak``, the most
+    ``.live`` has been, and ``.created(t)``, whether ``t``'s storage is
+    one of them.  A storage is new when it is none of the op's inputs'
+    and not already followed (a view, an in-place op and a collective's
+    wait return one that is); it is let go when it dies.  An op on a
+    DTensor returns ``NotImplemented``, so DTensor runs it and the mode
+    sees its local ops, the shards a rank holds; the ops DTensor's
+    sharding propagation runs under a fake mode are left out."""
+    import weakref
+
+    from torch._guards import active_fake_mode
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class LiveBytes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.live = self.peak = 0
+            self._sizes: dict[int, int] = {}
+
+        def _free(self, key: int) -> None:
+            self.live -= self._sizes.pop(key)
+
+        def created(self, t: torch.Tensor) -> bool:
+            return id(t.untyped_storage()) in self._sizes
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            if active_fake_mode() is not None:
+                return out
+            inputs = {id(t.untyped_storage())
+                      for t in _tensors((args, kwargs))}
+            for t in _tensors(out):
+                st = t.untyped_storage()
+                key, n = id(st), st.nbytes()
+                if key in self._sizes:          # a resize grows it
+                    self.live += n - self._sizes[key]
+                    self._sizes[key] = n
+                elif key not in inputs:
+                    self._sizes[key] = n
+                    self.live += n
+                    weakref.finalize(st, self._free, key)
+            self.peak = max(self.peak, self.live)
+            return out
+
+    return LiveBytes()
+
+
+def memory_analysis(live, argument_bytes: int, out: Any) -> dict[str, int]:
+    """``repro``'s ``memory_analysis`` keys from a step run under
+    ``live_bytes_mode`` on arguments of ``argument_bytes`` a rank that
+    returned ``out``: the output's bytes, those of it that are arguments
+    (``alias``), the temporaries (the peak of the step's own bytes less
+    the output's new bytes) and the rank's peak, ``argument + output +
+    temp - alias``, also under ``repro``'s ``total_per_device``."""
+    from repro_torch.models.common import is_dtensor
+    from repro_torch.utils.tree import tree_leaves
+
+    local = [x.to_local() if is_dtensor(x) else x for x in tree_leaves(out)]
+    out_bytes = sum(x.numel() * x.element_size() for x in local)
+    alias = sum(x.numel() * x.element_size() for x in local
+                if not live.created(x))
+    temp = live.peak - (out_bytes - alias)
+    peak = argument_bytes + out_bytes + temp - alias
+    return {"argument_size_in_bytes": argument_bytes,
+            "output_size_in_bytes": out_bytes,
+            "alias_size_in_bytes": alias,
+            "temp_size_in_bytes": temp,
+            "peak_size_in_bytes": peak,
+            "total_per_device": peak}
 
 
 def _comm_counts(comm) -> dict[str, int]:
@@ -252,8 +338,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, rules_name: str,
                              f"bytes a rank, the plan {arg_bytes}")
     t_place = time.time() - t0
 
+    live = live_bytes_mode()
     coll_bytes, flops = _collective_bytes_mode(), _local_flops_mode()
-    with CommDebugMode() as comm, coll_bytes, flops:
+    with live, CommDebugMode() as comm, coll_bytes, flops:
         out = step_fn(*placed)
     t_run = time.time() - t0 - t_place
     counts = _comm_counts(comm)
@@ -291,14 +378,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, rules_name: str,
         "lower_s": round(t_place, 1),
         "run_s": round(t_run, 1),
         "flops_per_device": flops.flops,
-        "memory_analysis": {
-            "argument_size_in_bytes": arg_bytes,
-            "output_size_in_bytes": _local_bytes(out),
-            "temp_size_in_bytes": None,
-            "temp_size_note": ("meta tensors hold no storage and eager "
-                               "PyTorch has no buffer assignment: the "
-                               "temporaries a step needs are not known"),
-        },
+        "memory_analysis": dict(
+            memory_analysis(live, arg_bytes, out),
+            temp_size_note=("the tensors the eager step allocates on "
+                            "meta, the kernels' plain versions included; "
+                            "not allocator rounding, library workspaces "
+                            "or memory a kernel takes without a tensor")),
         "collectives": coll,
         "roofline": {
             "compute_s": compute_s,

@@ -5,7 +5,11 @@ Functional over a tree of tensors (``utils/tree.py``): ``update``
 returns new parameters and a new state and writes into neither it was
 given.  All arithmetic is float32, the bias corrections ``1 - b**count``
 included, as in the JAX package; the learning rate may be a float or a
-0-dim tensor (``optim/schedule.py``).
+0-dim tensor (``optim/schedule.py``).  AdamW's ``update`` takes a
+``norm``, where given the global norm the clip scales by: a caller that
+hands ``update`` only its slice of a gradient (``rl/ppo.py``, a policy
+placed across processes) passes the whole gradient's norm, since the
+slice's own norm is another number.
 """
 
 from __future__ import annotations
@@ -34,9 +38,13 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
-def clip_by_global_norm(tree: Any, max_norm: float
+def clip_by_global_norm(tree: Any, max_norm: float,
+                        norm: torch.Tensor | None = None
                         ) -> tuple[Any, torch.Tensor]:
-    norm = global_norm(tree)
+    """``tree`` scaled to a global norm of at most ``max_norm``, and the
+    norm; ``norm`` stands in for ``tree``'s own where given."""
+    if norm is None:
+        norm = global_norm(tree)
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
     return tree_map(lambda x: x * scale, tree), norm
 
@@ -53,10 +61,10 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         return AdamWState(mu=tree_map(zeros, params),
                           nu=tree_map(zeros, params), count=count)
 
-    def update(grads: Any, state: AdamWState, params: Any, lr
-               ) -> tuple[Any, AdamWState]:
+    def update(grads: Any, state: AdamWState, params: Any, lr,
+               norm: torch.Tensor | None = None) -> tuple[Any, AdamWState]:
         if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+            grads, _ = clip_by_global_norm(grads, clip_norm, norm)
         count = state.count + 1
         cf = count.to(torch.float32)
         b1c = 1.0 - torch.pow(b1, cf)

@@ -28,7 +28,8 @@ the served block back into ``lanes``' tensors.  A caller must not reuse
 the caches or lanes it passed in.  Entry points run on ``cuda`` unless
 ``device="cpu"`` is asked for.  ``place_params`` puts the params on a
 sharded pool's mesh: replicated, or, for a large policy over several
-processes, sharded across them and gathered at each use.
+processes, sharded across them (``PlacedPolicy``) and gathered at each
+use.
 """
 
 from __future__ import annotations
@@ -42,7 +43,12 @@ from repro_torch import random
 from repro_torch.core.device import resolve_device
 from repro_torch.core.specs import EnvSpec, TimeStep
 from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.models.common import ModelConfig, dense_init, is_dtensor
+from repro_torch.distributed.sharding import (
+    cuts,
+    gather_policy,
+    place_policy,
+)
+from repro_torch.models.common import ModelConfig, dense_init
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
@@ -58,10 +64,8 @@ from repro_torch.models.transformer import (
 )
 from repro_torch.models.xlstm import xlstm_block_kinds
 from repro_torch.utils.tree import (
-    is_value,
     tree_dataclass,
     tree_gather,
-    tree_leaves,
     tree_leaves_with_path,
     tree_map,
 )
@@ -188,33 +192,25 @@ class LMPolicy:
         return params
 
     def place_params(self, params: dict[str, Any], pool: Any
-                     ) -> dict[str, Any]:
+                     ) -> dict[str, Any] | PlacedPolicy:
         """The Seed-RL placement over the pool's mesh
-        (``distributed/sharding.py::policy_shardings``).  Below its
+        (``distributed/sharding.py::place_policy``).  Below its
         ``min_shard_params``, or in solo, where every shard shares the
         process's device, the params come back replicated on the pool's
         device.  A policy the rule shards over a mesh of several
-        processes is FSDP over them: each leaf the plan shards becomes a
-        DTensor, ``Shard(dim)`` over ``EnvMesh.device_mesh()`` (every
-        rank keeps its slice of the full leaf it holds, so placing moves
-        no data), the rest stays whole on the pool's device;
-        ``decode_step`` and ``full_forward`` gather each weight at use.
+        processes is FSDP over them: a ``PlacedPolicy`` holding this
+        process's slice of each leaf the plan shards (every rank cuts
+        its slice from the full leaf it holds, so placing moves no
+        data) and the rest whole, on the pool's device; ``decode_step``
+        and ``full_forward`` gather it whole at each use
+        (``gather_policy``, one ``"policy"`` gather on the mesh's log).
         Every process of the mesh calls it."""
-        from repro_torch.distributed.sharding import policy_shardings
-
         mesh = getattr(pool, "mesh", None)
         if mesh is None:
             return params
-        plan = policy_shardings(mesh, params)
-        if not (mesh.is_multiprocess and tree_leaves(plan, is_leaf=is_value)):
-            return tree_map(lambda x: x.to(pool.device), params)
-        from torch.distributed.tensor import Shard, distribute_tensor
-
-        dmesh = mesh.device_mesh()
-        return tree_map(
-            lambda x, dim: x.to(pool.device) if dim is None else
-            distribute_tensor(x.to(pool.device), dmesh, [Shard(dim)],
-                              src_data_rank=None), params, plan)
+        local, plan = place_policy(mesh, params)
+        local = tree_map(lambda x: x.to(pool.device), local)
+        return PlacedPolicy(local, plan, mesh) if cuts(mesh, plan) else local
 
     def init_lanes(self, num_envs: int) -> LMLaneState:
         cfg = self.cfg
@@ -244,6 +240,8 @@ class LMPolicy:
                     cast(v) if isinstance(v, dict) else v.to(cd)
                     for k, v in tree.items()}
 
+        if isinstance(params, PlacedPolicy):
+            return params.replace(local=cast(params.local))
         return cast(params)
 
     # ------------------------- cached decode ----------------------- #
@@ -354,12 +352,24 @@ class LMPolicy:
         return actions, logp, _scatter_(lanes, ids, blk)
 
 
-def gathered(params: dict[str, Any]) -> dict[str, Any]:
-    """``params`` with every DTensor leaf (a policy placed across
-    processes by ``place_params``) gathered whole: the weights a forward
-    reads, as GSPMD gathers an FSDP-sharded weight at its use."""
-    return tree_map(lambda x: x.full_tensor() if is_dtensor(x) else x,
-                    params)
+@tree_dataclass
+class PlacedPolicy:
+    """A policy placed across an ``EnvMesh``'s processes by
+    ``LMPolicy.place_params``: ``local`` is this process's part of the
+    params (``place_policy``), ``plan`` ``policy_shardings``' dims."""
+
+    local: Any
+    plan: Any
+    mesh: Any
+
+
+def gathered(params: dict[str, Any] | PlacedPolicy) -> dict[str, Any]:
+    """The whole params of a ``PlacedPolicy`` (``gather_policy``): the
+    weights a forward reads, as GSPMD gathers an FSDP-sharded weight at
+    its use; plain params as they are."""
+    if isinstance(params, PlacedPolicy):
+        return gather_policy(params.mesh, params.local, params.plan)
+    return params
 
 
 def _scatter_(lanes: LMLaneState, ids: torch.Tensor, blk: LMLaneState
@@ -419,6 +429,7 @@ def build_lm_collect_fn(pool: Any, policy: LMPolicy, num_steps: int,
 __all__ = [
     "LMLaneState",
     "LMPolicy",
+    "PlacedPolicy",
     "build_lm_collect_fn",
     "default_policy_config",
     "params_from_jax",

@@ -37,9 +37,13 @@ the one-device engine.  In solo its recv block is the whole M block, so
 nothing changes.  Across processes each collects its own rows, the
 policy drawing its noise for the global block (``ActorCritic.sample``'s
 ``rows``), and the update gathers the rollout once an iteration, so
-every process runs the same update on the whole rollout and keeps the
-same params (the JAX package's replicated policy,
-``distributed/sharding.py::policy_shardings`` below its size limit).
+every process runs the same update on the whole rollout.  The policy
+is placed as the JAX package places it
+(``distributed/sharding.py::policy_shardings``): below 2^20 parameters
+every process holds it whole and keeps the same params; past that
+(PongClassic-v5's CNN) ``train_device`` holds each sharded leaf's slice
+(``place_policy``), its AdamW moments too, and gathers the whole policy
+for the collect and for each minibatch (``gather_policy``).
 
 ``train_disaggregated`` is the actor/learner split across processes:
 the env processes collect on their mesh, the learner process runs the
@@ -71,7 +75,12 @@ from repro_torch.core.xla_loop import (
 )
 from repro_torch.obs.metrics import MetricsRegistry, publish_history
 from repro_torch.obs.trace import Tracer
-from repro_torch.optim import adamw, linear_decay
+from repro_torch.distributed.sharding import (
+    gather_policy,
+    place_policy,
+    take_rows,
+)
+from repro_torch.optim import adamw, global_norm, linear_decay
 from repro_torch.rl.gae import gae
 from repro_torch.rl.nets import ActorCritic
 from repro_torch.rl.vtrace import vtrace
@@ -117,14 +126,25 @@ def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
                          x.new_full((), hi))
 
 
-def make_ppo_update(net: ActorCritic, cfg: PPOConfig, total_updates: int):
+def make_ppo_update(net: ActorCritic, cfg: PPOConfig, total_updates: int,
+                    mesh: Any = None, plan: Any = None):
     """``(optimizer, update)``; ``update(state, rollout, key) -> (state,
     metrics)`` runs ``cfg.epochs`` epochs of ``cfg.minibatches``
     minibatches over the ``(T, M, ...)`` rollout leaves ``obs``,
     ``actions``, ``logp``, ``values``, ``adv`` and ``ret``.  Each epoch
     shuffles the ``B = T * M`` samples with ``random.permutation`` and
     takes minibatches of ``B // minibatches``, dropping the tail.  The
-    metrics are 0-dim tensors on the device."""
+    metrics are 0-dim tensors on the device.
+
+    Each minibatch gathers the whole params (``gather_policy``), takes
+    the gradient of the whole leaves, clips by the whole gradient's
+    global norm and runs AdamW on this process's rows (``take_rows``).
+    Without an ``EnvMesh``, or with a ``plan`` that cuts nothing across
+    its processes (``distributed/sharding.py::cuts``), the gather and
+    the cut hand the tree back as it is.  Where it cuts the policy
+    (``place_policy``), ``state.params`` and the AdamW moments are this
+    process's slices; every process holds the whole rollout, so every
+    process computes the same whole gradient."""
     opt = adamw(b1=0.9, b2=0.999, eps=1e-5, weight_decay=0.0,
                 clip_norm=cfg.max_grad_norm)
     lr_fn = (linear_decay(cfg.lr, total_updates) if cfg.anneal_lr
@@ -173,9 +193,12 @@ def make_ppo_update(net: ActorCritic, cfg: PPOConfig, total_updates: int):
             for i in range(cfg.minibatches):
                 idx = perm[i * mb:(i + 1) * mb]
                 batch = {k: v.index_select(0, idx) for k, v in flat.items()}
-                (loss, metrics), grads = grad_fn(state.params, batch)
+                whole = gather_policy(mesh, state.params, plan)
+                (loss, metrics), grads = grad_fn(whole, batch)
+                norm = global_norm(grads)
+                grads = take_rows(mesh, grads, plan)
                 params, opt_state = opt.update(grads, state.opt, state.params,
-                                               lr_fn(state.step))
+                                               lr_fn(state.step), norm)
                 state = PPOState(params, opt_state, state.step + 1)
                 losses.append(loss)
                 history.append(metrics)
@@ -267,18 +290,31 @@ def train_device(pool: Any, cfg: PPOConfig, seed: int = 0,
     history)``: the final ``PPOState``, the ``ActorCritic`` and one
     record an iteration (``iter``, ``env_steps``, ``time_s``, the mean
     ``pg``, ``vf``, ``ent``, ``ratio`` and ``loss`` over the
-    minibatches, ``episodes`` and ``mean_return``)."""
+    minibatches, ``episodes`` and ``mean_return``).
+
+    Over a sharded pool the policy is placed by ``policy_shardings``
+    (``distributed/sharding.py::place_policy``).  Where the plan cuts it
+    across the mesh's processes, each process holds its slices of the
+    params and of AdamW's ``mu`` and ``nu``, and gathers the whole
+    policy ``1 + epochs * minibatches`` times an iteration (once for the
+    collect, once a minibatch; ``"policy"`` on ``pool.mesh.log``).  The
+    returned ``state.params`` are whole (one gather more, at the end);
+    ``state.opt`` stays this process's slices."""
     check_device_pool(pool, "train_device (use train_host)")
     dev = pool.device
     net = ActorCritic(pool.spec, hidden=hidden)
     key, k_init, k_pool = random.split(random.PRNGKey(seed, device=dev), 3)
     params = net.init(k_init)
+    mesh = getattr(pool, "mesh", None)
+    plan = None
+    if mesh is not None:
+        params, plan = place_policy(mesh, params)
 
     M = pool.batch_size
     steps_per_iter = cfg.num_steps * M
     n_iters = max(1, cfg.total_steps // steps_per_iter)
     total_updates = n_iters * cfg.epochs * cfg.minibatches
-    opt, update = make_ppo_update(net, cfg, total_updates)
+    opt, update = make_ppo_update(net, cfg, total_updates, mesh, plan)
     state = PPOState(params=params, opt=opt.init(params),
                      step=torch.zeros((), dtype=torch.int32, device=dev))
     rows = getattr(pool, "block_rows", None)
@@ -302,11 +338,13 @@ def train_device(pool: Any, cfg: PPOConfig, seed: int = 0,
     def train_step(state, ps, ts, kc, ku):
         """One collect and one update; the metrics stay on the device."""
         with torch.no_grad():
-            ps, ts, traj = collect(state.params, ps, ts, kc)
+            params = gather_policy(mesh, state.params, plan)
+            ps, ts, traj = collect(params, ps, ts, kc)
             traj = dict(traj, last_obs=ts.obs)
             if rows is not None:
                 traj = _gather_rollout(pool, traj)
-            last_v = net.forward(state.params, traj["last_obs"])[1]
+            last_v = net.forward(params, traj["last_obs"])[1]
+            del params      # each minibatch gathers its own
             adv, ret = gae(traj["rewards"], traj["values"], traj["dones"],
                            last_v, cfg.gamma, cfg.lam)
         rollout = {
@@ -333,7 +371,8 @@ def train_device(pool: Any, cfg: PPOConfig, seed: int = 0,
         rec = {"iter": it, "env_steps": (it + 1) * steps_per_iter,
                "time_s": time.time() - t0, **values}
         _record(history, rec, episodes, ep_sum, log_fn)
-    return state, net, history
+    return (state.replace(params=gather_policy(mesh, state.params, plan)),
+            net, history)
 
 
 def _gather_rollout(pool: Any, traj: dict[str, torch.Tensor]
@@ -772,9 +811,15 @@ def train_disaggregated(pool: Any, cfg: PPOConfig, seed: int = 0,
       consumed rollout is one policy step stale, as in
       ``train_pipelined``, with its key flow, split for split.
 
+    The env processes hold the params they receive by
+    ``policy_shardings`` over the env mesh (``place_policy``: their
+    slices where the plan cuts the policy across them) and gather them
+    whole once an iteration, for its collect.  The learner holds the
+    whole state, as the JAX package's does.
+
     Returns ``(state, net, history)``; ``history`` is the same on every
     process, ``state`` is the learner's (the env processes return the
-    params they last received)."""
+    params they last received, whole, and no optimizer state)."""
     import torch.distributed as dist
 
     from repro_torch.distributed.sharding import host_broadcast
@@ -796,16 +841,14 @@ def train_disaggregated(pool: Any, cfg: PPOConfig, seed: int = 0,
     net = ActorCritic(pool.spec, hidden=hidden)
     key, k_init, k_pool = random.split(random.PRNGKey(seed, device=dev), 3)
     # every process starts from the learner's params
-    params = tree_map(lambda x: x.to(dev),
-                      host_broadcast(net.init(k_init), learner_process))
+    params = host_broadcast(net.init(k_init), learner_process)
 
     M = pool.batch_size
     steps_per_iter = cfg.num_steps * M
     n_iters = max(1, cfg.total_steps // steps_per_iter)
     opt, vupdate = make_vtrace_ppo_update(
         net, cfg, n_iters * cfg.epochs * cfg.minibatches)
-    state = PPOState(params=params, opt=opt.init(params),
-                     step=torch.zeros((), dtype=torch.int32, device=dev))
+    step0 = torch.zeros((), dtype=torch.int32, device=dev)
     rows = pool.block_rows
 
     def policy(p, obs, k):
@@ -813,6 +856,12 @@ def train_disaggregated(pool: Any, cfg: PPOConfig, seed: int = 0,
         return a, logp
 
     collect = build_pipelined_collect_fn(pool, policy, cfg.num_steps)
+
+    def place(params_host):
+        """``(local, plan)``: an env process's part of the learner's
+        params, on its device."""
+        local, plan = place_policy(mesh, params_host)
+        return tree_map(lambda x: x.to(dev), local), plan
 
     def fetch(traj):
         """The env mesh's whole rollout, on the host."""
@@ -822,10 +871,15 @@ def train_disaggregated(pool: Any, cfg: PPOConfig, seed: int = 0,
 
     traj_host = None
     key, kc0 = random.split(key)
-    if not is_learner:
+    if is_learner:
+        params = tree_map(lambda x: x.to(dev), params)
+        state = PPOState(params=params, opt=opt.init(params), step=step0)
+    else:
+        params, plan = place(params)
         ps, ts = pool.reset(k_pool)
         with torch.no_grad():
-            ps, ts, traj = collect(ps, params, ts, kc0)
+            ps, ts, traj = collect(ps, gather_policy(mesh, params, plan), ts,
+                                   kc0)
         traj_host = fetch(traj)
     history: list[dict] = []
     t0 = time.time()
@@ -846,11 +900,12 @@ def train_disaggregated(pool: Any, cfg: PPOConfig, seed: int = 0,
             # collect t+1 behind the current params while the learner
             # updates on rollout t
             with torch.no_grad():
-                ps, ts, traj = collect(ps, params, ts, kc)
+                ps, ts, traj = collect(ps, gather_policy(mesh, params, plan),
+                                       ts, kc)
             back = None
         new_params, names, scalars = host_broadcast(back, learner_process)
         if not is_learner:
-            params = tree_map(lambda x: x.to(dev), new_params)
+            params, plan = place(new_params)
             traj_host = fetch(traj)
         values = dict(zip(names, scalars.tolist()))
         episodes = int(values.pop("episodes"))
@@ -859,7 +914,8 @@ def train_disaggregated(pool: Any, cfg: PPOConfig, seed: int = 0,
                "time_s": time.time() - t0, **values}
         _record(history, rec, episodes, ep_sum, log_fn)
     if not is_learner:
-        state = state.replace(params=params)
+        state = PPOState(params=gather_policy(mesh, params, plan), opt=None,
+                         step=step0)
     return state, net, history
 
 

@@ -540,8 +540,7 @@ def rank_policy() -> tuple[dict, dict]:
     planned = sum(x.numel() * x.element_size() // (1 if d is None else 2)
                   for x, d in zip(tree_leaves(params),
                                   tree_leaves(plan, is_leaf=lambda v: True)))
-    held = sum((x.to_local() if hasattr(x, "to_local") else x).numel()
-               * x.element_size() for x in tree_leaves(placed))
+    held = sum(x.numel() * x.element_size() for x in tree_leaves(placed))
     report = {"params": sum(x.numel() for x in tree_leaves(params)),
               "bytes": [held, planned],
               "sharded_leaves": len(tree_leaves(plan, is_leaf=is_value))}

@@ -11,15 +11,21 @@ Each runs the same scripted rollouts, hashing every block as the whole
 mesh sees it (``pool.replicate``, the test's host read), and reports
 ``stats()``, the collectives each recv issued (``EnvMesh.log``), and the
 params after one iteration of ``train_device`` and ``train_pipelined``.
-No JAX is imported.
+Then one iteration of ``train_device`` over PongClassic-v5 with the
+default CNN (past 2^20 parameters, so ``policy_shardings`` shards 11 of
+its 12 leaves over the two shards): its losses, the shapes of the
+params it gathered from and of its AdamW moments, its ``"policy"``
+gathers an iteration, and its final params written to
+``<dir>/<solo|rank0|rank1>.npz``.  No JAX is imported.
 
 Usage:
-  python tests/_torch_multihost_check.py solo
-  python tests/_torch_multihost_check.py rank <process_id> <port>
+  python tests/_torch_multihost_check.py solo <dir>
+  python tests/_torch_multihost_check.py rank <process_id> <port> <dir>
 """
 
 import hashlib
 import json
+import os
 import sys
 
 import numpy as np
@@ -28,8 +34,9 @@ import torch
 import repro_torch
 from repro_torch.launch.mesh import initialize_multihost, multihost_info
 from repro_torch.obs.telemetry import stats_to_jsonable
+import repro_torch.rl.ppo as tppo
 from repro_torch.rl import PPOConfig, train_device, train_pipelined
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
 
 MODE = sys.argv[1] if len(sys.argv) > 1 else "solo"
 if MODE == "rank":
@@ -86,12 +93,47 @@ def trained(driver) -> list:
             "loss": [h["loss"] for h in history]}
 
 
+def shapes(tree) -> dict:
+    return {path: list(x.shape) for path, x in tree_leaves_with_path(tree)}
+
+
+def trained_cnn(out_dir: str) -> dict:
+    """One iteration of ``train_device`` over PongClassic-v5 N=4 at D=2
+    with the default CNN; the params each ``gather_policy`` call was
+    handed are the ones this process held."""
+    pool = repro_torch.make("PongClassic-v5", num_envs=4,
+                            engine="device-sharded", num_shards=2,
+                            device="cpu")
+    cfg = PPOConfig(total_steps=4 * 8, num_steps=8, epochs=2, minibatches=2)
+    held, gathers = [], []
+    gather = tppo.gather_policy
+
+    def recorded(mesh, local, plan):
+        held.append(shapes(local))
+        return gather(mesh, local, plan)
+
+    tppo.gather_policy = recorded
+    try:
+        state, _, history = train_device(
+            pool, cfg, seed=1, log_fn=lambda r: gathers.append(
+                pool.mesh.counts().get("policy", 0)))
+    finally:
+        tppo.gather_policy = gather
+    name = "solo" if MODE == "solo" else f"rank{sys.argv[2]}"
+    np.savez(os.path.join(out_dir, f"{name}.npz"), **{
+        path: x.numpy() for path, x in tree_leaves_with_path(state.params)})
+    return {"loss": [h["loss"] for h in history], "held": held[0],
+            "mu": shapes(state.opt.mu), "nu": shapes(state.opt.nu),
+            "whole": shapes(state.params), "policy_gathers": gathers}
+
+
 def main() -> dict:
     return {
         "meta": multihost_info(),
         "rollouts": {r[0]: scripted_rollout(*r) for r in ROLLOUTS},
         "train_device": trained(train_device),
         "train_pipelined": trained(train_pipelined),
+        "cnn": trained_cnn(sys.argv[-1]),
     }
 
 

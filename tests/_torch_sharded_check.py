@@ -8,7 +8,9 @@ packages' pools from one seed, steps them with the same routed actions
 and compares every block (tests/_torch_pair.py), then ``stats()``
 bitwise; it prints one JSON object, ``{case: "ok" or the failure}``.
 At D = 2 it also runs one iteration of ``train_device`` and
-``train_pipelined`` in both packages.
+``train_pipelined`` in both packages, and one of ``train_device`` over
+PongClassic-v5 with the default CNN, which ``repro``'s
+``policy_shardings`` shards over the two host devices.
 
 Usage: python tests/_torch_sharded_check.py D
 """
@@ -117,6 +119,38 @@ def train_case(driver: str) -> dict:
             "history": max(abs(jh[k] - th[k]) for k in jh if k != "time_s")}
 
 
+def cnn_case() -> dict:
+    """One iteration of ``train_device`` over PongClassic-v5 N=4 at D
+    shards with the default CNN in both packages: how many of
+    ``repro``'s param leaves are sharded, the largest difference of the
+    final params (``repro``'s through ``params_from_jax``, conv weights
+    to OIHW) and the largest of each history metric over
+    ``test_torch_ppo.py``'s bound, ``1e-4 * |repro's| + 1e-6``."""
+    import jax
+
+    import repro.rl.ppo as jppo
+    import repro_torch.rl.ppo as tppo
+    from repro_torch.rl.nets import params_from_jax
+    from repro_torch.utils.tree import tree_leaves_with_path
+
+    jp, tp = make_pair("PongClassic-v5", 4, None, engine="device-sharded",
+                       num_shards=D)
+    cfg = dict(total_steps=4 * 8, num_steps=8, epochs=2, minibatches=2)
+    js, _, jh = jppo.train_device(jp, jppo.PPOConfig(**cfg), seed=1)
+    ts, _, th = tppo.train_device(tp, tppo.PPOConfig(**cfg), seed=1)
+    want = dict(tree_leaves_with_path(params_from_jax(
+        jax.tree.map(np.asarray, js.params), "cpu")))
+    got = dict(tree_leaves_with_path(ts.params))
+    assert got.keys() == want.keys()
+    return {
+        "sharded_leaves": sum(not x.sharding.is_fully_replicated
+                              for x in jax.tree.leaves(js.params)),
+        "params": max(float((got[k] - want[k]).abs().max()) for k in got),
+        "history": {k: max(abs(j[k] - t[k]) / (1e-4 * abs(j[k]) + 1e-6)
+                           for j, t in zip(jh, th))
+                    for k in ("loss", "pg", "vf", "ent", "ratio")}}
+
+
 def main() -> dict:
     res = {}
     for driver in ("train_device", "train_pipelined") if D == 2 else ():
@@ -124,6 +158,11 @@ def main() -> dict:
             res[driver] = train_case(driver)
         except Exception:  # noqa: BLE001
             res[driver] = traceback.format_exc(limit=3)[-1500:]
+    if D == 2:
+        try:
+            res["cnn"] = cnn_case()
+        except Exception:  # noqa: BLE001
+            res["cnn"] = traceback.format_exc(limit=3)[-1500:]
     for case in CASES:
         name = "-".join(str(c) for c in case[:4])
         try:

@@ -4,6 +4,13 @@ packages' trainers (tests/_torch_disaggregated_check.py; ``repro``'s
 under ``jax.distributed``, the port's under ``torch.distributed`` over
 gloo).  Ant-v3 N=8, two iterations: the history within 1e-4, the
 learner's params within 1e-5.
+
+PongClassic-v5's default CNN, past 2^20 parameters, is sharded over the
+env processes by ``policy_shardings``; that needs two env processes, so
+it runs in a job of its own, three processes (env 0 and 1, learner 2),
+started with the first: each env process holds half of each of the 11
+sharded leaves and gathers the policy once an iteration, and the
+history and params agree with ``repro``'s by the same bounds.
 """
 
 import json
@@ -34,13 +41,15 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-@pytest.fixture(scope="module")
-def runs():
+def spawn(count: int, *extra: str) -> list:
     ports = [str(free_port()), str(free_port())]
-    procs = [subprocess.Popen([sys.executable, CHECK, str(i), *ports],
-                              env=ENV, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for i in (0, 1)]
+    return [subprocess.Popen([sys.executable, CHECK, str(i), *ports, *extra],
+                             env=ENV, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+            for i in range(count)]
+
+
+def results(procs: list) -> list:
     outs = []
     try:
         for p in procs:
@@ -53,6 +62,23 @@ def runs():
             if p.poll() is None:
                 p.kill()
     return outs
+
+
+@pytest.fixture(scope="module")
+def jobs(tmp_path_factory):
+    """Both jobs, started together: the Ant-v3 pair and the CNN trio."""
+    out_dir = str(tmp_path_factory.mktemp("disaggregated"))
+    return spawn(2), spawn(3, "cnn", out_dir), out_dir
+
+
+@pytest.fixture(scope="module")
+def runs(jobs):
+    return results(jobs[0])
+
+
+@pytest.fixture(scope="module")
+def cnn(jobs):
+    return results(jobs[1]), jobs[2]
 
 
 def flat(params) -> list:
@@ -101,3 +127,52 @@ def test_one_process_is_refused():
                             num_shards=2, device="cpu")
     with pytest.raises(ValueError, match=">= 2 processes"):
         tppo.train_disaggregated(pool, tppo.PPOConfig())
+
+
+def test_cnn_env_processes_hold_half_of_each_sharded_leaf(cnn):
+    runs, _ = cnn
+    whole = {"conv1.w": [32, 4, 8, 8], "conv1.b": [32],
+             "conv2.w": [64, 32, 4, 4], "conv2.b": [64],
+             "conv3.w": [64, 64, 3, 3], "conv3.b": [64],
+             "fc.w": [3136, 512], "fc.b": [512], "pi.w": [512, 6],
+             "pi.b": [6], "v.w": [512, 1], "v.b": [1]}
+    for r in runs[:2]:
+        assert r["port"]["local_shards"] == 1
+        held = r["port"]["held"][0]
+        assert held.keys() == whole.keys()
+        assert held["v.b"] == [1]
+        for k in whole:
+            if k != "v.b":
+                assert held[k] != whole[k]
+                assert 2 * int(np.prod(held[k])) == int(np.prod(whole[k]))
+    # the learner holds no shard and gathers nothing
+    assert runs[2]["port"]["held"] == [] and runs[2]["port"]["gathers"] == []
+
+
+def test_cnn_env_processes_gather_once_an_iteration(cnn):
+    """The prologue's collect, one collect an iteration (two), and the
+    params returned at the end: one ``"policy"`` gather each."""
+    runs, _ = cnn
+    for r in runs[:2]:
+        assert r["port"]["gathers"] == [1, 2, 3, 4]
+
+
+@pytest.mark.parametrize("pid", [0, 1, 2])
+def test_cnn_history_and_params_match_repro(cnn, pid):
+    runs, out_dir = cnn
+    jh, th = runs[pid]["repro"]["history"], runs[pid]["port"]["history"]
+    assert len(jh) == len(th) == 2
+    for a, b in zip(jh, th):
+        assert set(a) == set(b)
+        for k in a:
+            if k != "time_s":
+                assert abs(a[k] - b[k]) <= 1e-4, (pid, k, a[k], b[k])
+    want = np.load(os.path.join(out_dir, f"repro{pid}.npz"))
+    got = np.load(os.path.join(out_dir, f"port{pid}.npz"))
+    learner = np.load(os.path.join(out_dir, "port2.npz"))
+    assert sorted(got.files) == sorted(want.files)
+    for k in want.files:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-5,
+                                   err_msg=k)
+        # every process returns the learner's params
+        np.testing.assert_array_equal(got[k], learner[k])

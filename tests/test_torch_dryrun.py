@@ -16,7 +16,10 @@ so it runs here.  Held:
 * the per-rank counting on a sharded matmul and a gather of known
   shapes, in this process;
 * ``make_production_mesh`` refuses a job of another size than 256 (or
-  512 with ``multi_pod``), naming the size it needs.
+  512 with ``multi_pod``), naming the size it needs;
+* the temporary bytes (``live_bytes_mode``): an integer for the train
+  and serve cells, a hand-checked count, and the same peak for a small
+  train step on meta and on real CPU tensors.
 
 The four cells run at once, one subprocess each, with one OpenMP thread.
 """
@@ -70,7 +73,7 @@ def test_dryrun_cell_subprocess(cells):
     assert res["roofline"]["dominant"] in ("compute", "memory",
                                            "collective")
     assert res["flops_per_device"] > 0
-    assert res["memory_analysis"]["temp_size_in_bytes"] is None
+    assert isinstance(res["memory_analysis"]["temp_size_in_bytes"], int)
 
 
 def test_dryrun_skip_rule(cells):
@@ -180,3 +183,103 @@ def test_production_mesh_refuses_a_wrong_world_size():
         assert tuple(mesh.shape) == (16, 16)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("cell", ["train", "xlstm"])
+def test_dryrun_counts_temporary_bytes(cells, cell):
+    """The train cell and the serve step (xlstm decode_32k): the
+    temporaries an integer, and argument + output + temp - alias the
+    rank's peak, as ``repro``'s ``total_per_device``."""
+    mem = cells[cell]["memory_analysis"]
+    temp = mem["temp_size_in_bytes"]
+    assert isinstance(temp, int) and temp >= 0
+    assert mem["peak_size_in_bytes"] == mem["total_per_device"] == (
+        mem["argument_size_in_bytes"] + mem["output_size_in_bytes"] + temp
+        - mem["alias_size_in_bytes"])
+    assert mem["peak_size_in_bytes"] > mem["argument_size_in_bytes"]
+
+
+def test_live_bytes_hand_checked():
+    """``y = x * 2; z = y + 1; z.sum()`` on a (1024, 1024) f32 argument:
+    y and z (4 MiB each) are alive when the sum's 4 bytes are made, so
+    the peak of the step's own bytes is 8 MiB + 4, the temporaries 8 MiB
+    and the rank's peak 12 MiB + 4; only the sum outlives the step."""
+    from repro_torch.launch import dryrun
+
+    def step(x):
+        y = x * 2
+        z = y + 1
+        return z.sum()
+
+    for device in ("meta", "cpu"):
+        x = torch.ones(1024, 1024, device=device)
+        live = dryrun.live_bytes_mode()
+        with live:
+            out = step(x)
+        mem = dryrun.memory_analysis(live, 4 << 20, out)
+        assert live.peak == (8 << 20) + 4 and live.live == 4, device
+        assert mem == {"argument_size_in_bytes": 4 << 20,
+                       "output_size_in_bytes": 4,
+                       "alias_size_in_bytes": 0,
+                       "temp_size_in_bytes": 8 << 20,
+                       "peak_size_in_bytes": (12 << 20) + 4,
+                       "total_per_device": (12 << 20) + 4}, device
+
+
+def test_live_bytes_meta_equals_cpu_for_a_sharded_train_step():
+    """qwen3-0.6b's smoke config, a train step on a (1, 4) mesh of a fake
+    group of 4 (B=4, S=16), once on meta tensors and once on real CPU
+    tensors: the same peak of the step's own bytes, exactly, and the
+    same report.  (A (2, 2) mesh holds the same; its first DTensor step
+    takes three times as long.)"""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import (
+        BASELINE_RULES,
+        bytes_per_device,
+        place,
+    )
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import (
+        batch_shardings,
+        init_train_state,
+        make_train_step,
+        train_state_shardings,
+    )
+    from repro_torch.models.api import Model
+    from repro_torch.optim import adamw, constant
+
+    cfg = get_smoke_config("qwen3-0.6b")
+    assert not dist.is_initialized()
+    dryrun.join_fake_group(4)
+    reports = {}
+    try:
+        mesh = init_device_mesh("cpu", (1, 4),
+                                mesh_dim_names=("data", "model"))
+        for device in ("meta", "cpu"):
+            model = Model(cfg, device)
+            opt = adamw()
+            state = init_train_state(model, opt,
+                                     torch.Generator().manual_seed(0))
+            batch = {k: torch.zeros((4, 16), dtype=torch.int32,
+                                    device=device)
+                     for k in ("tokens", "labels")}
+            sh = (train_state_shardings(mesh, state, BASELINE_RULES),
+                  batch_shardings(mesh, batch, BASELINE_RULES))
+            args = tuple(place(a, s, mesh) for a, s in zip((state, batch),
+                                                           sh))
+            step = make_train_step(model, opt, constant(3e-4), mesh,
+                                   BASELINE_RULES)
+            live = dryrun.live_bytes_mode()
+            with live:
+                out = step(*args)
+            reports[device] = (live.peak, dryrun.memory_analysis(
+                live, sum(bytes_per_device(a, s, mesh)
+                          for a, s in zip((state, batch), sh)), out))
+            del out, args, state
+    finally:
+        dist.destroy_process_group()
+    assert reports["meta"] == reports["cpu"]
+    assert reports["meta"][0] > 0

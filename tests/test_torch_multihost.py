@@ -4,7 +4,11 @@ localhost, one shard each, against one process holding both shards
 mesh sees them, and ``stats()`` are bitwise the same; a recv issues only
 the two allowed collective families, none of env-data size; one
 iteration of ``train_device`` and ``train_pipelined`` (each process
-gathering the rollout) gives the same params as in one process.
+gathering the rollout) gives the same params as in one process.  With
+PongClassic-v5's CNN, past 2^20 parameters, ``train_device`` holds half
+of each of the 11 leaves ``policy_shardings`` shards (params and AdamW
+moments) on each rank, gathers the policy ``1 + epochs * minibatches``
+times an iteration, and gives solo's losses and params.
 """
 
 import json
@@ -13,6 +17,7 @@ import socket
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -33,10 +38,11 @@ def free_port() -> int:
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
     port = str(free_port())
+    out_dir = str(tmp_path_factory.mktemp("multihost"))
     cmds = [["solo"], ["rank", "0", port], ["rank", "1", port]]
-    procs = [subprocess.Popen([sys.executable, CHECK, *c], env=ENV,
+    procs = [subprocess.Popen([sys.executable, CHECK, *c, out_dir], env=ENV,
                               stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]
@@ -50,7 +56,7 @@ def runs():
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    return {"solo": outs[0], "ranks": outs[1:]}
+    return {"solo": outs[0], "ranks": outs[1:], "dir": out_dir}
 
 
 def test_process_topology(runs):
@@ -99,3 +105,50 @@ def test_training_across_ranks_equals_solo(runs, driver):
         assert r[driver]["loss"] == solo["loss"]
         for a, b in zip(r[driver]["params"], solo["params"]):
             assert abs(a - b) <= 1e-5
+
+
+# PongClassic-v5's CNN: 1,687,719 parameters, all but ``v.b`` (1,) sharded
+CNN_PARAMS, CNN_HALF = 1_687_719, 843_860
+
+
+def numel(shapes: dict) -> int:
+    return sum(int(np.prod(s)) for s in shapes.values())
+
+
+@pytest.mark.parametrize("held", ["held", "mu", "nu"])
+def test_cnn_ranks_hold_half_of_each_sharded_leaf(runs, held):
+    """Each rank's params (as handed to ``gather_policy``) and AdamW
+    moments: half of each of the 11 sharded leaves, ``v.b`` whole; solo
+    holds the whole policy."""
+    whole = runs["solo"]["cnn"]["whole"]
+    assert numel(whole) == CNN_PARAMS
+    assert runs["solo"]["cnn"][held] == whole
+    for r in runs["ranks"]:
+        got = r["cnn"][held]
+        assert got.keys() == whole.keys() and numel(got) == CNN_HALF
+        halved = [k for k in whole if got[k] != whole[k]]
+        assert len(halved) == 11 and "v.b" not in halved
+        for k in halved:
+            assert sum(a != b for a, b in zip(got[k], whole[k])) == 1
+            assert 2 * int(np.prod(got[k])) == int(np.prod(whole[k]))
+        assert r["cnn"]["whole"] == whole
+
+
+def test_cnn_policy_gathers_per_iteration(runs):
+    """``1 + epochs * minibatches`` (2 x 2) gathers an iteration across
+    ranks; none in solo, where nothing is cut."""
+    assert runs["solo"]["cnn"]["policy_gathers"] == [0]
+    for r in runs["ranks"]:
+        assert r["cnn"]["policy_gathers"] == [1 + 2 * 2]
+
+
+def test_cnn_training_across_ranks_equals_solo(runs):
+    solo = runs["solo"]["cnn"]
+    want = np.load(os.path.join(runs["dir"], "solo.npz"))
+    for i, r in enumerate(runs["ranks"]):
+        assert r["cnn"]["loss"] == solo["loss"]
+        got = np.load(os.path.join(runs["dir"], f"rank{i}.npz"))
+        assert sorted(got.files) == sorted(want.files)
+        for k in want.files:
+            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-5,
+                                       err_msg=k)

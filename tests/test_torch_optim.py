@@ -161,3 +161,46 @@ def test_sgd_matches_repro(clip_norm):
         tp, ts = to.update(_t(grads), ts, tp, 0.1)
     _assert_trees_close(tp, jp)
     assert int(ts) == int(js) == 3
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_adamw_on_slices_clips_by_the_whole_gradients_norm(rank):
+    """A policy placed across two processes (``rl/ppo.py``) hands
+    ``update`` its rows of the whole gradient (``take_rows``).  Clipped by
+    the whole gradient's norm, passed as ``norm``, the rows follow the
+    whole tree's update; clipped by their own norm, all ``update`` could
+    compute from what it is handed, they do not."""
+    from types import SimpleNamespace
+
+    from repro_torch.distributed.sharding import take_rows
+
+    mesh = SimpleNamespace(is_multiprocess=True, ranks=(0, 1), index=rank)
+    plan = {"w": 0, "b": None, "c": 0}
+
+    def tree(seed, scale=1.0):
+        rng = np.random.default_rng(seed)
+        return {k: torch.from_numpy(rng.normal(0, scale, s).astype(
+            np.float32)) for k, s in (("w", (8, 3)), ("b", (3,)),
+                                      ("c", (6,)))}
+
+    opt = toptim.adamw(b1=0.9, b2=0.999, eps=1e-5, weight_decay=0.0,
+                       clip_norm=0.5)
+    whole = tree(1)
+    rows = own = take_rows(mesh, whole, plan)
+    assert rows["w"].shape == (4, 3) and rows["c"].shape == (3,)
+    ws, rs, os_ = opt.init(whole), opt.init(rows), opt.init(own)
+    for step in range(4):
+        grads = tree(100 + step, scale=0.3 + step)
+        norm = toptim.global_norm(grads)
+        assert float(norm) > 0.5          # the clip is taken
+        whole, ws = opt.update(grads, ws, whole, 1e-2)
+        rows, rs = opt.update(take_rows(mesh, grads, plan), rs, rows, 1e-2,
+                              norm)
+        own, os_ = opt.update(take_rows(mesh, grads, plan), os_, own, 1e-2)
+    want = take_rows(mesh, whole, plan)
+    for k in want:
+        np.testing.assert_allclose(rows[k].numpy(), want[k].numpy(), **TOL)
+        np.testing.assert_allclose(rs.mu[k].numpy(),
+                                   take_rows(mesh, ws.mu, plan)[k].numpy(),
+                                   **TOL)
+    assert max(float((own[k] - want[k]).abs().max()) for k in want) > 1e-4

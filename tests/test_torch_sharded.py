@@ -83,6 +83,18 @@ def test_training_over_a_sharded_pool_matches_repro(runs, driver):
     assert got["params"] < 1e-5 and got["history"] < 1e-4, got
 
 
+def test_cnn_training_over_a_sharded_pool_matches_repro(runs):
+    """PongClassic-v5's default CNN over a D=2 pool: ``repro`` shards 11
+    of its 12 leaves over its 2 devices; one iteration of
+    ``train_device`` in both packages, final params within 1e-5 and the
+    losses and metrics within ``test_torch_ppo.py``'s 1e-4 relative."""
+    got = runs[2]["cnn"]
+    assert isinstance(got, dict), got
+    assert got["sharded_leaves"] == 11, got
+    assert got["params"] < 1e-5, got
+    assert all(v <= 1.0 for v in got["history"].values()), got
+
+
 # ---------------------------------------------------------------------- #
 # in this process: the port alone
 # ---------------------------------------------------------------------- #
