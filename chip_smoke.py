@@ -200,8 +200,9 @@ Phases, in order; any failure exits non-zero:
    parameters, bf16 compute, AdamW, ``SyntheticSource`` batches of B=8,
    S=512, weights from a seeded generator on the card: 2 warm-up steps,
    5 timed (tokens/s, ms a step, model TFLOP/s from
-   ``model_flops_per_token``, exactly 28 flash launches a step, the
-   forward's, and no copy; peak memory), 1 under ``torch.profiler``
+   ``model_flops_per_token``, exactly 56 flash launches a step, each
+   layer's forward and, at the default ``remat="full"``, its recompute
+   in the backward, and no copy; peak memory), 1 under ``torch.profiler``
    (device busy, idle share, top kernel families, the plain attention
    backward's device ms by its ``record_function`` ranges; it is also
    timed alone at the step's shape); every loss and gradient leaf
@@ -210,9 +211,9 @@ Phases, in order; any failure exits non-zero:
    on the card: ``repro``'s learning criterion at tests/test_system.py's
    flags, and 40 steps straight against 20 + restart + 20 (loss within
    rtol 1e-4, the final parameters compared bitwise).  The train step's
-   row also prints its ``cell_cost`` (train S=512 B=8: forward x 3, the
-   port has no rematerialisation), bound, ``of_bound`` and analytic
-   TFLOP/s beside ``model_flops_per_token``'s.
+   row also prints its ``cell_cost`` (train S=512 B=8: forward x 4, the
+   recompute's included), bound, ``of_bound`` and analytic TFLOP/s
+   beside ``model_flops_per_token``'s.
 
 8. the tooling and the examples: ``optim/compression.py::compress_tree``
    over a gradient tree of qwen3-0.6b's every parameter leaf (596M f32,
@@ -226,6 +227,16 @@ Phases, in order; any failure exits non-zero:
    commit) phase 3's Ant-v3 N=4096 and PongClassic-v5 N=1024 sync rows'
    kernels a recv beside the parent tree's own, run in a process of its
    own: no more than the parent's.
+
+9. the model-parallel steps on a (1, 1) mesh over nccl beside the
+   unsharded steps on the same weights (phase 3's prefills and serve,
+   phase 7's train step, the families); ``mesh_memory``: qwen3-0.6b
+   blocked, B=2 S=4096, one train step at each ``remat`` (none, full,
+   dots) on the kernel path, the dry run's tracker on meta against the
+   allocator's peak, flash launches and ms a step, the parameters at
+   full and dots against none's (within 1e-6 of each leaf's largest
+   magnitude), full's peak below none's; the dry run of ``qwen3-14b
+   train_4k`` in a process of its own beside them.
 
 Then a ``kernels`` JSON line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py turns``
@@ -764,15 +775,6 @@ def decode_row(row, res, case, B, T, dtype, lengths_np) -> None:
     torch.cuda.empty_cache()
 
 
-def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
-    """(query, key) pairs that flash attention's masks keep: the work
-    its loop needs for these inputs."""
-    qpos = np.arange(sq, dtype=np.int64) + (skv - sq)
-    hi = np.clip(qpos + 1, 0, skv) if causal else np.full(sq, skv)
-    lo = np.clip(qpos - window + 1, 0, skv) if window else np.zeros(sq)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
 def check_flash_attention(row) -> None:
     """flash_attention against ``mha_reference`` on the card at
     ``FLASH_CASES``, inputs from a seeded generator on the card:
@@ -810,7 +812,8 @@ def check_flash_attention(row) -> None:
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
-                                                         mha_reference)
+                                                         mha_reference,
+                                                         visible_pairs)
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
     src = "src/repro_torch/csrc/flash_attention.cu"
@@ -911,7 +914,8 @@ def check_flash_gradient(entry: dict) -> None:
 
     from repro_torch.kernels.flash_attention.ops import (chunk_rows,
                                                          flash_attention,
-                                                         mha_reference)
+                                                         mha_reference,
+                                                         visible_pairs)
     from repro_torch.kernels.flash_attention.ref import (BF16_EXCESS_TOL,
                                                          rounding_excess)
 
@@ -1657,8 +1661,8 @@ def top3(prof: dict, unit: str) -> dict:
 def analytic_bound(cfg, kind: str, seq: int, batch: int, ms: float) -> dict:
     """The row's cell in ``distributed/analytic.py``'s model,
     ``cell_cost(cfg, ShapeSpec(kind, seq, batch), 1)`` (``repro``'s at
-    ``remat="none"``), and its bound on the card: the larger of its FLOPs
-    over the dense bf16 peak and its bytes over the memory rate;
+    the config's ``remat``), and its bound on the card: the larger of its
+    FLOPs over the dense bf16 peak and its bytes over the memory rate;
     ``of_bound`` = bound_ms / ``ms``, the row's own time."""
     from repro_torch.distributed.analytic import cell_cost
     from repro_torch.models import ShapeSpec
@@ -2661,9 +2665,10 @@ def cross_check_lm_train(arch: str = "qwen3-0.6b", **overrides) -> None:
     ``arch`` with the blocked branch (``overrides`` on top), on ``cuda``
     and on ``cpu`` from the same weights and ``SyntheticSource`` batches
     (B=4, S=64): losses and ``aux`` (an MoE config's routers' loss)
-    within 1e-5, and on the card one flash_attention launch a layer and
-    step (the forward; the backward is the plain recompute) and no
-    copy."""
+    within 1e-5, and on the card ``flash_per_step`` flash_attention
+    launches a step (the forward's, and the recompute's at the default
+    ``remat="full"``; the attention's backward is the plain version) and
+    no copy."""
     import torch
 
     from repro_torch.configs import get_smoke_config
@@ -2692,13 +2697,13 @@ def cross_check_lm_train(arch: str = "qwen3-0.6b", **overrides) -> None:
             state, m = step(state, {k: torch.from_numpy(v).to(dev)
                                     for k, v in b.items()})
             losses[dev] += [float(m["loss"]), float(m["aux"])]
-        if dev == DEV and (flash_attention.launches - before
-                           != len(batches) * cfg.n_layers
+        want = len(batches) * flash_per_step(cfg)
+        if dev == DEV and (flash_attention.launches - before != want
                            or flash_attention.copies != copies):
             raise AssertionError(
                 f"LM train {arch} {overrides}: "
                 f"{flash_attention.launches - before} flash launches in "
-                f"{len(batches)} steps (want {len(batches) * cfg.n_layers}),"
+                f"{len(batches)} steps (want {want}),"
                 f" {flash_attention.copies - copies} copies")
     if (cfg.moe is not None) != (losses["cpu"][1] > 0.0):
         raise AssertionError(f"LM train {arch}: aux {losses['cpu'][1::2]}")
@@ -2709,7 +2714,7 @@ def cross_check_lm_train(arch: str = "qwen3-0.6b", **overrides) -> None:
     log(f"  LM train step, f32 smoke {arch} blocked {overrides or ''}: "
         f"cuda == cpu, 3 steps, losses {losses[DEV][::2]} and aux "
         f"{losses[DEV][1::2]} within 1e-5 (max abs err {err}), "
-        f"{cfg.n_layers} flash launches a step")
+        f"{flash_per_step(cfg)} flash launches a step ({cfg.remat})")
 
 
 # ---------------------------------------------------------------------- #
@@ -3332,6 +3337,13 @@ def sharded_phase() -> dict:
 # ---------------------------------------------------------------------- #
 # phase 7: the LM trainer on the card
 # ---------------------------------------------------------------------- #
+def flash_per_step(cfg) -> int:
+    """Flash launches a train step of ``cfg`` (blocked): one a layer in
+    the forward, and one more in the backward's recompute of each layer
+    unless ``remat="none"`` (``models/remat.py``)."""
+    return cfg.n_layers * (1 if cfg.remat == "none" else 2)
+
+
 def annotated_kernel_ms(prof, name: str) -> float | None:
     """Device ms of the kernels launched inside ``record_function(name)``
     ranges of ``prof``: the CPU events that start inside a range give
@@ -3360,8 +3372,10 @@ def drive_lm_train(warmup: int = 2, timed: int = 5) -> dict:
     ``attn_impl="blocked"``, f32 parameters, bf16 compute, AdamW (weight
     decay 0.01, lr 3e-4 after 2 warm-up steps), ``SyntheticSource``
     batches of ``TRAIN_B`` x ``TRAIN_S``, the weights from a seeded
-    generator on the card.  ``warmup`` steps, ``timed`` timed ones (one
-    flash_attention launch a layer and step, no copy), one under
+    generator on the card, ``remat="full"`` (the default).  ``warmup``
+    steps, ``timed`` timed ones (``flash_per_step`` flash_attention
+    launches a step: a layer's forward and its recompute; no copy), one
+    under
     ``torch.profiler`` (device busy, idle share, top kernel families, the
     device ms of the plain attention backward: its ``record_function``
     ranges); the plain backward also timed alone at the step's shape.
@@ -3412,11 +3426,11 @@ def drive_lm_train(warmup: int = 2, timed: int = 5) -> dict:
     dt = time.perf_counter() - t0
     launches = read_counts(f"train {cfg.name}", ("flash_attention",))
     peak = torch.cuda.max_memory_allocated()
-    if launches["flash_attention"] != timed * cfg.n_layers \
+    if launches["flash_attention"] != timed * flash_per_step(cfg) \
             or flash_attention.copies != copies:
         raise AssertionError(
             f"train {cfg.name}: {launches['flash_attention']} flash launches "
-            f"in {timed} steps (want {timed * cfg.n_layers}), "
+            f"in {timed} steps (want {timed * flash_per_step(cfg)}), "
             f"{flash_attention.copies - copies} copies")
     ms = dt / timed * 1e3
     with profile(activities=[ProfilerActivity.CPU,
@@ -3460,7 +3474,8 @@ def drive_lm_train(warmup: int = 2, timed: int = 5) -> dict:
     busy = dev_prof["device_busy_ms_per_step"]
     tokens = TRAIN_B * TRAIN_S
     out = {"model": cfg.name, "params": count_params(state.params),
-           "attn_impl": cfg.attn_impl, "batch": TRAIN_B, "seq_len": TRAIN_S,
+           "attn_impl": cfg.attn_impl, "remat": cfg.remat,
+           "batch": TRAIN_B, "seq_len": TRAIN_S,
            "compute_dtype": str(cfg.compute_dtype), "timed_steps": timed,
            "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
            "model_tflops_per_s":
@@ -3479,7 +3494,8 @@ def drive_lm_train(warmup: int = 2, timed: int = 5) -> dict:
            "attn_backward_alone_share": bwd_alone * cfg.n_layers / ms,
            "launches": launches, "card": CARD}
     out["analytic_tflops_per_s"] = out["analytic_flops"] / ms * 1e-9
-    log(f"  train {cfg.name} blocked B={TRAIN_B} S={TRAIN_S}: "
+    log(f"  train {cfg.name} blocked B={TRAIN_B} S={TRAIN_S} remat "
+        f"{cfg.remat}: "
         f"{out['tokens_per_s']:.0f} tokens/s, {ms:.2f} ms per step, "
         f"{out['model_tflops_per_s']:.1f} model TFLOP/s "
         f"(model_flops_per_token), {out['analytic_tflops_per_s']:.1f} "
@@ -3724,7 +3740,13 @@ MESH_PREFILLS = [("qwen3-0.6b", {}, 4, 8192),
                  ("starcoder2-3b", {"attn_type": "sliding", "window": 4096},
                   1, 8192)]
 MESH_SERVE = ("qwen3-0.6b", 8, 1024, 1056, 32)   # batch, prompt, cache, steps
-MESH_TRAIN_WARMUP, MESH_TRAIN_TIMED = 2, 5
+MESH_TRAIN_WARMUP, MESH_TRAIN_TIMED = 1, 3
+# ``mesh_memory``'s train step: phase 7's model at train_4k's sequence
+MEM_B, MEM_S = 2, 4096
+REMATS = ("none", "full", "dots")
+# the parameters after a step at ``full`` and ``dots`` against ``none``'s:
+# within this share of each leaf's largest magnitude
+REMAT_PARAM_TOL = 1e-6
 # the MoE, hybrid, Whisper and xLSTM families at full width: phase 3's
 # granite prefill cell and a hymba prefill; Whisper's 8 clips with a
 # 16-token prompt and an xLSTM prompt of one 256-token chunk, each then
@@ -3983,8 +4005,8 @@ def mesh_train(mesh) -> dict:
     S=``TRAIN_S``) with and without ``mesh`` from the same state on the
     same batches: ``MESH_TRAIN_WARMUP`` steps, then ``MESH_TRAIN_TIMED``
     timed; every loss within 1e-5 relative, the parameters' largest
-    difference, flash launches a step equal (one a layer); ms a step
-    and peak memory of each."""
+    difference, flash launches a step equal (``flash_per_step``); ms a
+    step and peak memory of each."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4037,10 +4059,11 @@ def mesh_train(mesh) -> dict:
                 zip(rows["sharded"]["params"], rows["plain"]["params"]))
     flash = {k: r["launches"]["flash_attention"] / MESH_TRAIN_TIMED
              for k, r in rows.items()}
-    if flash["sharded"] != cfg.n_layers or flash["plain"] != cfg.n_layers \
+    want = flash_per_step(cfg)
+    if flash["sharded"] != want or flash["plain"] != want \
             or flash_attention.copies != copies:
         raise AssertionError(f"mesh train: flash launches a step {flash}, "
-                             f"want {cfg.n_layers}; copies "
+                             f"want {want}; copies "
                              f"{flash_attention.copies - copies}")
     out = {"model": cfg.name, "batch": TRAIN_B, "seq_len": TRAIN_S,
            "timed_steps": MESH_TRAIN_TIMED,
@@ -4072,20 +4095,24 @@ def mesh_train(mesh) -> dict:
 MEM_REL_TOL, MEM_ABS_TOL = 0.10, 256 << 20
 
 
-def mesh_memory(mesh) -> dict:
-    """Phase 7's train step (``TRAIN_MODEL`` blocked, B=``TRAIN_B``
-    S=``TRAIN_S``) on ``mesh`` run twice with the kernels' plain
-    versions, so both sides allocate the same tensors: on meta tensors
-    under ``launch/dryrun.py::live_bytes_mode``, and on the card with
-    ``flash_attention``'s backend resolved to ``"reference"``.  The
-    tracker's peak of the step's own bytes against
-    ``torch.cuda.max_memory_allocated()`` less the bytes allocated before
-    the step, within ``MEM_REL_TOL`` or ``MEM_ABS_TOL``."""
+def mesh_memory(mesh) -> list[dict]:
+    """Phase 7's train step (``TRAIN_MODEL`` blocked) at B=``MEM_B``
+    S=``MEM_S`` on ``mesh`` at each of ``REMATS``, from the same weights
+    on the same batch, on the kernel path on both sides: on meta tensors
+    under ``launch/dryrun.py::live_bytes_mode`` (flash_attention's
+    stand-in, which allocates what the kernel allocates), and on the
+    card (the kernel).  For each: the tracker's peak of the step's own
+    bytes against ``torch.cuda.max_memory_allocated()`` less the bytes
+    allocated before the step, within ``MEM_REL_TOL`` or
+    ``MEM_ABS_TOL``; the flash launches of the step (``flash_per_step``)
+    and the ms of a second, timed, step; the parameters after the step
+    within ``REMAT_PARAM_TOL`` of each leaf's largest magnitude of
+    ``none``'s; and ``full``'s peak below ``none``'s."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import BASELINE_RULES
-    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.launch import dryrun
     from repro_torch.launch.steps import (
         init_train_state,
@@ -4094,59 +4121,93 @@ def mesh_memory(mesh) -> dict:
     )
     from repro_torch.models import build_model
     from repro_torch.optim import adamw, constant
+    from repro_torch.utils.tree import tree_leaves
 
-    cfg = get_config(TRAIN_MODEL, attn_impl="blocked")
+    base = get_config(TRAIN_MODEL, attn_impl="blocked")
     opt = adamw(weight_decay=0.01)
-    shape = (TRAIN_B, TRAIN_S)
-
-    meta = build_model(cfg, "meta")
-    step = make_train_step(meta, opt, constant(3e-4), mesh, BASELINE_RULES)
-    state = train_state_shapes(meta, opt)
-    batch = {k: torch.empty(shape, dtype=torch.int32, device="meta")
-             for k in ("tokens", "labels")}
-    live = dryrun.live_bytes_mode()
-    t0 = time.perf_counter()
-    with live:
-        step(state, batch)
-    meta_s = time.perf_counter() - t0
-
-    model = build_model(cfg, DEV)
+    shape = (MEM_B, MEM_S)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
-    state = init_train_state(model, opt, gen)
-    batch = {k: torch.randint(0, cfg.vocab, shape, generator=gen,
+    state0 = init_train_state(build_model(base, DEV), opt, gen)
+    batch = {k: torch.randint(0, base.vocab, shape, generator=gen,
                               dtype=torch.int32, device=DEV)
              for k in ("tokens", "labels")}
-    step = make_train_step(model, opt, constant(3e-4), mesh, BASELINE_RULES)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()
-    resolve = flash_ops.resolve_backend
-    flash_ops.resolve_backend = lambda backend, x: "reference"
-    try:
-        out = step(state, batch)
+    rows, ref = [], None
+    for remat in REMATS:
+        cfg = base.replace(remat=remat)
+        meta = build_model(cfg, "meta")
+        step = make_train_step(meta, opt, constant(3e-4), mesh,
+                               BASELINE_RULES)
+        state = train_state_shapes(meta, opt)
+        mbatch = {k: torch.empty(shape, dtype=torch.int32, device="meta")
+                  for k in ("tokens", "labels")}
+        live = dryrun.live_bytes_mode()
+        t0 = time.perf_counter()
+        with live:
+            step(state, mbatch)
+        meta_s = time.perf_counter() - t0
+        tracker, top = live.peak, live.largest_at_peak(3)
+        del state, live
+
+        step = make_train_step(build_model(cfg, DEV), opt, constant(3e-4),
+                               mesh, BASELINE_RULES)
+        copies = flash_attention.copies
         torch.cuda.synchronize()
-    finally:
-        flash_ops.resolve_backend = resolve
-    card = torch.cuda.max_memory_allocated() - before
-    loss = float(out[1]["loss"])
-    del out, state, batch, model
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_counts()
+        out = step(state0, batch)
+        torch.cuda.synchronize()
+        launches = read_counts(f"mesh memory {remat}", ("flash_attention",))
+        card = torch.cuda.max_memory_allocated() - before
+        loss = float(out[1]["loss"])
+        params = [whole(x).cpu() for x in tree_leaves(out[0].params)]
+        del out
+        t0 = time.perf_counter()
+        step(state0, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.empty_cache()
+        if ref is None:
+            ref = params
+        pdiff = max(float((a.float() - b.float()).abs().max())
+                    / max(float(b.float().abs().max()), 1e-30)
+                    for a, b in zip(params, ref))
+        del params
+        diff = abs(tracker - card)
+        row = {"model": cfg.name, "remat": remat, "batch": MEM_B,
+               "seq_len": MEM_S, "tracker_peak_bytes": tracker,
+               "allocator_peak_bytes": card, "diff_bytes": diff,
+               "rel_diff": diff / max(card, 1), "meta_s": meta_s,
+               "largest_at_tracker_peak": top, "loss": loss,
+               "ms_per_step": ms,
+               "flash_launches_per_step": launches["flash_attention"],
+               "flash_copies": flash_attention.copies - copies,
+               "param_diff_of_none": pdiff, "launches": launches,
+               "card": CARD}
+        log(f"  mesh memory {cfg.name} blocked B={MEM_B} S={MEM_S} remat "
+            f"{remat}, train step on a (1, 1) mesh, the kernel path: the "
+            f"dry run's tracker on meta {tracker} bytes, the allocator's "
+            f"peak on the card {card} bytes ({row['rel_diff']:.4f} apart; "
+            f"meta run {meta_s:.1f} s); {ms:.2f} ms a step, "
+            f"{row['flash_launches_per_step']} flash launches a step, "
+            f"params {pdiff} of each leaf's largest magnitude from none's, "
+            f"loss {loss:.6f}; largest at the tracker's peak {top}; {CARD}")
+        if not (np.isfinite(loss) and diff <= max(MEM_REL_TOL * card,
+                                                  MEM_ABS_TOL)):
+            raise AssertionError(f"mesh memory {remat}: tracker {tracker} "
+                                 f"bytes against the allocator's {card}")
+        if row["flash_launches_per_step"] != flash_per_step(cfg) \
+                or row["flash_copies"] or pdiff > REMAT_PARAM_TOL:
+            raise AssertionError(f"mesh memory {remat}: {row}")
+        rows.append(row)
+    del state0, batch, ref
     torch.cuda.empty_cache()
-    diff = abs(live.peak - card)
-    row = {"model": cfg.name, "batch": TRAIN_B, "seq_len": TRAIN_S,
-           "tracker_peak_bytes": live.peak, "allocator_peak_bytes": card,
-           "diff_bytes": diff, "rel_diff": diff / max(card, 1),
-           "meta_s": meta_s, "loss": loss, "card": CARD}
-    if not (np.isfinite(loss) and diff <= max(MEM_REL_TOL * card,
-                                              MEM_ABS_TOL)):
-        raise AssertionError(f"mesh memory: tracker {live.peak} bytes "
-                             f"against the allocator's {card}")
-    log(f"  mesh memory {cfg.name} B={TRAIN_B} S={TRAIN_S} train step on a "
-        f"(1, 1) mesh, plain kernels: the dry run's tracker on meta "
-        f"{live.peak} bytes, the allocator's peak on the card {card} "
-        f"bytes ({row['rel_diff']:.4f} apart; meta run {meta_s:.1f} s); "
-        f"{CARD}")
-    return row
+    peaks = {r["remat"]: r["allocator_peak_bytes"] for r in rows}
+    if not peaks["full"] < peaks["none"]:
+        raise AssertionError(f"mesh memory: full's peak is not below "
+                             f"none's: {peaks}")
+    return rows
 
 
 def gloo_dtensor_main(argv: list[str]) -> int:
@@ -4269,8 +4330,8 @@ def dryrun_row(started: tuple) -> dict:
         f"{res['flops_per_device']:.4g} FLOPs a rank counted; "
         f"{out['argument_bytes_per_device']} argument bytes a rank, "
         f"{out['temp_bytes_per_device']} temporary and "
-        f"{out['peak_bytes_per_device']} at the peak (the plain kernels' "
-        f"tensors, counted on meta); done "
+        f"{out['peak_bytes_per_device']} at the peak (the step's tensors "
+        f"at the config's defaults, counted on meta); done "
         f"{out['wall_s']:.1f} s after its start, beside the card's rows")
     return out
 
@@ -4280,8 +4341,9 @@ def mesh_phase() -> dict:
     card (``make_debug_mesh``), the model-parallel steps under
     ``BASELINE_RULES`` at full width against the unsharded steps on the
     same weights (the dense decoders, then the MoE, hybrid, Whisper and
-    xLSTM families) and the dry run's memory tracker against the
-    allocator (``mesh_memory``), the group destroyed at the end; then
+    xLSTM families) and, at each ``remat``, the dry run's memory tracker
+    against the allocator on the kernel path (``mesh_memory``), the
+    group destroyed at the end; then
     the two-process gloo all-gather; the dry run of ``MESH_DRYRUN`` runs
     on the host beside them."""
     import torch.distributed as dist
@@ -4459,7 +4521,7 @@ def main(argv: list[str]) -> int:
     log(f"phase 9: the model-parallel steps on the card {at()}")
     mesh = mesh_phase()
     log(json.dumps({"mesh_runs": mesh, "card": card}))
-    for r in mesh["rows"]:
+    for r in mesh["rows"] + mesh["memory"]:
         for k, v in r["launches"].items():
             kernels[k]["launches"] += v
 

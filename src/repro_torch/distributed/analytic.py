@@ -1,7 +1,7 @@
 """Analytic FLOP and byte model per arch x shape cell
 (``repro/distributed/analytic.py``), on the port's ``ModelConfig`` and
-``ShapeSpec``: the same numbers as the JAX package's for every arch and
-cell, train steps as ``repro``'s at ``remat="none"``.
+``ShapeSpec``: the same numbers as the JAX package's for every arch,
+cell and ``remat``.
 
 On the card these are what a model path is held against:
 ``chip_smoke.py`` prints each model row's ``cell_cost`` FLOPs and bytes
@@ -13,10 +13,8 @@ analysis, has no counterpart here).
 
 Conventions:
   * matmul (m,k)x(k,n): 2*m*k*n flops
-  * train = fwd + bwd (2x fwd).  The port does not rematerialise (its
-    ``ModelConfig`` has no ``remat``), so there is no recompute term:
-    ``repro``'s default ``remat="full"`` adds 1x fwd for the recompute
-    XLA does there.
+  * train = fwd + bwd (2x fwd) + remat recompute (+1x fwd of the layer
+    stack at ``remat="full"`` or ``"dots"``, ``models/remat.py``)
   * causal attention scores: 0.5 * S^2 visible pairs (windowed: S*W)
   * bytes: per-device HBM traffic model (weights, activations, cache,
     optimizer), coarse but consistent across cells.  It leaves out
@@ -163,8 +161,13 @@ def cell_cost(cfg: ModelConfig, shape: ShapeSpec, n_devices: int
     B, S = shape.global_batch, shape.seq_len
     comps = fwd_flops(cfg, shape)
     fwd = float(sum(comps.values()))
-    # train: fwd + bwd (2x); no remat recompute (module docstring)
-    flops = fwd * 3.0 if shape.kind == "train" else fwd
+    if shape.kind == "train":
+        mult = 3.0                      # fwd + bwd(2x)
+        if cfg.remat in ("full", "dots"):
+            mult += 1.0                 # recompute ~1x fwd of the stack
+        flops = fwd * mult
+    else:
+        flops = fwd
 
     # ---------------- bytes per device ------------------------------ #
     # parameter bytes (sharded over all axes for fsdp+tp layouts)

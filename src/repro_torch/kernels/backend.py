@@ -1,13 +1,18 @@
 """Kernel backend selection — the rule, stated once for every family.
 
   * ``"auto"``      — the hand-written CUDA kernel for CUDA tensors, the
-    plain PyTorch version (``ref.py``) for CPU tensors;
-  * ``"cuda"``      — the kernel; CPU tensors raise;
+    plain PyTorch version (``ref.py``) for CPU tensors, and for ``meta``
+    tensors (which hold no data: the dry run's, ``launch/dryrun.py``)
+    the kernel's allocation stand-in where the kernel has one (the
+    attention kernels: an op that allocates what the kernel allocates
+    and counts the FLOPs the kernel does), else the plain version;
+  * ``"cuda"``      — the kernel; other tensors raise;
   * ``"reference"`` — the plain version on any device (for comparing a
     kernel with it on the card).
 
 There is no fallback: a CUDA tensor under ``auto`` gets the kernel or an
-exception, never the plain version.
+exception, never the plain version, and only a meta tensor gets the
+stand-in.
 """
 
 from __future__ import annotations
@@ -20,12 +25,16 @@ BACKENDS = ("auto", "cuda", "reference")
 
 
 def resolve_backend(backend: str, x: torch.Tensor) -> str:
-    """``"cuda"`` or ``"reference"`` for an op whose input is ``x``."""
+    """``"cuda"``, ``"reference"`` or, for a meta ``x`` under ``"auto"``,
+    ``"meta"`` (an op without a stand-in runs its plain version there),
+    for an op whose input is ``x``."""
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown kernel backend {backend!r}; known: {BACKENDS}")
     if backend == "auto":
-        return "cuda" if x.is_cuda else "reference"
+        if x.is_cuda:
+            return "cuda"
+        return "meta" if x.is_meta else "reference"
     if backend == "cuda" and not x.is_cuda:
         raise ValueError("backend='cuda' needs CUDA tensors; got "
                          f"{x.device}")

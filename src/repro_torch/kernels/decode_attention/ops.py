@@ -11,6 +11,12 @@ The cache may be a strided view: ``LMPolicy.decode_step`` passes layer
 every layer.  The kernel takes the batch, head and position strides of
 q, k and v, so no call copies a cache; only the last dim must be dense.
 
+On ``meta`` tensors (the dry run's) ``auto`` takes the kernel's
+stand-in, ``torch.ops.repro_torch.decode_attention``: the launch's
+checks, the kernel's one allocation (the output), and 4 D FLOPs a
+(query head, position) pair for ``torch.utils.flop_counter``, over all T
+positions, since the lengths hold no values there.
+
 ``split_plan`` picks how the kernel splits T over the warps of its block
 per (kv head, lane), and ``load_width`` how wide its copies of K and V
 into shared memory are; both are plain functions of shapes and
@@ -22,6 +28,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.backend import (
     check_launch,
@@ -141,6 +148,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              f"int32; got {tuple(lengths.shape)} {lengths.dtype}")
     _require(all(t.device == q.device for t in (k, v, lengths)),
              "decode_attention: all inputs must be on one device")
+    if q.is_meta:
+        return torch.ops.repro_torch.decode_attention(q, k, v, lengths)
     from repro_torch.kernels.build import library
 
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
@@ -156,6 +165,26 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_launch("decode_attention", err)
     count_launch(decode_attention)
     return out
+
+
+@torch.library.custom_op(
+    "repro_torch::decode_attention", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor lengths) -> Tensor")
+def _stand_in(q, k, v, lengths):
+    raise RuntimeError("decode_attention's stand-in takes meta tensors only")
+
+
+@_stand_in.register_fake
+def _(q, k, v, lengths):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def _stand_in_flops(q_shape, k_shape, v_shape, lengths_shape, *args,
+                    **kwargs) -> int:
+    """4 D FLOPs a (query head, position) pair over all T positions."""
+    B, H, D = q_shape
+    return 4 * B * H * D * k_shape[2]
 
 
 decode_attention.launches = 0

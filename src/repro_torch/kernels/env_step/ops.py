@@ -58,7 +58,7 @@ def env_multi_step(
     ``n_sub`` when ``cost`` is None) in one pass over the state block;
     returns ``(new_state, reward accumulated on top of reward0)``."""
     n = state.shape[0]
-    if resolve_backend(backend, state) == "reference":
+    if resolve_backend(backend, state) != "cuda":
         if cost is None:
             cost = torch.full((n,), n_sub, dtype=torch.int32,
                               device=state.device)

@@ -25,6 +25,17 @@ saved inputs and differentiates that (``plain_grads``), as ``repro``
 takes the gradient of its blocked attention by autodiff of plain jnp.
 There is no backward kernel; the backward launches nothing.
 
+On ``meta`` tensors (the dry run's, ``launch/dryrun.py``) ``auto``
+takes the kernel's stand-in, ``torch.ops.repro_torch.flash_attention``:
+it checks what the launch checks and allocates what the kernel
+allocates (the output, and a bf16 input's copy where TMA could not load
+it), and ``torch.utils.flop_counter`` counts it at the FLOPs the kernel
+does, 4 D per visible (query, key) pair (``visible_pairs``: the pairs
+of the K tiles ``tile_plan`` visits that the masks keep), where the
+plain version forms every score.  Under autograd the stand-in runs in
+``_FlashAttentionFn`` as the launch does, and the backward is the
+card's own, ``plain_grads`` in its chunks.
+
 ``tile_plan`` is the K-tile plan that the bf16 kernel computes for
 each query tile, in Python so that the CPU tests can hold it against a
 brute-force mask.
@@ -32,7 +43,9 @@ brute-force mask.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.backend import (
     check_launch,
@@ -91,6 +104,18 @@ def tile_plan(Sq: int, Skv: int, causal: bool, window: int, bq: int,
     return plan
 
 
+def visible_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the masks keep: the kernel's work for
+    these shapes.  Query row ``i`` sits at position ``i + Skv - Sq`` and
+    sees keys ``[lo, hi)``: up to itself when causal, its ``window``
+    newest when windowed."""
+    # numpy: a dry run's dispatch modes would count torch's tensors here
+    pos = np.arange(Sq, dtype=np.int64) + (Skv - Sq)
+    hi = np.clip(pos + 1, 0, Skv) if causal else np.full(Sq, Skv)
+    lo = np.clip(pos - window + 1, 0, Skv) if window else np.zeros(Sq)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
@@ -121,7 +146,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             window: int, sm_scale: float | None) -> torch.Tensor:
     """The kernel's launch on CUDA tensors that ``flash_attention`` has
-    checked for shape."""
+    checked for shape; its stand-in on meta tensors."""
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     _require(q.dtype in DTYPES and k.dtype == q.dtype
@@ -134,14 +159,17 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
              "flash_attention: the head dim must be dense")
     _require(k.device == q.device and v.device == q.device,
              "flash_attention: all inputs must be on one device")
-    from repro_torch.kernels.build import library
-
     if q.dtype == torch.bfloat16:
         q, k, v = (_tma_ready(x) for x in (q, k, v))
+    scale = default_scale(D) if sm_scale is None else float(sm_scale)
+    if q.is_meta:
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal, window,
+                                                     scale)
+    from repro_torch.kernels.build import library
+
     out = torch.empty_like(q)     # q's layout: its head dim is dense
     if out.numel() == 0:
         return out
-    scale = default_scale(D) if sm_scale is None else float(sm_scale)
     err = launch(
         q, library().flash_attention_launch,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -226,6 +254,28 @@ class _FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+@torch.library.custom_op(
+    "repro_torch::flash_attention", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, int window, "
+           "float sm_scale) -> Tensor")
+def _stand_in(q, k, v, causal, window, sm_scale):
+    raise RuntimeError("flash_attention's stand-in takes meta tensors only")
+
+
+@_stand_in.register_fake
+def _(q, k, v, causal, window, sm_scale):
+    return torch.empty_like(q)     # the kernel's output, in q's layout
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _stand_in_flops(q_shape, k_shape, v_shape, causal, window, sm_scale,
+                    *args, **kwargs) -> int:
+    """4 D FLOPs a visible pair: q.k and p.v, a multiply and an add
+    each."""
+    B, H, Sq, D = q_shape
+    return 4 * B * H * D * visible_pairs(Sq, k_shape[2], causal, window)
+
+
 def _tma_ready(t: torch.Tensor) -> torch.Tensor:
     if tma_compatible(t):
         return t
@@ -237,4 +287,5 @@ flash_attention.launches = 0
 flash_attention.copies = 0
 
 __all__ = ["BACKWARD_SCORE_BYTES", "chunk_rows", "flash_attention",
-           "mha_reference", "plain_grads", "tile_plan", "tma_compatible"]
+           "mha_reference", "plain_grads", "tile_plan", "tma_compatible",
+           "visible_pairs"]

@@ -65,7 +65,7 @@ def pong_render(ball_x: torch.Tensor, ball_y: torch.Tensor,
                 paddle_y: torch.Tensor, enemy_y: torch.Tensor, *,
                 backend: str = "auto") -> torch.Tensor:
     """(N,) f32 game-state scalars -> (N, 210, 160, 3) uint8 screens."""
-    if resolve_backend(backend, ball_x) == "reference":
+    if resolve_backend(backend, ball_x) != "cuda":
         return pong_render_reference(ball_x, ball_y, paddle_y, enemy_y)
     n = ball_x.shape[0]
     for name, v in (("ball_x", ball_x), ("ball_y", ball_y),
@@ -117,7 +117,7 @@ def grayscale(rgb: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
     """(..., H, W, 3) uint8 RGB -> (..., H, W) uint8 ALE luma."""
     _require(rgb.ndim >= 3 and rgb.shape[-1] == 3,
              f"grayscale wants (..., H, W, 3); got {tuple(rgb.shape)}")
-    if resolve_backend(backend, rgb) == "reference":
+    if resolve_backend(backend, rgb) != "cuda":
         return grayscale_reference(rgb)
     _require(rgb.dtype == torch.uint8 and rgb.is_contiguous(),
              f"grayscale wants contiguous uint8; got {rgb.dtype}")
@@ -167,7 +167,7 @@ def crop(img: torch.Tensor, top: int, left: int, height: int, width: int,
     _require(img.ndim >= 2, f"crop wants (..., H, W); got {img.shape}")
     h, w = img.shape[-2], img.shape[-1]
     check_crop(h, w, top, left, height, width)
-    if resolve_backend(backend, img) == "reference":
+    if resolve_backend(backend, img) != "cuda":
         return crop_reference(img, top, left, height, width)
     _require(img.dtype == torch.uint8 and img.is_contiguous(),
              f"crop wants contiguous uint8; got {img.dtype}")
@@ -236,7 +236,7 @@ def resize(img: torch.Tensor, out_h: int, out_w: int, method: str = "area",
     """(..., H, W) uint8 -> (..., out_h, out_w) uint8 fixed-point
     resampling (``area`` or ``bilinear``)."""
     _require(img.ndim >= 2, f"resize wants (..., H, W); got {img.shape}")
-    if resolve_backend(backend, img) == "reference":
+    if resolve_backend(backend, img) != "cuda":
         return resize_reference(img, out_h, out_w, method)
     h, w = img.shape[-2], img.shape[-1]
     _require(img.dtype == torch.uint8 and img.is_contiguous(),

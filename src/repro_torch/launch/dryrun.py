@@ -16,10 +16,15 @@ machine without a card.  It records:
 * the collectives by kind (``all-gather``, ``all-reduce``, ...): counts
   from ``torch.distributed.tensor.debug.CommDebugMode``, operand bytes
   from a dispatch mode that sums the inputs of each ``_c10d_functional``
-  op, as ``repro``'s ``parse_collectives`` sums the HLO's operands;
+  op, as ``repro``'s ``parse_collectives`` sums the HLO's operands.
+  They are eager DTensor's (the JSON says so under ``counted_as``): one
+  collective for each redistribution as the step meets it, the
+  recompute's of a rematerialised layer again in the backward, where
+  XLA merges and schedules a compiled step's;
 * the FLOPs per rank: ``torch.utils.flop_counter``'s formulas at each
   op's shapes, a DTensor op's scaled to the rank's shard of its output
-  (and over the mesh dims its output is a partial sum over);
+  (and over the mesh dims its output is a partial sum over); the
+  attention kernels' stand-ins count the FLOPs the kernels do;
 * the argument bytes per rank, the plan's ``bytes_per_device`` (held
   against the placed shards' own bytes);
 * the bytes a rank's step allocates (``live_bytes_mode``): the peak of
@@ -27,23 +32,25 @@ machine without a card.  It records:
   shards, as ``repro`` reads XLA's ``memory_analysis``:
   ``temp_size_in_bytes`` is that peak less the output's new bytes, and
   ``peak_size_in_bytes`` (also ``total_per_device``) the argument bytes
-  plus that peak.  It counts the tensors the eager step allocates; on
-  meta the kernels take their plain versions (``kernels/backend.py``),
-  so it counts the plain versions' tensors.  Allocator rounding,
-  library workspaces and memory a kernel takes without a tensor are not
-  counted.
+  plus that peak, and ``largest_at_peak`` the largest tensors alive at
+  it.  It counts the tensors the eager step allocates, the card's path:
+  on meta the attention kernels take their stand-ins
+  (``kernels/backend.py``), which allocate what the kernels allocate,
+  and flash attention's backward is the card's own (``plain_grads``, in
+  its chunks).  Allocator rounding, library workspaces and memory a
+  kernel takes without a tensor are not counted.
 
 The roofline takes ``repro``'s formulas with
 the card's constants (``launch/mesh.py``: H100 SXM): compute and memory
 from ``distributed/analytic.py::cell_cost``, collectives at NVLink's
-rate.  On meta tensors the kernels take their plain versions
-(``kernels/backend.py``), so the counted FLOPs include, e.g., every
-score of a causal attention, where ``cell_cost`` counts the visible
-half.
+rate.  The counted FLOPs are the card path's: the flash kernel's visible
+pairs in the forward and in a rematerialised layer's recompute, every
+score of its plain backward.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-14b \\
         --shape train_4k [--multi-pod] [--rules baseline|seqpar|dp|zero1] \\
-        [--json out.json] [--microbatches N] [--override attn_impl=blocked]
+        [--json out.json] [--microbatches N] \\
+        [--override attn_impl=blocked] [--override remat=none|full|dots]
 """
 
 from __future__ import annotations
@@ -143,13 +150,15 @@ def _local_flops_mode():
 def live_bytes_mode():
     """A dispatch mode that follows the storages the ops under it create:
     ``.live``, the bytes of those still alive, ``.peak``, the most
-    ``.live`` has been, and ``.created(t)``, whether ``t``'s storage is
-    one of them.  A storage is new when it is none of the op's inputs'
-    and not already followed (a view, an in-place op and a collective's
-    wait return one that is); it is let go when it dies.  An op on a
-    DTensor returns ``NotImplemented``, so DTensor runs it and the mode
-    sees its local ops, the shards a rank holds; the ops DTensor's
-    sharding propagation runs under a fake mode are left out."""
+    ``.live`` has been, ``.created(t)``, whether ``t``'s storage is one
+    of them, ``.allocations()``, each one made (op, shape, dtype,
+    bytes), and ``.largest_at_peak()``, the largest alive at the peak.
+    A storage is new when it is none of the op's inputs' and not already
+    followed (a view, an in-place op and a collective's wait return one
+    that is); it is let go when it dies.  An op on a DTensor returns
+    ``NotImplemented``, so DTensor runs it and the mode sees its local
+    ops, the shards a rank holds; the ops DTensor's sharding propagation
+    runs under a fake mode are left out."""
     import weakref
 
     from torch._guards import active_fake_mode
@@ -161,12 +170,33 @@ def live_bytes_mode():
             super().__init__()
             self.live = self.peak = 0
             self._sizes: dict[int, int] = {}
+            # (storage key, bytes or None when let go, what made it)
+            self._events: list[tuple] = []
+            self._peak_at = 0
 
         def _free(self, key: int) -> None:
             self.live -= self._sizes.pop(key)
+            self._events.append((key, None, None))
 
         def created(self, t: torch.Tensor) -> bool:
             return id(t.untyped_storage()) in self._sizes
+
+        def allocations(self) -> list[tuple[str, tuple, str, int]]:
+            return [what + (n,) for _, n, what in self._events
+                    if what is not None]
+
+        def largest_at_peak(self, n: int = 5) -> list[dict[str, Any]]:
+            alive: dict[int, tuple] = {}
+            for key, size, what in self._events[:self._peak_at]:
+                if size is None:
+                    alive.pop(key, None)
+                elif what is None:              # a resize
+                    alive[key] = (size,) + alive[key][1:]
+                else:
+                    alive[key] = (size,) + what
+            top = sorted(alive.values(), key=lambda e: -e[0])[:n]
+            return [{"bytes": b, "op": op, "shape": list(shape),
+                     "dtype": dtype} for b, op, shape, dtype in top]
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if any(issubclass(t, DTensor) for t in types):
@@ -183,11 +213,16 @@ def live_bytes_mode():
                 if key in self._sizes:          # a resize grows it
                     self.live += n - self._sizes[key]
                     self._sizes[key] = n
+                    self._events.append((key, n, None))
                 elif key not in inputs:
                     self._sizes[key] = n
                     self.live += n
+                    self._events.append((key, n, (
+                        str(func.name()), tuple(t.shape),
+                        str(t.dtype).removeprefix("torch."))))
                     weakref.finalize(st, self._free, key)
-            self.peak = max(self.peak, self.live)
+            if self.live > self.peak:
+                self.peak, self._peak_at = self.live, len(self._events)
             return out
 
     return LiveBytes()
@@ -351,6 +386,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, rules_name: str,
     coll["total_operand_bytes"] = sum(coll[k]["operand_bytes"]
                                       for k in kinds)
     coll["total_count"] = sum(coll[k]["count"] for k in kinds)
+    coll["counted_as"] = ("eager DTensor: one collective a redistribution "
+                          "as the step meets it, a rematerialised layer's "
+                          "again in its recompute; a compiled step merges "
+                          "and schedules them")
 
     # roofline terms, seconds, ``repro``'s formulas with the card's
     # constants
@@ -380,10 +419,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, rules_name: str,
         "flops_per_device": flops.flops,
         "memory_analysis": dict(
             memory_analysis(live, arg_bytes, out),
+            largest_at_peak=live.largest_at_peak(),
             temp_size_note=("the tensors the eager step allocates on "
-                            "meta, the kernels' plain versions included; "
-                            "not allocator rounding, library workspaces "
-                            "or memory a kernel takes without a tensor")),
+                            "meta, the attention kernels' stand-ins "
+                            "allocating what the kernels allocate; not "
+                            "allocator rounding, library workspaces or "
+                            "memory a kernel takes without a tensor")),
         "collectives": coll,
         "roofline": {
             "compute_s": compute_s,

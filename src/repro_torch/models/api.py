@@ -25,9 +25,10 @@ compute all of it: 10 GB and 10 TFLOP at qwen3-0.6b, B=4, S=8192);
 ``shard`` (``launch/steps.py`` makes a mesh's) and hand it to every
 family, as ``repro`` does.  Under a mesh a fresh cache is laid out by
 ``launch/steps.py::cache_shardings``, each rank allocating only its
-shard, and the loss makes vocab-sharded logits whole along the vocab
-before its logsumexp.  ``cache_specs`` is a decode cell's cache on the
-meta device (the dry run's, ``launch/dryrun.py``).
+shard, and the loss runs on each rank's block of the logits,
+all-reducing along a sharded vocab (``softmax_xent``).  ``cache_specs``
+is a decode cell's cache on the meta device (the dry run's,
+``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -103,16 +104,101 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     marks.  Under autograd only ``logits`` itself is kept for the
     backward, which forms its f32 copy again: at qwen3-0.6b's vocab
     that copy is the largest tensor of a train step.  DTensor logits
-    sharded on the vocab are gathered along it first."""
+    stay on their shards (``_sharded_nll``)."""
     if is_dtensor(logits):
-        from torch.distributed.tensor import Replicate, Shard
-
-        last = Shard(logits.ndim - 1)
-        want = [Replicate() if p == last else p for p in logits.placements]
-        logits = logits.redistribute(logits.device_mesh, want)
+        return _mean(_sharded_nll(logits, labels), mask)
     if not (torch.is_grad_enabled() and logits.requires_grad):
         return _xent(logits, labels, mask)
     return checkpoint(_xent, logits, labels, mask, use_reentrant=False)
+
+
+def _mean(nll: Any, mask: torch.Tensor | None) -> Any:
+    """``_xent``'s mean of the DTensor ``nll``, over the tokens ``mask``
+    marks if given, on ``nll``'s layout (a sum over the count: the
+    backward of ``mean`` would form the whole batch's gradient on every
+    rank)."""
+    if mask is None:
+        return nll.sum() / nll.numel()
+    mask = _laid_out(mask, nll.device_mesh, nll.placements).float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def _laid_out(x: torch.Tensor, mesh: Any, placements: Any) -> Any:
+    """``x`` (a DTensor, or a plain tensor every rank holds whole) on
+    ``placements``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not is_dtensor(x):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return x.redistribute(mesh, placements)
+
+
+def _sharded_nll(logits: Any, labels: torch.Tensor) -> Any:
+    """The per-token loss of DTensor ``logits`` (B, S, V), as a DTensor
+    laid out as the logits' rows: a vocab-parallel cross entropy, each
+    rank on its own (B_local, S_local, V_local) block (``_LocalNLL``).
+    The batch and sequence stay sharded; along a sharded vocab the
+    row's max, its sum of exps and the label's logit are all-reduced
+    over the vocab's mesh dims, the only collectives.  A partial sum is
+    made whole first."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    mesh = logits.device_mesh
+    vocab = Shard(logits.ndim - 1)
+    whole = [Replicate() if p.is_partial() else p for p in logits.placements]
+    if whole != list(logits.placements):
+        logits = logits.redistribute(mesh, whole)
+    dims = tuple(i for i, p in enumerate(whole) if p == vocab)
+    rows = [Replicate() if p == vocab else p for p in whole]
+    labels = _laid_out(labels, mesh, rows)
+    _, offset = compute_local_shape_and_global_offset(logits.shape, mesh,
+                                                      whole)
+    nll = _LocalNLL.apply(logits.to_local(), labels.to_local(),
+                          offset[-1], mesh, dims)
+    return DTensor.from_local(nll, mesh, rows, run_check=False)
+
+
+class _LocalNLL(torch.autograd.Function):
+    """``logz - logit[label]`` of a rank's block of logits (..., V_local),
+    vocab entries ``[v0, v0 + V_local)``, all-reduced over the mesh dims
+    ``dims`` that shard the vocab; f32.  Keeps the block in its own
+    dtype and the f32 ``logz``; the backward, ``softmax - one-hot`` on
+    the block, needs no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, v0, mesh, dims):
+        import torch.distributed._functional_collectives as funcol
+
+        def over_vocab(x, op):
+            for d in dims:
+                x = funcol.all_reduce(x, op, (mesh, d))
+                if isinstance(x, funcol.AsyncCollectiveTensor):
+                    x = x.wait()
+            return x
+
+        n = logits.shape[-1]
+        labels = labels.long() - v0
+        here = (labels >= 0) & (labels < n)
+        idx = labels.clamp(0, n - 1)[..., None]
+        top = over_vocab(logits.amax(dim=-1).float(), "max")
+        sumexp = over_vocab(
+            torch.sub(logits, top[..., None]).exp_().sum(dim=-1), "sum")
+        picked = over_vocab(torch.where(
+            here, logits.gather(-1, idx)[..., 0].float(), 0.0), "sum")
+        logz = sumexp.log() + top
+        ctx.save_for_backward(logits, logz, idx, here)
+        return logz - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, idx, here = ctx.saved_tensors
+        grad = torch.sub(logits, logz[..., None]).exp_()
+        grad.scatter_add_(-1, idx, -here.to(grad.dtype)[..., None])
+        return grad.mul_(g[..., None]).to(logits.dtype), None, None, None, None
 
 
 class Model:

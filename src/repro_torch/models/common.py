@@ -4,11 +4,12 @@ dense, MoE (``moe``), hybrid attention + SSM (``hybrid``), xLSTM
 (``ssm``), the Whisper encoder-decoder (``encdec``) and the M-RoPE
 vision-language decoder (``vlm``).
 
-``repro``'s execution fields ``scan_layers``, ``remat`` and
-``use_pallas`` are left out: they steer XLA tracing (one layer traced
-under ``lax.scan``, rematerialisation, Pallas against the XLA path),
-which eager PyTorch does not have.  Every layer's attention window is a
-Python int here, exactly as in ``repro`` with ``scan_layers=False``.
+``repro``'s execution fields ``scan_layers`` and ``use_pallas`` are
+left out: they steer XLA tracing (one layer traced under ``lax.scan``,
+Pallas against the XLA path), which eager PyTorch does not have.  Every
+layer's attention window is a Python int here, exactly as in ``repro``
+with ``scan_layers=False``.  ``remat`` is ``repro``'s: what a train
+step keeps of each layer for its backward (``models/remat.py``).
 
 Parameters are nested dicts of tensors in the JAX package's layout: the
 decoder layers are stacked on a leading ``n_layers`` dim, so the
@@ -115,6 +116,7 @@ class ModelConfig:
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
     # execution
+    remat: str = "full"              # none | full | dots (models/remat.py)
     windowed_cache: bool = False     # ring-buffer KV cache for sliding layers
     attn_impl: str = "dense"         # dense | blocked (flash_attention kernel)
     kv_cache_dtype: str = "bf16"     # bf16 | int8 (quantized KV cache)

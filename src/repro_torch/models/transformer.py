@@ -11,7 +11,9 @@ for ``cfg.moe``; a hybrid (``cfg.ssm``) runs attention and the SSM of
 routers' loss summed over layers (a zero f32 without experts).  Layers
 run one after another in Python, each with its static window
 (``static_layer_windows``), as ``repro`` runs them with
-``scan_layers=False``.  The cache is ``repro``'s: ``k``/``v`` (layers,
+``scan_layers=False``; without a cache each layer runs under
+``models/remat.py::remat_call`` (``cfg.remat``), as ``repro`` wraps it
+in ``_remat``.  The cache is ``repro``'s: ``k``/``v`` (layers,
 B, L, Hkv, hd), ``len`` a 0-d int32 (plus ``k_scale``/``v_scale`` for
 the int8 cache, ``ssm_h``/``ssm_tail`` for a hybrid), written in place
 (``models/layers.py::attention``, ``decoder_layer``).  The LM policy's
@@ -50,6 +52,7 @@ from repro_torch.models.layers import (
     rope_tables,
 )
 from repro_torch.models.moe import apply_moe, moe_init
+from repro_torch.models.remat import remat_call
 from repro_torch.models.ssm import apply_ssm, init_ssm_state, ssm_init
 
 
@@ -183,21 +186,26 @@ def lm_hidden(params: dict[str, Any], tokens: torch.Tensor | None,
         parts.append(embed_rows(params["embed"], tokens).to(cd))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     x = shard(x, ("batch", "seq", "embed"))
-    B, S, _ = x.shape
+    S = x.shape[1]
     cache_len = cache["len"] if cache is not None else None
     if positions is None:
-        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        # one row for every sequence: the tables broadcast over the
+        # batch, whose rows a mesh shards (a whole (B, S) table would
+        # hold every rank's rows)
+        positions = torch.arange(S, device=x.device)[None, :]
         if cache is not None:
             positions = positions + cache_len
     rope = rope_tables(positions, cfg)
     layers = unstack_layers(params["layers"], cfg.n_layers)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, w in enumerate(static_layer_windows(cfg)):
-        layer_cache = None
         if cache is not None:
             layer_cache = {k: v[i] for k, v in cache.items() if k != "len"}
-        x, layer_aux = decoder_layer(layers[i], x, cfg, rope, w, layer_cache,
-                                     cache_len, shard)
+            x, layer_aux = decoder_layer(layers[i], x, cfg, rope, w,
+                                         layer_cache, cache_len, shard)
+        else:
+            x, layer_aux = remat_call(decoder_layer, cfg, layers[i], x, cfg,
+                                      rope, w, None, None, shard)
         if layer_aux is not None:
             aux = aux + layer_aux
     new_cache = None

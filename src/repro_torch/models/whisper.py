@@ -53,6 +53,7 @@ from repro_torch.models.layers import (
     norm_init,
     split_whole,
 )
+from repro_torch.models.remat import remat_call
 from repro_torch.models.transformer import unstack_layers
 
 
@@ -122,18 +123,26 @@ def encode(params: dict[str, Any], frames: torch.Tensor, cfg: ModelConfig,
     ``shard`` at ``repro``'s points (the input, each MLP, each layer's
     output)."""
     cd = cfg.compute_dtype
-    B, T, d = frames.shape
+    T, d = frames.shape[1:]
     x = frames.to(cd) + _sinusoidal(T, d, frames.device).to(cd)[None]
     x = shard(x, ("batch", "seq", "embed"))
     for lp in unstack_layers(params["enc_layers"], cfg.enc_layers):
-        normed = apply_norm(lp["attn_norm"], x, cfg)
-        q, k, v = _proj_qkv(lp["attn"], normed, cfg)
-        out = mha(q, k, v, None, cfg).reshape(B, T, cfg.q_dim)
-        x = x + out @ lp["attn"]["wo"].to(cd)
-        x = x + apply_mlp(lp["mlp"], apply_norm(lp["mlp_norm"], x, cfg), cfg,
-                          shard)
-        x = shard(x, ("batch", "seq", "embed"))
+        x = remat_call(_encoder_layer, cfg, lp, x, cfg, shard)
     return apply_norm(params["enc_norm"], x, cfg)
+
+
+def _encoder_layer(lp: dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
+                   shard: ShardFn) -> torch.Tensor:
+    """One pre-norm encoder layer: bidirectional self-attention, MLP."""
+    cd = cfg.compute_dtype
+    B, T, _ = x.shape
+    normed = apply_norm(lp["attn_norm"], x, cfg)
+    q, k, v = _proj_qkv(lp["attn"], normed, cfg)
+    out = mha(q, k, v, None, cfg).reshape(B, T, cfg.q_dim)
+    x = x + out @ lp["attn"]["wo"].to(cd)
+    x = x + apply_mlp(lp["mlp"], apply_norm(lp["mlp_norm"], x, cfg), cfg,
+                      shard)
+    return shard(x, ("batch", "seq", "embed"))
 
 
 def decode_hidden(params: dict[str, Any], tokens: torch.Tensor,
@@ -151,8 +160,7 @@ def decode_hidden(params: dict[str, Any], tokens: torch.Tensor,
     each layer's output); the cross K/V are written into the rank's own
     shard of ``xk``/``xv``."""
     cd = cfg.compute_dtype
-    B, S = tokens.shape
-    dev = tokens.device
+    S = tokens.shape[1]
     x = embed_rows(params["dec_embed"], tokens).to(cd)
     table = params["dec_pos"]
     if is_dtensor(table):               # positions are picked whole
@@ -178,43 +186,64 @@ def decode_hidden(params: dict[str, Any], tokens: torch.Tensor,
     build_cross = cache is None or enc_out is not None
     layers = unstack_layers(params["dec_layers"], cfg.n_layers)
     for i, lp in enumerate(layers):
-        # causal self-attention, cached or not
-        q, k, v = _proj_qkv(lp["self_attn"],
-                            apply_norm(lp["self_norm"], x, cfg), cfg)
         if cache is None:
-            out = mha(q, k, v, causal_mask(S, S, device=dev), cfg)
+            x = remat_call(_decoder_layer, cfg, lp, x, enc_out, cfg, shard)
         else:
-            ck, cv = cache["k"][i], cache["v"][i]
-            L = ck.shape[1]
-            _write_rows((ck, cv), (k, v), _slice_index(cache_len, S, L))
-            qpos = cache_len + torch.arange(S, device=dev)[:, None]
-            valid = torch.arange(L, device=dev)[None, :] <= qpos
-            out = mha(q, ck, cv, valid[None, None], cfg)
-        x = x + out.reshape(B, S, cfg.q_dim) @ lp["self_attn"]["wo"].to(cd)
-
-        # cross-attention over the encoder states
-        xa = lp["cross_attn"]
-        qc = _heads(apply_norm(lp["cross_norm"], x, cfg), xa["wq"],
-                    cfg.n_heads, cfg)
-        if build_cross:
-            kc = _heads(enc_out, xa["wk"], cfg.n_kv_heads, cfg)
-            vc = _heads(enc_out, xa["wv"], cfg.n_kv_heads, cfg)
-            if cache is not None:
-                copy_into(cache["xk"][i], kc)
-                copy_into(cache["xv"][i], vc)
-        else:
-            kc, vc = cache["xk"][i], cache["xv"][i]
-        out = mha(qc, kc, vc, None, cfg)
-        x = x + out.reshape(B, S, cfg.q_dim) @ xa["wo"].to(cd)
-        x = x + apply_mlp(lp["mlp"], apply_norm(lp["mlp_norm"], x, cfg), cfg,
-                          shard)
-        x = shard(x, ("batch", "seq", "embed"))
+            x = _decoder_layer(lp, x, enc_out, cfg, shard, cache, i,
+                               cache_len, build_cross)
     new_cache = None
     if cache is not None:
         # written in place: the cache's tensors are the new cache
         new_cache = {k: v for k, v in cache.items() if k != "len"}
         new_cache["len"] = cache_len + S
     return apply_norm(params["dec_norm"], x, cfg), new_cache
+
+
+def _decoder_layer(lp: dict[str, Any], x: torch.Tensor,
+                   enc_out: torch.Tensor | None, cfg: ModelConfig,
+                   shard: ShardFn,
+                   cache: dict[str, torch.Tensor] | None = None,
+                   i: int = 0, cache_len: torch.Tensor | None = None,
+                   build_cross: bool = True) -> torch.Tensor:
+    """Decoder layer ``i``: causal self-attention (over ``x`` alone, or
+    with its K/V rows written into ``cache`` at ``cache_len``),
+    cross-attention over ``enc_out`` (its K/V written to the cache when
+    ``build_cross`` and a cache is given; read from there when not
+    ``build_cross``), MLP."""
+    cd = cfg.compute_dtype
+    B, S = x.shape[:2]
+    dev = x.device
+    # causal self-attention, cached or not
+    q, k, v = _proj_qkv(lp["self_attn"],
+                        apply_norm(lp["self_norm"], x, cfg), cfg)
+    if cache is None:
+        out = mha(q, k, v, causal_mask(S, S, device=dev), cfg)
+    else:
+        ck, cv = cache["k"][i], cache["v"][i]
+        L = ck.shape[1]
+        _write_rows((ck, cv), (k, v), _slice_index(cache_len, S, L))
+        qpos = cache_len + torch.arange(S, device=dev)[:, None]
+        valid = torch.arange(L, device=dev)[None, :] <= qpos
+        out = mha(q, ck, cv, valid[None, None], cfg)
+    x = x + out.reshape(B, S, cfg.q_dim) @ lp["self_attn"]["wo"].to(cd)
+
+    # cross-attention over the encoder states
+    xa = lp["cross_attn"]
+    qc = _heads(apply_norm(lp["cross_norm"], x, cfg), xa["wq"],
+                cfg.n_heads, cfg)
+    if build_cross:
+        kc = _heads(enc_out, xa["wk"], cfg.n_kv_heads, cfg)
+        vc = _heads(enc_out, xa["wv"], cfg.n_kv_heads, cfg)
+        if cache is not None:
+            copy_into(cache["xk"][i], kc)
+            copy_into(cache["xv"][i], vc)
+    else:
+        kc, vc = cache["xk"][i], cache["xv"][i]
+    out = mha(qc, kc, vc, None, cfg)
+    x = x + out.reshape(B, S, cfg.q_dim) @ xa["wo"].to(cd)
+    x = x + apply_mlp(lp["mlp"], apply_norm(lp["mlp_norm"], x, cfg), cfg,
+                      shard)
+    return shard(x, ("batch", "seq", "embed"))
 
 
 def decode(params: dict[str, Any], tokens: torch.Tensor,

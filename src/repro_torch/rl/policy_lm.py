@@ -82,6 +82,7 @@ def default_policy_config(vocab: int, max_len: int = 64) -> ModelConfig:
         n_heads=4, n_kv_heads=2, d_ff=128, vocab=vocab, head_dim=16,
         rope_theta=10_000.0, tie_embeddings=True,
         param_dtype=torch.float32, compute_dtype=torch.float32,
+        remat="none",
     )
 
 

@@ -19,7 +19,14 @@ so it runs here.  Held:
   512 with ``multi_pod``), naming the size it needs;
 * the temporary bytes (``live_bytes_mode``): an integer for the train
   and serve cells, a hand-checked count, and the same peak for a small
-  train step on meta and on real CPU tensors.
+  train step on meta and on real CPU tensors;
+* the kernel path on meta: a smoke train step (blocked, ``full``) on a
+  (2, 4) mesh of a fake group of 8 allocates no tensor of the global
+  batch's rows and none of the whole vocab (the loss stays on its
+  shards), its forward no (S, S) scores; the flash and decode stand-ins
+  allocate the kernels' outputs and count their FLOPs (flash's over the
+  visible pairs); the train cell's JSON labels its collectives as eager
+  DTensor's and lists the largest tensors at its peak.
 
 The four cells run at once, one subprocess each, with one OpenMP thread.
 """
@@ -114,6 +121,10 @@ def test_dryrun_train_cell_counts_collectives_and_plan_bytes(cells):
     roof = res["roofline"]
     assert roof["step_time_bound_s"] == max(
         roof["compute_s"], roof["memory_s"], roof["collective_s"])
+    assert coll["counted_as"].startswith("eager DTensor")
+    top = res["memory_analysis"]["largest_at_peak"]
+    assert len(top) == 5 and top[0]["bytes"] >= top[-1]["bytes"] > 0
+    assert set(top[0]) == {"bytes", "op", "shape", "dtype"}
 
 
 def test_dryrun_multi_pod(cells):
@@ -283,3 +294,125 @@ def test_live_bytes_meta_equals_cpu_for_a_sharded_train_step():
         dist.destroy_process_group()
     assert reports["meta"] == reports["cpu"]
     assert reports["meta"][0] > 0
+
+
+def smoke_step_on_fake_mesh(forward_only: bool = False):
+    """The smoke qwen3-0.6b (blocked, ``remat="full"``), B=8, S=24, on a
+    (2, 4) mesh of a fake group of 8, on meta tensors under
+    ``live_bytes_mode``: the whole train step, or ``train_loss``'s
+    forward alone; returns the tracker."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import (
+        BASELINE_RULES,
+        make_shard_fn,
+        place,
+    )
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import (
+        batch_shardings,
+        init_train_state,
+        make_train_step,
+        train_state_shardings,
+    )
+    from repro_torch.models.api import Model
+    from repro_torch.optim import adamw, constant
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_smoke_config("qwen3-0.6b").replace(attn_impl="blocked")
+    assert cfg.remat == "full"
+    assert not dist.is_initialized()
+    dryrun.join_fake_group(8)
+    try:
+        mesh = init_device_mesh("cpu", (2, 4),
+                                mesh_dim_names=("data", "model"))
+        model, opt = Model(cfg, "meta"), adamw()
+        state = init_train_state(model, opt, torch.Generator())
+        batch = {k: torch.empty((8, 24), dtype=torch.int32, device="meta")
+                 for k in ("tokens", "labels")}
+        sh = (train_state_shardings(mesh, state, BASELINE_RULES),
+              batch_shardings(mesh, batch, BASELINE_RULES))
+        state, batch = (place(a, s, mesh) for a, s in zip((state, batch),
+                                                          sh))
+        live = dryrun.live_bytes_mode()
+        if forward_only:
+            from torch.distributed.tensor.experimental import (
+                implicit_replication,
+            )
+
+            for p in tree_leaves(state.params):
+                p.requires_grad_()
+            with live, implicit_replication():
+                model.train_loss(state.params, batch,
+                                 make_shard_fn(mesh, BASELINE_RULES))
+        else:
+            step = make_train_step(model, opt, constant(3e-4), mesh,
+                                   BASELINE_RULES)
+            with live:
+                step(state, batch)
+    finally:
+        dist.destroy_process_group()
+    return live
+
+
+def test_sharded_step_allocates_no_global_batch_and_no_whole_vocab():
+    """Every tensor the step allocates on a rank holds the rank's 4 of
+    the 8 rows at most, and at most its 128 of the 512 vocab entries."""
+    allocs = smoke_step_on_fake_mesh().allocations()
+    assert len(allocs) > 100
+    assert [a for a in allocs if tuple(a[1][:2]) == (8, 24)] == []
+    assert [a for a in allocs if 512 in a[1]] == []
+    assert any(tuple(a[1]) == (4, 24, 128) for a in allocs)   # the logits
+
+
+def test_blocked_forward_allocates_no_scores():
+    """The flash stand-in's forward: no (S, S) tensor, and one output of
+    the rank's (4 rows, 1 head, 24, 16) a layer."""
+    allocs = smoke_step_on_fake_mesh(forward_only=True).allocations()
+    assert [a for a in allocs if tuple(a[1][-2:]) == (24, 24)] == []
+    flash = [a for a in allocs if a[0] == "repro_torch::flash_attention"]
+    assert [tuple(a[1]) for a in flash] == [(4, 1, 24, 16)] * 2
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 7),
+                                           (False, 0)])
+def test_attention_stand_ins_count_the_kernels_flops(causal, window):
+    """On meta, ``flash_attention`` (under autograd too) and
+    ``decode_attention`` run their stand-ins: the kernels' outputs, and
+    FLOPs 4 D a visible (query, key) pair, the pairs counted from the
+    mask by brute force (flash: Sq=40 queries end-aligned on Skv=56
+    keys)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import dryrun
+
+    B, H, Hkv, Sq, Skv, D = 2, 4, 2, 40, 56, 16
+    pos = torch.arange(Sq)[:, None] + (Skv - Sq)
+    key = torch.arange(Skv)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool)
+    if causal:
+        mask &= key <= pos
+    if window:
+        mask &= key > pos - window
+    pairs = int(mask.sum())
+    q = torch.empty(B, Sq, H, D, device="meta").transpose(1, 2)
+    k = torch.empty(B, Hkv, Skv, D, device="meta", requires_grad=True)
+    live, flops = dryrun.live_bytes_mode(), dryrun._local_flops_mode()
+    with live, flops:
+        out = flash_attention(q, k, k, causal=causal, window=window)
+    assert out.shape == q.shape and out.stride() == q.stride()
+    assert out.grad_fn is not None and out.is_meta
+    assert flops.flops == 4 * B * H * D * pairs
+    assert live.allocations() == [("repro_torch::flash_attention",
+                                   (B, H, Sq, D), "float32",
+                                   B * H * Sq * D * 4)]
+    with FlopCounterMode(display=False) as counter:
+        got = decode_attention(torch.empty(B, H, D, device="meta"), k, k,
+                               torch.empty(B, dtype=torch.int32,
+                                           device="meta"))
+    assert got.shape == (B, H, D) and got.is_meta
+    assert counter.get_total_flops() == 4 * B * H * D * Skv

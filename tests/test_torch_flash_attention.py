@@ -254,6 +254,12 @@ def test_tile_plan_matches_a_brute_force_mask(Sq, Skv, causal, window, bq,
             assert rows[:, (hi - 1) * bk:hi * bk].any()
         else:
             assert not rows.any()
+    # the FLOPs the meta stand-in counts: the visible pairs, all inside
+    # the plan's tiles
+    in_plan = sum(int(vis[qi * bq:(qi + 1) * bq, lo * bk:hi * bk].sum())
+                  for qi, (lo, hi, _) in enumerate(plan))
+    assert ops.visible_pairs(Sq, Skv, causal, window) == int(vis.sum()) \
+        == in_plan
 
 
 def _offset_view(shape):

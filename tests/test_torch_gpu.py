@@ -730,8 +730,10 @@ def test_flash_attention_without_grad_is_the_plain_launch(cuda):
 
 
 def test_blocked_train_step_on_the_card_matches_the_cpu(cuda):
-    """Three train steps of the f32 smoke qwen3 with the blocked branch:
-    losses within 1e-5 of the CPU's, one flash launch per layer a step."""
+    """Three train steps of the f32 smoke qwen3 with the blocked branch
+    at the default ``remat="full"``: losses within 1e-5 of the CPU's,
+    two flash launches per layer a step (the forward's and the
+    recompute's in the backward)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import BatchSpec, SyntheticSource
     from repro_torch.launch.steps import init_train_state, make_train_step
@@ -759,7 +761,8 @@ def test_blocked_train_step_on_the_card_matches_the_cpu(cuda):
                                     for k, v in batch.items()})
             losses[dev].append(float(m["loss"]))
         if dev == "cuda":
-            assert flash_attention.launches - before == 3 * cfg.n_layers
+            assert cfg.remat == "full"
+            assert flash_attention.launches - before == 3 * 2 * cfg.n_layers
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5,
                                atol=1e-5)
 

@@ -312,6 +312,23 @@ def test_running_the_port_imports_neither_jax_nor_repro():
         "from repro_torch.launch import dryrun\n"
         "with contextlib.redirect_stdout(io.StringIO()):\n"
         "    dryrun.main(['--arch', 'qwen3-0.6b', '--shape', 'long_500k'])\n"
+        "from repro_torch.kernels.decode_attention.ops import (\n"
+        "    decode_attention)\n"
+        "from repro_torch.models import remat\n"
+        "cfg = get_smoke_config('qwen3-0.6b').replace(attn_impl='blocked',\n"
+        "                                             remat='dots')\n"
+        "meta = build_model(cfg, 'meta')\n"
+        "live = dryrun.live_bytes_mode()\n"
+        "with live:\n"
+        "    make_train_step(meta, adamw(), constant(1e-3))(\n"
+        "        train_state_shapes(meta, adamw()),\n"
+        "        {k: torch.empty((2, 8), dtype=torch.int32, device='meta')\n"
+        "         for k in ('tokens', 'labels')})\n"
+        "    q = torch.empty((2, 4, 16), device='meta')\n"
+        "    kv = torch.empty((2, 2, 8, 16), device='meta')\n"
+        "    decode_attention(q, kv, kv, torch.empty(2, dtype=torch.int32,\n"
+        "                                            device='meta'))\n"
+        "assert live.peak > 0 and remat.REMAT == ('none', 'full', 'dots')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"

@@ -2,8 +2,8 @@
 same process: ``optim/compression.py`` (codes, scales and the error
 buffer bitwise, at tests/test_optim.py's shapes and scales, error
 feedback over rounds), ``distributed/analytic.py`` (every number equal
-for every arch x ``SHAPES`` cell x device count; ``repro``'s train steps
-at ``remat="none"``, the port having no rematerialisation), its FLOPs
+for every arch x ``SHAPES`` cell x device count at the configs' own
+``remat``, and the train step's at each ``remat``), its FLOPs
 against ``FlopCounterMode``'s count of the port's forward and its
 parameter bytes against the port's parameters, and ``repro``'s module
 paths: ``core/device_pool.py`` and the three dense config modules."""
@@ -95,17 +95,13 @@ def test_error_feedback_rounds_are_repros_bitwise():
     assert float(np.abs(deq_sum.numpy() - true_sum).max()) < 0.2
 
 
-def j_cfg(arch: str):
-    """``repro``'s config of ``arch`` without rematerialisation."""
-    return dataclasses.replace(j_config(arch), remat="none")
-
-
 @pytest.mark.parametrize("arch", list_archs())
 def test_analytic_numbers_equal_repros(arch):
     """``fwd_flops``, ``cell_cost`` (FLOPs, bytes a device and every
     detail), ``param_bytes`` and ``cache_bytes``: the same Python floats
     as ``repro``'s for every ``SHAPES`` cell at 1, 256 and 512 devices."""
-    jcfg, tcfg = j_cfg(arch), get_config(arch)
+    jcfg, tcfg = j_config(arch), get_config(arch)
+    assert tcfg.remat == jcfg.remat == "full"
     assert sorted(SHAPES) == sorted(J_SHAPES)
     assert ta.param_bytes(tcfg) == ja.param_bytes(jcfg)
     for name, shape in SHAPES.items():
@@ -120,16 +116,24 @@ def test_analytic_numbers_equal_repros(arch):
             assert got.details == want.details, (name, n)
 
 
-def test_train_multiplier_is_three_without_remat():
-    """The port has no rematerialisation: train = fwd x 3, ``repro``'s
-    ``remat="full"`` number less one forward."""
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_train_multiplier_is_three_without_remat(remat):
+    """A train step is fwd x 3, and one forward more for the recompute at
+    ``full`` and ``dots``: ``cell_cost`` equal to ``repro``'s at the same
+    ``remat``, for every arch."""
     shape = ShapeSpec("t", "train", 32, 2)
-    cfg = get_smoke_config("llama3.2-3b")
+    cfg = get_smoke_config("llama3.2-3b").replace(remat=remat)
     fwd = float(sum(ta.fwd_flops(cfg, shape).values()))
-    assert ta.cell_cost(cfg, shape, 256).flops_global == fwd * 3.0
-    full = ja.cell_cost(j_config("llama3.2-3b"), J_SHAPES["train_4k"], 256)
-    none = ta.cell_cost(get_config("llama3.2-3b"), SHAPES["train_4k"], 256)
-    assert full.flops_global == none.flops_global * 4.0 / 3.0
+    mult = 3.0 if remat == "none" else 4.0
+    assert ta.cell_cost(cfg, shape, 256).flops_global == fwd * mult
+    for arch in list_archs():
+        got = ta.cell_cost(get_config(arch, remat=remat), SHAPES["train_4k"],
+                           256)
+        want = ja.cell_cost(dataclasses.replace(j_config(arch), remat=remat),
+                            J_SHAPES["train_4k"], 256)
+        assert got.flops_global == want.flops_global, arch
+        assert got.bytes_per_device == want.bytes_per_device, arch
+        assert got.details == want.details, arch
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "dbrx-132b", "hymba-1.5b"])
@@ -167,7 +171,7 @@ def test_param_bytes_matches_the_ports_parameters(arch):
                                     "starcoder2_3b"])
 def test_dense_config_modules_equal_repros(module):
     """``repro_torch.configs.<module>.get_config()`` field by field equal
-    to ``repro``'s (the port leaves out ``scan_layers``, ``remat`` and
+    to ``repro``'s (the port leaves out ``scan_layers`` and
     ``use_pallas``; dtypes compare by name), and the registry's entry."""
     import importlib
 
