@@ -224,7 +224,16 @@ def make_shard_fn(mesh: Any, rules: RuleSet
     that ``resolve`` gives it on the ``DeviceMesh`` ``mesh``
     (``repro``'s ``with_sharding_constraint``); trailing dims without a
     name are replicated.  Without a mesh, ``no_shard``.  A tensor that
-    is not a DTensor passes through: it lies on one device."""
+    is not a DTensor passes through: it lies on one device.
+
+    Under autograd, on a mesh of several devices, ``x`` is redistributed
+    even when it is laid out already: ``Redistribute``'s backward lays
+    the gradient out as ``x`` is, as the transpose of
+    ``with_sharding_constraint`` constrains the cotangent.  Left to
+    DTensor, a gradient keeps the layout its producer gave it (a
+    ``Partial`` sum over ``model`` out of a row-parallel product), and
+    the products of the backward then gather weights where the
+    forward's shard point had reduced the activation."""
     if mesh is None:
         return no_shard
     from torch.distributed.tensor import DTensor
@@ -234,8 +243,10 @@ def make_shard_fn(mesh: Any, rules: RuleSet
         if not isinstance(x, DTensor):
             return x
         names = tuple(names) + (None,) * (x.ndim - len(names))
-        want = placements(resolve(mesh, x.shape, names, rules), mesh)
-        if tuple(x.placements) == tuple(want):
+        want = tuple(placements(resolve(mesh, x.shape, names, rules), mesh))
+        if tuple(x.placements) == want and not (
+                torch.is_grad_enabled() and x.requires_grad
+                and mesh.size() > 1):
             return x
         return x.redistribute(mesh, want)
 

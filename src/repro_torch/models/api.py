@@ -47,6 +47,7 @@ from repro_torch.models.common import (
     is_dtensor,
     no_shard,
     shard_mesh,
+    weight,
 )
 
 
@@ -256,7 +257,7 @@ class Model:
                 positions=batch["positions"], shard=shard)
             # the loss only over the text region, after the patch prefix
             logits = shard(transformer.lm_head(
-                params, x[:, batch["patch_embeds"].shape[1]:], cfg),
+                params, x[:, batch["patch_embeds"].shape[1]:], cfg, shard),
                 ("batch", "seq", "vocab"))
         else:
             logits, _, aux = transformer.lm_apply(params, batch["tokens"],
@@ -342,20 +343,20 @@ class Model:
             x, cache = whisper.decode_hidden(
                 params, tokens, enc, cfg,
                 self._fresh_cache(B, max_len, shard), shard)
-            return shard(x[:, -1] @ params["lm_head"].to(cd),
+            return shard(x[:, -1] @ weight(params["lm_head"], cd, shard),
                          ("batch", "vocab")), cache
         if cfg.family == "ssm":
             x, states = xlstm.xlstm_hidden(params, tokens, cfg, shard=shard)
             cache = {"states": states,
                      "len": torch.tensor(tokens.shape[1], dtype=torch.int32,
                                          device=self.device)}
-            return shard(x[:, -1] @ params["embed"].T.to(cd),
+            return shard(x[:, -1] @ weight(params["embed"], cd, shard).T,
                          ("batch", "vocab")), cache
         x, cache, _ = transformer.lm_hidden(
             params, tokens, cfg, input_embeds=batch.get("patch_embeds"),
             positions=batch.get("positions"),
             cache=self._fresh_cache(B, max_len, shard), shard=shard)
-        return shard(transformer.lm_head(params, x[:, -1], cfg),
+        return shard(transformer.lm_head(params, x[:, -1], cfg, shard),
                      ("batch", "vocab")), cache
 
     def decode_step(self, params: dict[str, Any], tokens: torch.Tensor,

@@ -55,6 +55,56 @@ def is_dtensor(x: Any) -> bool:
     return dt is not None and isinstance(x, dt.DTensor)
 
 
+def _fsdp_dims(w: Any, shard: ShardFn) -> tuple[int, ...]:
+    """The mesh dims over which the DTensor ``w`` is split on its FSDP
+    dim: those the rules' ``w_fsdp`` names, of extent above 1, where
+    ``w`` is sharded.  Empty for a plain tensor, ``no_shard`` or rules
+    without ``w_fsdp`` (``ZERO1_RULES``)."""
+    rules = getattr(shard, "rules", None)
+    axes = rules.get("w_fsdp") if rules is not None else None
+    if axes is None or not is_dtensor(w):
+        return ()
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    mesh = w.device_mesh
+    return tuple(i for i, p in enumerate(w.placements)
+                 if p.is_shard() and mesh.mesh_dim_names[i] in axes
+                 and mesh.size(i) > 1)
+
+
+def weight(w: torch.Tensor, dtype: torch.dtype, shard: ShardFn = no_shard,
+           heads: tuple[int, int] | None = None) -> torch.Tensor:
+    """The parameter ``w`` at its use: cast to ``dtype``, then gathered
+    over its FSDP mesh dims (``_fsdp_dims``), its other placements
+    (``model`` for ``w_model``) kept, so that each rank's rows of the
+    batch meet the whole weight, as GSPMD gathers an FSDP weight.  Left
+    to DTensor, a product with the sharded weight would often gather or
+    all-reduce the activations of the global batch instead.  Cast
+    first: the gather moves the compute dtype.  ``heads=(dim, n)``:
+    ``w``'s dim ``dim`` holds ``n`` attention heads side by side; where
+    the mesh dims that shard it do not split them into whole heads, the
+    weight is gathered along them too, so that every rank runs every
+    head (DTensor refuses to split an unevenly sharded dim into heads)
+    and no activation is gathered for it.  The backward is the
+    redistribute's: the gradient, a partial sum over the gathered dims,
+    reduce-scattered into the parameter's placement.  Where no mesh dim
+    is gathered ``w`` is only cast (the very tensor when it is in
+    ``dtype``), and no collective is issued."""
+    dims = _fsdp_dims(w, shard)
+    if heads is not None and is_dtensor(w):
+        dim, n = heads
+        split = [i for i, p in enumerate(w.placements)
+                 if p.is_shard(dim % w.ndim)]
+        if n % math.prod(w.device_mesh.size(i) for i in split):
+            dims = tuple(sorted(set(dims) | set(split)))
+    w = w.to(dtype)
+    if not dims:
+        return w
+    from torch.distributed.tensor import Replicate
+
+    return w.redistribute(w.device_mesh, [
+        Replicate() if i in dims else p for i, p in enumerate(w.placements)])
+
+
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
     num_experts: int
@@ -192,4 +242,4 @@ def model_flops_per_token(cfg: ModelConfig) -> float:
 
 __all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "ShardFn", "XLSTMConfig",
            "count_params", "is_dtensor", "no_shard", "shard_mesh", "dense_init", "embed_init",
-           "model_flops_per_token"]
+           "model_flops_per_token", "weight"]

@@ -20,8 +20,9 @@ the device: ``cache_len`` never leaves the card.
 
 ``shard`` is ``repro``'s shard points (q, k, v after the rotation, the
 attention output, the MLP's hidden and output), ``no_shard`` by
-default.  Under a mesh the tensors are DTensors: the blocked attention
-runs the kernel on each rank's local heads
+default.  Under a mesh the tensors are DTensors: each weight is
+gathered over its FSDP dims at its use (``common.py::weight``), the
+blocked attention runs the kernel on each rank's local heads
 (``models/blocked_attention.py``), and a cache whose positions are
 sharded takes its new rows on the rank that holds them (``_write_rows``).
 """
@@ -44,6 +45,7 @@ from repro_torch.models.common import (
     dense_init,
     is_dtensor,
     no_shard,
+    weight,
 )
 
 
@@ -199,7 +201,13 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = torch.where(mask, scores, -1e30)
     w = split_whole(torch.softmax(scores, dim=-1).to(q.dtype), 1, Hkv)
     o = torch.einsum("bkgst,btkd->bskgd", w.reshape(B, Hkv, G, S, T), v)
-    return o.reshape(B, S, Hq, D)
+    o = o.reshape(B, S, Hq, D)
+    if is_dtensor(o) and o.requires_grad:
+        # the gradient laid out as o is (``Redistribute``'s backward):
+        # its heads split into (Hkv, G) again, which a dim sharded over
+        # more ranks than Hkv cannot
+        o = o.redistribute(o.device_mesh, o.placements)
+    return o
 
 
 # --------------------------------------------------------------------- #
@@ -337,7 +345,8 @@ def attention(
     (and ``cache_scales``) in place: they are ``repro``'s new cache."""
     B, S, _ = x.shape
     cd = cfg.compute_dtype
-    q, k, v = (split_whole(x @ p[w].to(cd), 2, n).reshape(B, S, n, cfg.hd)
+    q, k, v = ((x @ weight(p[w], cd, shard, heads=(1, n))).reshape(
+        B, S, n, cfg.hd)
                for w, n in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
                             ("wv", cfg.n_kv_heads)))
     if cfg.qk_norm:
@@ -407,7 +416,8 @@ def attention(
 def _attn_out(p: dict[str, Any], out: torch.Tensor, cfg: ModelConfig,
               shard: ShardFn) -> torch.Tensor:
     B, S = out.shape[:2]
-    out = out.reshape(B, S, cfg.q_dim) @ p["wo"].to(cfg.compute_dtype)
+    out = out.reshape(B, S, cfg.q_dim) @ weight(
+        p["wo"], cfg.compute_dtype, shard, heads=(0, cfg.n_heads))
     return shard(out, ("batch", "seq", "embed"))
 
 
@@ -478,13 +488,15 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, device,
 
 def apply_mlp(p: dict[str, torch.Tensor], x: torch.Tensor,
               cfg: ModelConfig, shard: ShardFn = no_shard) -> torch.Tensor:
-    cd = cfg.compute_dtype
+    def w(name: str) -> torch.Tensor:
+        return weight(p[name], cfg.compute_dtype, shard)
+
     if cfg.mlp_type == "swiglu":
-        h = F.silu(x @ p["wg"].to(cd)) * (x @ p["wi"].to(cd))
+        h = F.silu(x @ w("wg")) * (x @ w("wi"))
     else:  # jax.nn.gelu's default is the tanh approximation
-        h = F.gelu(x @ p["wi"].to(cd), approximate="tanh")
+        h = F.gelu(x @ w("wi"), approximate="tanh")
     h = shard(h, ("batch", "seq", "mlp"))
-    return shard(h @ p["wo"].to(cd), ("batch", "seq", "embed"))
+    return shard(h @ w("wo"), ("batch", "seq", "embed"))
 
 
 __all__ = [

@@ -29,6 +29,7 @@ from repro_torch.models.common import (
     dense_init,
     is_dtensor,
     no_shard,
+    weight,
 )
 
 
@@ -194,20 +195,22 @@ def _moe_on_mesh(p: dict[str, torch.Tensor], x: torch.Tensor,
     ex = {i for i, q in enumerate(placements(spec, mesh))
           if q == Shard(1) and i not in bd}
 
-    def whole(t: torch.Tensor) -> torch.Tensor:
+    def local(t: torch.Tensor, dtype: torch.dtype, want: list
+              ) -> torch.Tensor:
+        # gathered over its FSDP dims in ``dtype`` (``weight``), then
+        # laid out on ``want``; a rank's gradient covers its own groups
         if not is_dtensor(t):
-            return DTensor.from_local(t, mesh, [R] * nd, run_check=False)
-        return t
+            t = DTensor.from_local(t, mesh, [R] * nd, run_check=False)
+        t = weight(t, dtype, shard)
+        if list(t.placements) != want:
+            t = t.redistribute(mesh, want)
+        return t.to_local(grad_placements=[
+            Partial() if i in bd else q for i, q in enumerate(want)])
 
-    def grad(i: int, q):
-        return Partial() if i in bd else q
-
-    router = whole(p["router"]).redistribute(mesh, [R] * nd).to_local(
-        grad_placements=[grad(i, R) for i in range(nd)])
+    router = local(p["router"], torch.float32, [R] * nd)
     want = [Shard(0) if i in ex else R for i in range(nd)]
-    experts = {k: whole(p[k]).redistribute(mesh, want).to_local(
-        grad_placements=[grad(i, q) for i, q in enumerate(want)])
-        for k in ("wi", "wg", "wo") if k in p}
+    experts = {k: local(p[k], cfg.compute_dtype, want)
+               for k in ("wi", "wg", "wo") if k in p}
     _, offset = compute_local_shape_and_global_offset(
         p["wi"].shape, mesh, want)
 

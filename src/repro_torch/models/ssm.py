@@ -33,6 +33,7 @@ from repro_torch.models.common import (
     ShardFn,
     dense_init,
     no_shard,
+    weight,
 )
 
 
@@ -123,7 +124,7 @@ def apply_ssm(p: dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     B, S, d = x.shape
     di, n = sc.expand * d, sc.state_dim
 
-    xz = x @ p["in_proj"].to(cd)
+    xz = x @ weight(p["in_proj"], cd, shard)
     xs, z = xz[..., :di], xz[..., di:]
     tail = state[1] if state is not None else None
     xs, new_tail = _causal_conv(xs, p["conv"].to(cd), tail)
@@ -157,7 +158,7 @@ def apply_ssm(p: dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
 
     y = y.to(cd) + xs * p["D"].to(cd)
     y = y * F.silu(z)
-    out = y @ p["out_proj"].to(cd)
+    out = y @ weight(p["out_proj"], cd, shard)
     return shard(out, ("batch", "seq", "embed")), (h_last.to(cd), new_tail)
 
 

@@ -22,8 +22,10 @@ own cached decode lives in ``rl/policy_lm.py``.
 ``shard`` is ``repro``'s shard points (the embeddings, each layer's
 output, the logits; ``no_shard`` by default), passed on to the
 attention, the MLP, the experts (``models/moe.py``) and the SSM branch
-(``models/ssm.py``).  Under a mesh the weights are DTensors and the
-embedding is looked up vocab-parallel (``layers.py::embed_rows``).
+(``models/ssm.py``).  Under a mesh the weights are DTensors, each
+gathered over its FSDP dims where it is used (``common.py::weight``),
+and the embedding is looked up vocab-parallel
+(``layers.py::embed_rows``).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from repro_torch.models.common import (
     dense_init,
     embed_init,
     no_shard,
+    weight,
 )
 from repro_torch.models.layers import (
     apply_mlp,
@@ -108,13 +111,13 @@ def unstack_layers(layers: dict[str, Any], n: int) -> list[dict[str, Any]]:
 
 
 def lm_head(params: dict[str, Any], x: torch.Tensor,
-            cfg: ModelConfig) -> torch.Tensor:
+            cfg: ModelConfig, shard: ShardFn = no_shard) -> torch.Tensor:
     """Logits from the final-normed hidden state: the tied embedding or
-    the separate LM head."""
+    the separate LM head, gathered over its FSDP dims under a mesh."""
     cd = cfg.compute_dtype
     if cfg.tie_embeddings:
-        return x @ params["embed"].T.to(cd)
-    return x @ params["lm_head"].to(cd)
+        return x @ weight(params["embed"], cd, shard).T
+    return x @ weight(params["lm_head"], cd, shard)
 
 
 def static_layer_windows(cfg: ModelConfig) -> list[int]:
@@ -236,7 +239,7 @@ def lm_apply(params: dict[str, Any], tokens: torch.Tensor | None,
                                   input_embeds=input_embeds,
                                   positions=positions, cache=cache,
                                   shard=shard)
-    return (shard(lm_head(params, x, cfg), ("batch", "seq", "vocab")),
+    return (shard(lm_head(params, x, cfg, shard), ("batch", "seq", "vocab")),
             new_cache, aux)
 
 

@@ -19,9 +19,10 @@ positions from ``len`` clamped so that ``len + S <= max_seq``, as
 
 ``shard`` is ``repro``'s shard points (the encoder's input, the
 decoder's embeddings, each MLP and each layer's output, the logits).
-Under a mesh ``mha`` runs on DTensors; heads whose sharded columns do
-not split whole (20 heads over a model axis of 16) are gathered first
-(``layers.py::split_whole``).
+Under a mesh ``mha`` runs on DTensors; every weight is gathered over
+its FSDP dims at its use, and a projection whose sharded columns do not
+split into whole heads (20 heads over a model axis of 16) is gathered
+whole (``common.py::weight``).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from repro_torch.models.common import (
     embed_init,
     is_dtensor,
     no_shard,
+    weight,
 )
 from repro_torch.models.layers import (
     _slice_index,
@@ -51,7 +53,6 @@ from repro_torch.models.layers import (
     mha,
     mlp_init,
     norm_init,
-    split_whole,
 )
 from repro_torch.models.remat import remat_call
 from repro_torch.models.transformer import unstack_layers
@@ -64,21 +65,29 @@ def _sinusoidal(S: int, d: int, device) -> torch.Tensor:
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
-def _heads(x: torch.Tensor, w: torch.Tensor, n: int, cfg: ModelConfig
-           ) -> torch.Tensor:
-    """``x @ w`` (B, S, n * hd) as (B, S, n, hd); a DTensor whose
-    sharded columns do not split into whole heads is gathered first
-    (``layers.py::split_whole``)."""
+def _heads(x: torch.Tensor, w: torch.Tensor, n: int, cfg: ModelConfig,
+           shard: ShardFn) -> torch.Tensor:
+    """``x @ w`` (B, S, n * hd) as (B, S, n, hd); a DTensor weight is
+    gathered over its FSDP dims, and whole where its sharded columns do
+    not split into whole heads (``common.py::weight``)."""
     B, S = x.shape[:2]
-    return split_whole(x @ w.to(cfg.compute_dtype), 2, n).reshape(
-        B, S, n, cfg.hd)
+    w = weight(w, cfg.compute_dtype, shard, heads=(1, n))
+    return (x @ w).reshape(B, S, n, cfg.hd)
 
 
 def _proj_qkv(p: dict[str, torch.Tensor], x: torch.Tensor,
-              cfg: ModelConfig) -> tuple[torch.Tensor, ...]:
-    return (_heads(x, p["wq"], cfg.n_heads, cfg),
-            _heads(x, p["wk"], cfg.n_kv_heads, cfg),
-            _heads(x, p["wv"], cfg.n_kv_heads, cfg))
+              cfg: ModelConfig, shard: ShardFn) -> tuple[torch.Tensor, ...]:
+    return (_heads(x, p["wq"], cfg.n_heads, cfg, shard),
+            _heads(x, p["wk"], cfg.n_kv_heads, cfg, shard),
+            _heads(x, p["wv"], cfg.n_kv_heads, cfg, shard))
+
+
+def _out(p: dict[str, torch.Tensor], out: torch.Tensor, cfg: ModelConfig,
+         shard: ShardFn) -> torch.Tensor:
+    """The attention output (B, S, H, hd) through ``p["wo"]``."""
+    B, S = out.shape[:2]
+    return out.reshape(B, S, cfg.q_dim) @ weight(
+        p["wo"], cfg.compute_dtype, shard, heads=(0, cfg.n_heads))
 
 
 def whisper_init(gen: torch.Generator, cfg: ModelConfig, device
@@ -134,12 +143,9 @@ def encode(params: dict[str, Any], frames: torch.Tensor, cfg: ModelConfig,
 def _encoder_layer(lp: dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
                    shard: ShardFn) -> torch.Tensor:
     """One pre-norm encoder layer: bidirectional self-attention, MLP."""
-    cd = cfg.compute_dtype
-    B, T, _ = x.shape
     normed = apply_norm(lp["attn_norm"], x, cfg)
-    q, k, v = _proj_qkv(lp["attn"], normed, cfg)
-    out = mha(q, k, v, None, cfg).reshape(B, T, cfg.q_dim)
-    x = x + out @ lp["attn"]["wo"].to(cd)
+    q, k, v = _proj_qkv(lp["attn"], normed, cfg, shard)
+    x = x + _out(lp["attn"], mha(q, k, v, None, cfg), cfg, shard)
     x = x + apply_mlp(lp["mlp"], apply_norm(lp["mlp_norm"], x, cfg), cfg,
                       shard)
     return shard(x, ("batch", "seq", "embed"))
@@ -210,12 +216,11 @@ def _decoder_layer(lp: dict[str, Any], x: torch.Tensor,
     cross-attention over ``enc_out`` (its K/V written to the cache when
     ``build_cross`` and a cache is given; read from there when not
     ``build_cross``), MLP."""
-    cd = cfg.compute_dtype
-    B, S = x.shape[:2]
+    S = x.shape[1]
     dev = x.device
     # causal self-attention, cached or not
     q, k, v = _proj_qkv(lp["self_attn"],
-                        apply_norm(lp["self_norm"], x, cfg), cfg)
+                        apply_norm(lp["self_norm"], x, cfg), cfg, shard)
     if cache is None:
         out = mha(q, k, v, causal_mask(S, S, device=dev), cfg)
     else:
@@ -225,22 +230,22 @@ def _decoder_layer(lp: dict[str, Any], x: torch.Tensor,
         qpos = cache_len + torch.arange(S, device=dev)[:, None]
         valid = torch.arange(L, device=dev)[None, :] <= qpos
         out = mha(q, ck, cv, valid[None, None], cfg)
-    x = x + out.reshape(B, S, cfg.q_dim) @ lp["self_attn"]["wo"].to(cd)
+    x = x + _out(lp["self_attn"], out, cfg, shard)
 
     # cross-attention over the encoder states
     xa = lp["cross_attn"]
     qc = _heads(apply_norm(lp["cross_norm"], x, cfg), xa["wq"],
-                cfg.n_heads, cfg)
+                cfg.n_heads, cfg, shard)
     if build_cross:
-        kc = _heads(enc_out, xa["wk"], cfg.n_kv_heads, cfg)
-        vc = _heads(enc_out, xa["wv"], cfg.n_kv_heads, cfg)
+        kc = _heads(enc_out, xa["wk"], cfg.n_kv_heads, cfg, shard)
+        vc = _heads(enc_out, xa["wv"], cfg.n_kv_heads, cfg, shard)
         if cache is not None:
             copy_into(cache["xk"][i], kc)
             copy_into(cache["xv"][i], vc)
     else:
         kc, vc = cache["xk"][i], cache["xv"][i]
     out = mha(qc, kc, vc, None, cfg)
-    x = x + out.reshape(B, S, cfg.q_dim) @ xa["wo"].to(cd)
+    x = x + _out(xa, out, cfg, shard)
     x = x + apply_mlp(lp["mlp"], apply_norm(lp["mlp_norm"], x, cfg), cfg,
                       shard)
     return shard(x, ("batch", "seq", "embed"))
@@ -254,7 +259,7 @@ def decode(params: dict[str, Any], tokens: torch.Tensor,
     """``decode_hidden`` then the LM head: (logits (B, S, V) in the
     compute dtype, sharded over ``vocab``, the new cache)."""
     x, cache = decode_hidden(params, tokens, enc_out, cfg, cache, shard)
-    return shard(x @ params["lm_head"].to(cfg.compute_dtype),
+    return shard(x @ weight(params["lm_head"], cfg.compute_dtype, shard),
                  ("batch", "seq", "vocab")), cache
 
 

@@ -29,8 +29,11 @@ Dtypes are ``repro``'s: the mLSTM state returns in the compute dtype
 
 ``shard`` is ``repro``'s shard points: the residual stream after the
 embedding and after each block, and the vocab-sharded logits.  Under a
-mesh the mLSTM runs on DTensors; the sLSTM's token loop runs on each
-rank's own batch rows as plain tensors (``_slstm_rows_local``).
+mesh the projections run on DTensors, each weight gathered over its
+FSDP dims (``common.py::weight``); the mLSTM's recurrence runs on each
+rank's own batch rows and heads (``_mlstm_heads_local``) and the
+sLSTM's token loop on its own batch rows (``_slstm_rows_local``), as
+plain tensors.
 """
 
 from __future__ import annotations
@@ -48,12 +51,12 @@ from repro_torch.models.common import (
     embed_init,
     is_dtensor,
     no_shard,
+    weight,
 )
 from repro_torch.models.layers import (
     apply_norm,
     embed_rows,
     norm_init,
-    split_whole,
 )
 
 _CLIP = 8.0
@@ -130,6 +133,66 @@ def _mlstm_chunk(qc, kc, vc, lic, lfc, C_in, n_in):
     return h, C_out, n_out
 
 
+def _mlstm_scan(qf, kf, vf, logi, logf, state, L: int):
+    """The mLSTM's recurrence over qf/kf/vf (B, S, H, dh) f32 and the
+    gates' logi/logf (B, S, H) f32 from ``state`` = (C, n), zeros if
+    None: one recurrent step for S = 1, else chunks of L tokens ->
+    (h (B, S, H, dh), (C, n))."""
+    B, S, H, dh = qf.shape
+    if state is None:
+        C = qf.new_zeros((B, H, dh, dh))
+        n = qf.new_zeros((B, H, dh))
+    else:
+        C, n = state[0].float(), state[1].float()
+    if S == 1:
+        f = torch.exp(logf[:, 0])                           # (B, H)
+        i = torch.exp(logi[:, 0])
+        C = f[..., None, None] * C + i[..., None, None] * (
+            kf[:, 0, :, :, None] * vf[:, 0, :, None, :])
+        n = f[..., None] * n + i[..., None] * kf[:, 0]
+        num = torch.einsum("bhkv,bhk->bhv", C, qf[:, 0])
+        den = torch.einsum("bhk,bhk->bh", n, qf[:, 0]).abs().clamp_min(1.0)
+        return (num / den[..., None])[:, None], (C, n)     # (B, 1, H, dh)
+    hs = []
+    for c in range(0, S, L):
+        part = slice(c, c + L)
+        h_c, C, n = _mlstm_chunk(qf[:, part], kf[:, part], vf[:, part],
+                                 logi[:, part], logf[:, part], C, n)
+        hs.append(h_c)
+    return (hs[0] if len(hs) == 1 else torch.cat(hs, dim=1)), (C, n)
+
+
+def _mlstm_heads_local(qf, kf, vf, logi, logf, state, L: int):
+    """``_mlstm_scan`` over DTensors, on each rank's own batch rows and
+    heads: the recurrence is per (row, head), so a rank runs it on plain
+    tensors.  On DTensors its einsums fold a sharded batch and sharded
+    heads into one dim, which DTensor lays out as a strided shard and
+    redistributes index by index.  Every input is cut to the rank's
+    block (the gates, whole over the heads, by a local slice), so each
+    block's gradient is whole on its rank; the outputs come back as
+    DTensors laid out as q (h) and as the state (C, n)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = qf.device_mesh
+    qp = [p if p in (Shard(0), Shard(2)) else Replicate()
+          for p in qf.placements]
+    sp = [Shard(1) if p == Shard(2) else p for p in qp]
+
+    def local(x, want):
+        if not is_dtensor(x):
+            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return x.redistribute(mesh, want).to_local()
+
+    if state is not None:
+        state = tuple(local(t, sp) for t in state)
+    h, (C, n) = _mlstm_scan(*(local(t, qp) for t in (qf, kf, vf, logi,
+                                                    logf)), state, L)
+    return (DTensor.from_local(h, mesh, qp, run_check=False),
+            tuple(DTensor.from_local(t, mesh, sp, run_check=False)
+                  for t in (C, n)))
+
+
 def _logsigmoid(z: torch.Tensor) -> torch.Tensor:
     """``F.logsigmoid``; on a DTensor, of each rank's shard (a
     ``Partial`` made whole first): DTensor has no rule for its
@@ -148,7 +211,8 @@ def _logsigmoid(z: torch.Tensor) -> torch.Tensor:
 
 def apply_mlstm(p: dict[str, torch.Tensor], x: torch.Tensor,
                 cfg: ModelConfig,
-                state: tuple[torch.Tensor, torch.Tensor] | None = None
+                state: tuple[torch.Tensor, torch.Tensor] | None = None,
+                shard: ShardFn = no_shard
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """x (B, S, d) -> (out (B, S, d), state); ``state`` = (C (B, H, dh,
     dh), n (B, H, dh)), zeros if None, returned in the compute dtype.
@@ -159,44 +223,24 @@ def apply_mlstm(p: dict[str, torch.Tensor], x: torch.Tensor,
     H = cfg.n_heads
     _, dh = mlstm_dims(cfg)
 
-    q, k, v = (split_whole(x @ p[w].to(cd), 2, H).reshape(B, S, H, dh)
-               for w in ("wq", "wk", "wv"))
+    def w(name: str, heads: tuple[int, int] | None = None) -> torch.Tensor:
+        return weight(p[name], cd, shard, heads)
+
+    q, k, v = ((x @ w(name, (1, H))).reshape(B, S, H, dh)
+               for name in ("wq", "wk", "wv"))
     k = k / math.sqrt(float(dh))
-    logi = torch.clamp((x @ p["wi"].to(cd)).float(), -_CLIP, _CLIP)
-    logf = _logsigmoid((x @ p["wf"].to(cd)).float())
-    og = torch.sigmoid(x @ p["wog"].to(cd))
-    qf, kf, vf = q.float(), k.float(), v.float()
-
-    if state is None:
-        C = x.new_zeros((B, H, dh, dh), dtype=torch.float32)
-        n = x.new_zeros((B, H, dh), dtype=torch.float32)
-    else:
-        C, n = state[0].float(), state[1].float()
-
-    if S == 1:
-        f = torch.exp(logf[:, 0])                           # (B, H)
-        i = torch.exp(logi[:, 0])
-        C = f[..., None, None] * C + i[..., None, None] * (
-            kf[:, 0, :, :, None] * vf[:, 0, :, None, :])
-        n = f[..., None] * n + i[..., None] * kf[:, 0]
-        num = torch.einsum("bhkv,bhk->bhv", C, qf[:, 0])
-        den = torch.einsum("bhk,bhk->bh", n, qf[:, 0]).abs().clamp_min(1.0)
-        h = (num / den[..., None])[:, None]                 # (B, 1, H, dh)
-    else:
-        L = min(cfg.xlstm.chunk, S)
-        if S % L:
-            raise ValueError(f"sequence of {S} is no multiple of the "
-                             f"mLSTM chunk {L}")
-        hs = []
-        for c in range(0, S, L):
-            part = slice(c, c + L)
-            h_c, C, n = _mlstm_chunk(qf[:, part], kf[:, part], vf[:, part],
-                                     logi[:, part], logf[:, part], C, n)
-            hs.append(h_c)
-        h = hs[0] if len(hs) == 1 else torch.cat(hs, dim=1)
+    logi = torch.clamp((x @ w("wi")).float(), -_CLIP, _CLIP)
+    logf = _logsigmoid((x @ w("wf")).float())
+    og = torch.sigmoid(x @ w("wog"))
+    L = S if S == 1 else min(cfg.xlstm.chunk, S)
+    if S % L:
+        raise ValueError(f"sequence of {S} is no multiple of the "
+                         f"mLSTM chunk {L}")
+    scan = _mlstm_heads_local if is_dtensor(q) else _mlstm_scan
+    h, (C, n) = scan(q.float(), k.float(), v.float(), logi, logf, state, L)
 
     out = _head_groupnorm(h.to(cd), p["gn_scale"], H) * og
-    return out @ p["wo"].to(cd), (C.to(cd), n.to(cd))
+    return out @ w("wo"), (C.to(cd), n.to(cd))
 
 
 # --------------------------------------------------------------------- #
@@ -227,7 +271,8 @@ def slstm_init(gen: torch.Generator, cfg: ModelConfig, device
 
 def apply_slstm(p: dict[str, torch.Tensor], x: torch.Tensor,
                 cfg: ModelConfig,
-                state: tuple[torch.Tensor, ...] | None = None
+                state: tuple[torch.Tensor, ...] | None = None,
+                shard: ShardFn = no_shard
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
     """x (B, S, d) -> (out (B, S, d), state); ``state`` = (h, c, n, m),
     each (B, d) f32, zeros if None.  A recurrent loop over the S tokens,
@@ -251,9 +296,9 @@ def apply_slstm(p: dict[str, torch.Tensor], x: torch.Tensor,
     ms = (hs * hs).mean(dim=-1, keepdim=True)
     hs = (hs * torch.rsqrt(ms + 1e-6) * p["gn_scale"].float()).to(cd)
     ff = p["up"].shape[1] // 2
-    u = hs @ p["up"].to(cd)
+    u = hs @ weight(p["up"], cd, shard)
     hs = F.gelu(u[..., :ff], approximate="tanh") * u[..., ff:]
-    return hs @ p["down"].to(cd), state
+    return hs @ weight(p["down"], cd, shard), state
 
 
 def _slstm_scan(xw: torch.Tensor, r: torch.Tensor,
@@ -361,7 +406,7 @@ def xlstm_hidden(params: dict[str, Any], tokens: torch.Tensor,
         st = state[i] if state is not None else None
         normed = apply_norm(blk["norm"], x, cfg)
         apply = apply_mlstm if kind == "mlstm" else apply_slstm
-        out, st = apply(blk[kind], normed, cfg, st)
+        out, st = apply(blk[kind], normed, cfg, st, shard)
         x = shard(x + out, ("batch", "seq", "embed"))
         new_states.append(st)
     return apply_norm(params["final_norm"], x, cfg), new_states
@@ -374,7 +419,7 @@ def xlstm_lm_apply(params: dict[str, Any], tokens: torch.Tensor,
     """tokens (B, S) -> (logits (B, S, V) in the compute dtype, the new
     per-layer states); the logits sharded over ``vocab``."""
     x, states = xlstm_hidden(params, tokens, cfg, state, shard)
-    return shard(x @ params["embed"].T.to(cfg.compute_dtype),
+    return shard(x @ weight(params["embed"], cfg.compute_dtype, shard).T,
                  ("batch", "seq", "vocab")), states
 
 

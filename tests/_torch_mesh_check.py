@@ -91,7 +91,7 @@ ONLY_ON_4 = ("qwen3-6heads", "granite-6experts")
 OTHER_ARCHS = ("qwen3-14b", "dbrx-132b")
 FAMILIES = ("granite", "granite-6experts", "hymba", "xlstm", "whisper")
 # the meshes that run the MoE, hybrid, xLSTM and Whisper cases
-FAMILY_MESHES = ((1, 2), (1, 4))
+FAMILY_MESHES = ((1, 2), (2, 2), (1, 4))
 B, S = 4, 48                 # train batch; the blocked prefill fills S
 PROMPT, SERVE_STEPS = 40, 8  # the served prefill, cache S
 GRID = 2                     # qwen2-vl: a 2 x 2 patch grid first

@@ -26,7 +26,16 @@ so it runs here.  Held:
   shards), its forward no (S, S) scores; the flash and decode stand-ins
   allocate the kernels' outputs and count their FLOPs (flash's over the
   visible pairs); the train cell's JSON labels its collectives as eager
-  DTensor's and lists the largest tensors at its peak.
+  DTensor's and lists the largest tensors at its peak;
+* the FSDP layout: at qwen3-14b's widths on (2, 4) and (16, 16) fake
+  meshes, and at one case a family (MoE, hybrid, xLSTM, Whisper, vlm)
+  on (2, 4), no rank allocates a tensor of the global batch's (B, S)
+  (nor, for qwen3-14b, its own rows at the whole ``d_ff``): each weight
+  is gathered over its FSDP dims at its use (``models/common.py::
+  weight``, held on its own: no collective without an FSDP dim, one
+  all-gather of the compute dtype with one, and its gradient back in
+  the parameter's placement through one reduce-scatter), and a shard
+  point lays out the gradient as it lays out the value.
 
 The four cells run at once, one subprocess each, with one OpenMP thread.
 """
@@ -296,15 +305,16 @@ def test_live_bytes_meta_equals_cpu_for_a_sharded_train_step():
     assert reports["meta"][0] > 0
 
 
-def smoke_step_on_fake_mesh(forward_only: bool = False):
-    """The smoke qwen3-0.6b (blocked, ``remat="full"``), B=8, S=24, on a
-    (2, 4) mesh of a fake group of 8, on meta tensors under
-    ``live_bytes_mode``: the whole train step, or ``train_loss``'s
-    forward alone; returns the tracker."""
+def step_on_fake_mesh(cfg, mesh_shape: tuple[int, int], B: int, S: int,
+                      forward_only: bool = False):
+    """``cfg``'s train step on a global batch of B sequences of S (the
+    inputs of ``Model.input_specs``), on a ``mesh_shape`` (data, model)
+    mesh of a fake group, on meta tensors under ``live_bytes_mode``: the
+    whole step, or ``train_loss``'s forward alone; returns the
+    tracker."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    from repro_torch.configs import get_smoke_config
     from repro_torch.distributed.sharding import (
         BASELINE_RULES,
         make_shard_fn,
@@ -317,21 +327,19 @@ def smoke_step_on_fake_mesh(forward_only: bool = False):
         make_train_step,
         train_state_shardings,
     )
-    from repro_torch.models.api import Model
+    from repro_torch.models.api import Model, ShapeSpec
     from repro_torch.optim import adamw, constant
     from repro_torch.utils.tree import tree_leaves
 
-    cfg = get_smoke_config("qwen3-0.6b").replace(attn_impl="blocked")
-    assert cfg.remat == "full"
     assert not dist.is_initialized()
-    dryrun.join_fake_group(8)
+    dryrun.join_fake_group(mesh_shape[0] * mesh_shape[1])
     try:
-        mesh = init_device_mesh("cpu", (2, 4),
+        mesh = init_device_mesh("cpu", mesh_shape,
                                 mesh_dim_names=("data", "model"))
         model, opt = Model(cfg, "meta"), adamw()
         state = init_train_state(model, opt, torch.Generator())
-        batch = {k: torch.empty((8, 24), dtype=torch.int32, device="meta")
-                 for k in ("tokens", "labels")}
+        batch = dryrun._meta_inputs(model.input_specs(
+            ShapeSpec("layout", "train", S, B)))
         sh = (train_state_shardings(mesh, state, BASELINE_RULES),
               batch_shardings(mesh, batch, BASELINE_RULES))
         state, batch = (place(a, s, mesh) for a, s in zip((state, batch),
@@ -357,6 +365,32 @@ def smoke_step_on_fake_mesh(forward_only: bool = False):
     return live
 
 
+def smoke_step_on_fake_mesh(forward_only: bool = False):
+    """The smoke qwen3-0.6b (blocked, ``remat="full"``), B=8, S=24, on a
+    (2, 4) mesh of a fake group of 8 (``step_on_fake_mesh``)."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("qwen3-0.6b").replace(attn_impl="blocked")
+    assert cfg.remat == "full"
+    return step_on_fake_mesh(cfg, (2, 4), 8, 24, forward_only)
+
+
+def global_batch(allocs, cfg, mesh_shape, B: int, S: int) -> list:
+    """The allocations whose leading dims are the global batch's (B, S),
+    but one named exception that only looks like it: the ``aten::bmm``
+    of the flash kernel's plain backward
+    (``kernels/flash_attention/ref.py::mha_reference``, whose einsums
+    fold a rank's B / data batch rows and its kv heads into one dim),
+    (B / data * kv heads a rank, S, hd), which is (B, S, hd) wherever a
+    rank holds 2 kv heads on a data axis of 2."""
+    data, model = mesh_shape
+    kv = cfg.n_kv_heads
+    kv_local = kv // model if kv % model == 0 else kv
+    flash = ("aten::bmm", (B // data * kv_local, S, cfg.hd))
+    return [a for a in allocs if tuple(a[1][:2]) == (B, S)
+            and (a[0], tuple(a[1])) != flash]
+
+
 def test_sharded_step_allocates_no_global_batch_and_no_whole_vocab():
     """Every tensor the step allocates on a rank holds the rank's 4 of
     the 8 rows at most, and at most its 128 of the 512 vocab entries."""
@@ -374,6 +408,192 @@ def test_blocked_forward_allocates_no_scores():
     assert [a for a in allocs if tuple(a[1][-2:]) == (24, 24)] == []
     flash = [a for a in allocs if a[0] == "repro_torch::flash_attention"]
     assert [tuple(a[1]) for a in flash] == [(4, 1, 24, 16)] * 2
+
+
+# qwen3-14b's widths, 1 layer, vocab 4096, blocked, ``remat="full"``:
+# (2, 4) with B=8, S=512, and the production mesh with B=256, S=512
+ANALOGS = {"2x4": ((2, 4), 8), "16x16": ((16, 16), 256)}
+
+
+@pytest.mark.parametrize("analog", ANALOGS)
+def test_qwen3_14b_analog_allocates_no_global_batch(analog):
+    """At widths where DTensor, left to itself, gathered or all-reduced
+    the activations of the whole batch beside a weight sharded over
+    ``data`` (46 allocations of the global (8, 512) at the (2, 4)
+    analog, 14 of (256, 512) at the (16, 16) one), the step
+    gathers each weight over its FSDP dims at its use
+    (``models/common.py::weight``): no rank allocates a tensor of the
+    global batch's (B, S), nor one of its own rows at the whole
+    ``d_ff``."""
+    from repro_torch.configs import get_config
+
+    mesh_shape, B = ANALOGS[analog]
+    S = 512
+    cfg = get_config("qwen3-14b").replace(n_layers=1, vocab=4096,
+                                          attn_impl="blocked")
+    assert cfg.remat == "full"
+    allocs = step_on_fake_mesh(cfg, mesh_shape, B, S).allocations()
+    assert len(allocs) > 500
+    assert global_batch(allocs, cfg, mesh_shape, B, S) == []
+    rows = B // mesh_shape[0]
+    assert [a for a in allocs if a[1][-1:] == (cfg.d_ff,) and (
+        a[1][0] == rows * S or tuple(a[1][:2]) == (rows, S))] == []
+
+
+# one case a family, on (2, 4): each at a size where, without the
+# weight gather, DTensor allocated tensors of the global batch
+XLSTM_PAIR = {"slstm_every": 2, "slstm_offset": 1}   # an mLSTM, an sLSTM
+FAMILY_LAYOUTS = {
+    "granite-moe-3b-a800m": (64, {"n_layers": 1, "attn_impl": "blocked"}),
+    "hymba-1.5b": (96, {"n_layers": 1, "attn_impl": "blocked"}),
+    "xlstm-125m": (32, {"n_layers": 2}),
+    "whisper-large-v3": (64, {"n_layers": 1, "enc_layers": 1,
+                              "enc_seq": 64}),
+    "qwen2-vl-72b": (64, {"n_layers": 1, "attn_impl": "blocked"}),
+}
+
+
+@pytest.mark.parametrize("arch", FAMILY_LAYOUTS)
+def test_family_step_allocates_no_global_batch(arch):
+    """The MoE, hybrid, xLSTM, Whisper and vlm train steps at their full
+    widths (cut in depth, vocab 4096), B=8 on a (2, 4) mesh: no rank
+    allocates a tensor of the global batch's (B, S)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    S, over = FAMILY_LAYOUTS[arch]
+    cfg = get_config(arch)
+    if cfg.xlstm is not None:
+        over = dict(over, xlstm=dataclasses.replace(cfg.xlstm, **XLSTM_PAIR))
+    cfg = cfg.replace(vocab=4096, **over)
+    allocs = step_on_fake_mesh(cfg, (2, 4), 8, S).allocations()
+    assert len(allocs) > 500
+    assert global_batch(allocs, cfg, (2, 4), 8, S) == []
+
+
+def weight_on_fake_mesh(mesh_shape, placements, rules):
+    """A (64, 32) f32 weight on meta, laid out on ``placements`` of a
+    ``mesh_shape`` (data, model) mesh of a fake group, with the shard
+    function of ``rules`` and the mesh (the caller leaves the group)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.sharding import make_shard_fn
+    from repro_torch.launch import dryrun
+
+    dryrun.join_fake_group(mesh_shape[0] * mesh_shape[1])
+    mesh = init_device_mesh("cpu", mesh_shape,
+                            mesh_dim_names=("data", "model"))
+    w = distribute_tensor(torch.empty(64, 32, device="meta"), mesh,
+                          placements, src_data_rank=None)
+    return w, make_shard_fn(mesh, rules), mesh
+
+
+@pytest.mark.parametrize("mesh_shape,rules", [((1, 4), "baseline"),
+                                              ((2, 4), "zero1")],
+                         ids=["1x4-baseline", "2x4-zero1"])
+def test_weight_gathers_nothing_without_an_fsdp_dim(mesh_shape, rules):
+    """On (1, 4) the plan shards no weight over ``data`` (a dim of
+    extent 1 is ``Replicate()``); under ``ZERO1_RULES`` there is no
+    ``w_fsdp``, even for a weight split over ``data``: ``weight`` hands
+    back the very tensor in its dtype, with no collective."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.distributed.sharding import (
+        BASELINE_RULES,
+        ZERO1_RULES,
+        param_shardings,
+        placements,
+    )
+    from repro_torch.models.common import weight
+
+    rules = {"baseline": BASELINE_RULES, "zero1": ZERO1_RULES}[rules]
+    try:
+        mesh = dict(zip(("data", "model"), mesh_shape))
+        spec = param_shardings(mesh, {"attn": {"wq": torch.empty(64, 32)}},
+                               BASELINE_RULES)["attn"]["wq"]
+        w, shard, dmesh = weight_on_fake_mesh(mesh_shape, [
+            Shard(0), Shard(1)] if rules is ZERO1_RULES else
+            [Replicate(), Shard(1)], rules)
+        if rules is BASELINE_RULES:
+            assert list(w.placements) == placements(spec, dmesh)
+        with CommDebugMode() as comm:
+            got = weight(w, torch.float32, shard)
+        assert got is w
+        assert comm.get_total_counts() == 0
+    finally:
+        dist.destroy_process_group()
+
+
+def test_weight_gathers_over_data_and_reduce_scatters_its_gradient():
+    """On (2, 4) a (w_fsdp, w_model) weight, Shard(0) over ``data`` and
+    Shard(1) over ``model``, comes back Replicate over ``data`` with its
+    ``model`` shard kept, cast before the gather (one all-gather, of
+    bf16); a product with each rank's batch rows gives the weight's
+    gradient in the parameter's placement through one reduce-scatter."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import (
+        DTensor,
+        Replicate,
+        Shard,
+        distribute_tensor,
+    )
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.distributed.sharding import BASELINE_RULES
+    from repro_torch.launch import dryrun
+    from repro_torch.models.common import weight
+
+    try:
+        w, shard, mesh = weight_on_fake_mesh((2, 4), [Shard(0), Shard(1)],
+                                             BASELINE_RULES)
+        w.requires_grad_()
+        coll = dryrun._collective_bytes_mode()
+        with CommDebugMode() as comm, coll:
+            got = weight(w, torch.bfloat16, shard)
+        assert isinstance(got, DTensor) and got.dtype == torch.bfloat16
+        assert got.placements == (Replicate(), Shard(1))
+        assert dryrun._comm_counts(comm) == {"all-gather": 1}
+        assert coll.bytes == {"all-gather": 32 * 8 * 2}   # a rank's bf16
+        x = distribute_tensor(torch.empty(8, 5, 64, device="meta",
+                                          dtype=torch.bfloat16),
+                              mesh, [Shard(0), Replicate()],
+                              src_data_rank=None)
+        y = x @ got
+        assert y.placements == (Shard(0), Shard(2))
+        with CommDebugMode() as comm:
+            (g,) = torch.autograd.grad(y, w, torch.ones_like(y))
+        assert g.placements == w.placements
+        assert dryrun._comm_counts(comm) == {"reduce-scatter": 1}
+    finally:
+        dist.destroy_process_group()
+
+
+def test_shard_point_lays_out_the_gradient_too():
+    """A shard point constrains the gradient as ``repro``'s
+    ``with_sharding_constraint`` does (its transpose is the same
+    constraint): the gradient of a (batch, seq, embed) point comes back
+    replicated over ``model``, whatever layout the ops after it gave."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.distributed.sharding import BASELINE_RULES
+
+    try:
+        _, shard, mesh = weight_on_fake_mesh((2, 4), [Shard(0), Shard(1)],
+                                             BASELINE_RULES)
+        x, c = (distribute_tensor(torch.empty(8, 5, 32, device="meta"),
+                                  mesh, p, src_data_rank=None)
+                for p in ([Shard(0), Replicate()], [Shard(0), Shard(2)]))
+        x.requires_grad_()
+        y = shard(x, ("batch", "seq", "embed"))
+        (g,) = torch.autograd.grad((y * c).sum(), x)
+        assert g.placements == (Shard(0), Replicate())
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 7),

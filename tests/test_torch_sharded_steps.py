@@ -56,11 +56,11 @@ ENV = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
 CHECK = os.path.join(ROOT, "tests", "_torch_mesh_check.py")
 MESHES = ["1,2", "2,2", "1,4"]
 CASES = ["qwen3-dense", "qwen3-blocked", "llama", "starcoder2", "qwen2-vl"]
-# the MoE, hybrid, xLSTM and Whisper cases ride the (1,2) and (1,4) jobs
-# only (``_torch_mesh_check.py::FAMILY_MESHES``): the suite's time
+# the MoE, hybrid, xLSTM and Whisper cases ride every job
+# (``_torch_mesh_check.py::FAMILY_MESHES``): on (2,2) their FSDP gathers
+# and reduce-scatters run
 FAMILIES = ["granite", "hymba", "xlstm", "whisper"]
-MESH_CASES = ([(m, c) for m in MESHES for c in CASES]
-              + [(m, c) for m in ("1,2", "1,4") for c in FAMILIES]
+MESH_CASES = ([(m, c) for m in MESHES for c in CASES + FAMILIES]
               + [("1,4", "qwen3-6heads"), ("1,4", "granite-6experts")])
 TOL = 1e-4
 CLI = ["--arch", "qwen3-0.6b", "--smoke", "--batch", "4", "--seq", "32",
